@@ -1,0 +1,114 @@
+"""Flash-attention forward on Hopper: ctypes binding of ``csrc/flash_fwd.cu``.
+
+The hand-written CUDA kernel that replaces the TPU Pallas kernel
+``repro.kernels.flash_attention.kernel._flash_fwd_kernel``; the source's
+header says how it is laid out and what bounds it.  It is built by nvcc at
+first use (``repro_torch.kernels._build``), never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from pathlib import Path
+
+import torch
+
+from .._build import build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+HEAD_DIMS = (32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: launches of the kernel in this process (chip_smoke.py reads it)
+LAUNCHES = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(SOURCE)))
+    lib.flash_fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_fwd.restype = ctypes.c_int
+    lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_attention: {name} is on {t.device}, "
+                             "not on a CUDA device")
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be 4-d "
+                             f"(B, H, S, D), got {tuple(t.shape)}")
+        if t.dtype not in DTYPES:
+            raise ValueError(f"flash_attention: {name} has dtype {t.dtype}; "
+                             "the kernel takes float32 and bfloat16")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name} needs stride 1 in D")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("flash_attention: q, k and v must share a dtype")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k and v must share a device")
+    B, Hq, Sq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    Hkv = k.shape[1]
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: Hq={Hq} is not a multiple of "
+                         f"Hkv={Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if Sq < 1 or B < 1 or B > 65535 or Hq > 65535:
+        raise ValueError(f"flash_attention: unsupported B={B}, Hq={Hq}, "
+                         f"Sq={Sq}")
+    # K and V tiles are read with 16-byte loads.
+    chunk = 16 // k.element_size()
+    for name, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(s % chunk for s in t.stride()[:3]):
+            raise ValueError(f"flash_attention: {name} strides "
+                             f"{t.stride()} or its address are not 16-byte "
+                             "aligned")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, kv_len: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), any strides with stride 1
+    in D.  Returns (B, Hq, Sq, D) in q's dtype, laid out like q.
+
+    Key j is seen by query row i iff ``j < kv_len`` and, when causal,
+    ``j <= q_offset + i``.  ``kv_len`` and ``q_offset`` are runtime values:
+    nothing is rebuilt when they change.
+    """
+    global LAUNCHES
+    _check(q, k, v)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kv_len = Sk if kv_len is None else min(int(kv_len), Sk)
+    if kv_len < 0 or q_offset < 0:
+        raise ValueError(f"flash_attention: kv_len={kv_len}, "
+                         f"q_offset={q_offset} must be >= 0")
+    out = torch.empty_like(q)
+    strides = []
+    for t in (q, k, v, out):
+        sb, sh, ss, _ = t.stride()
+        strides += [sb, ss, sh]
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            DTYPES[q.dtype], B, Hq, Hkv, Sq, D,
+            (ctypes.c_longlong * 12)(*strides), kv_len, int(q_offset),
+            int(causal), 1.0 / math.sqrt(D), stream)
+    if rc != 0:
+        raise RuntimeError("flash_fwd launch failed: "
+                           + lib.flash_fwd_error_string(rc).decode())
+    LAUNCHES += 1
+    return out

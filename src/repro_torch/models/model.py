@@ -1,0 +1,46 @@
+"""Model factory: ModelConfig -> {init, init_caches, prefill, decode}.
+
+Counterpart of ``repro.models.model`` for the dense family; the others
+raise ``NotImplementedError``.  ``prefill``/``decode`` update the caches
+they are given in place and return them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from .. import resolve_device
+from . import transformer as _tf
+from .common import ModelConfig, tree_defs_init
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    param_defs: Any
+
+    def init(self, seed: int = 0, *, device=None) -> dict:
+        """Random parameters from a ``torch.Generator`` seeded with
+        ``seed``, on ``device`` (default: the CUDA card)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return tree_defs_init(self.param_defs, gen, dev)
+
+    def init_caches(self, batch: int, max_len: int, *,
+                    cache_dtype=torch.bfloat16, device=None) -> dict:
+        """Zeroed KV caches {"blocks": {"k", "v": (L, B, Tmax, Hkv, hd)}}."""
+        dev = resolve_device(device)
+        defs = _tf.cache_def(self.cfg, batch, max_len, cache_dtype)
+        return tree_defs_init(defs, None, dev)
+
+    def prefill(self, params, batch: dict, caches):
+        return _tf.lm_prefill(params, self.cfg, batch, caches)
+
+    def decode(self, params, batch: dict, caches, cache_index: int):
+        return _tf.lm_decode(params, self.cfg, batch, caches, cache_index)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg=cfg, param_defs=_tf.lm_def(cfg))

@@ -1,0 +1,116 @@
+"""The port's attention (plain version on CPU tensors) against the JAX
+package: its oracle, its Pallas kernel in interpret mode, and the model's
+chunked XLA attention with a cache offset.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances are those of tests/test_kernels.py: 2e-5 in float32, 2e-2 in
+bfloat16 (bf16 rounds the output at 2^-8 relative).
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels.flash_attention import attention_ref as jax_attention_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.models.layers import chunked_attention
+from repro_torch.kernels.flash_attention import attention_ref, kernel, mha
+
+SHAPES = [
+    (1, 2, 2, 64, 64, 32, True),
+    (2, 4, 2, 128, 128, 64, True),      # GQA
+    (1, 4, 1, 96, 160, 32, False),      # MQA, unaligned, bidir
+    (1, 2, 2, 1, 256, 64, False),       # decode shape
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(seed, q_shape, kv_shape):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, q_shape).astype(np.float32),
+            rng.normal(0, 1, kv_shape).astype(np.float32),
+            rng.normal(0, 1, kv_shape).astype(np.float32))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal", SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_attention_ref_matches_jax_oracle(B, Hq, Hkv, Sq, Sk, D, causal,
+                                          dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(0, (B, Hq, Sq, D), (B, Hkv, Sk, D))
+    ref = jax_attention_ref(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                            jnp.asarray(v, jdt), causal=causal)
+    out = attention_ref(torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt),
+                        torch.from_numpy(v).to(tdt), causal=causal)
+    assert out.dtype == tdt and tuple(out.shape) == (B, Hq, Sq, D)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal", [SHAPES[0], SHAPES[2]])
+def test_mha_matches_pallas_kernel_interpret(B, Hq, Hkv, Sq, Sk, D, causal):
+    q, k, v = _inputs(0, (B, Hq, Sq, D), (B, Hkv, Sk, D))
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=causal, block_q=64, block_k=64, interpret=True)
+    # mha takes the model layout (B, S, H, D)
+    t = [torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)]
+    out = mha(*t, causal=causal).transpose(1, 2)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+
+
+def test_kv_len_mask():
+    q, k, v = _inputs(1, (1, 2, 8, 32), (1, 2, 128, 32))
+    ref = jax_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=False, kv_len=50)
+    pallas = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=False, kv_len=50, block_k=32, interpret=True)
+    out = attention_ref(*map(torch.from_numpy, (q, k, v)), causal=False,
+                        kv_len=50)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5)
+    np.testing.assert_allclose(_np(out), _np(pallas), atol=2e-5)
+    # keys beyond kv_len must not affect the output
+    k2 = k.copy()
+    k2[:, :, 50:] = 1e3
+    out2 = attention_ref(*map(torch.from_numpy, (q, k2, v)), causal=False,
+                         kv_len=50)
+    np.testing.assert_allclose(_np(out2), _np(ref), atol=2e-5)
+
+
+@pytest.mark.parametrize("Sq,q_offset,kv_len", [
+    (1, 39, 40),        # decode: one row at position 39 over a 64-slot cache
+    (12, 0, 12),        # prefill over a cache longer than the prompt
+    (5, 20, 25),        # a chunk appended at an offset
+])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mha_matches_chunked_attention_over_cache(Sq, q_offset, kv_len,
+                                                  dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    B, Hq, Hkv, Sk, D = 2, 4, 2, 64, 32
+    q, k, v = _inputs(2, (B, Sq, Hq, D), (B, Sk, Hkv, D))
+    ref = chunked_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        causal=True, chunk=16,
+        q_offset=jnp.full((B,), q_offset, jnp.int32), kv_len=kv_len)
+    out = mha(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+              causal=True, kv_len=kv_len, q_offset=q_offset)
+    assert tuple(out.shape) == (B, Sq, Hq, D)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=tol, rtol=tol)
+
+
+def test_cpu_tensors_never_launch_the_kernel():
+    before = kernel.LAUNCHES
+    q, k, v = _inputs(3, (1, 4, 2, 32), (1, 8, 2, 32))
+    mha(*map(torch.from_numpy, (q, k, v)), causal=True, kv_len=6, q_offset=4)
+    assert kernel.LAUNCHES == before == 0
+
+
+def test_kernel_wrapper_rejects_cpu_tensors():
+    q = torch.zeros(1, 2, 4, 32)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        kernel.flash_attention(q, q, q)
