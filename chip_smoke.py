@@ -3,33 +3,51 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a non-zero exit code:
+It drives both of the port's serving paths, stablelm-1.6b (every attention
+through the flash-attention kernel) and mamba2-1.3b (every prefill of every
+layer through the SSD-scan kernel).  Phases, in order; any failure ends the
+run with a non-zero exit code:
 
 1. the card's name and power limit (nvidia-smi), torch, CUDA and nvcc
    versions;
-2. the build of the flash-attention kernel from ``src/`` into
-   ``build/kernels/``, with nvcc's ``-Xptxas -v`` report;
-3. the kernel against its plain PyTorch version on the card, case by case
-   (float32 at 2e-5, bfloat16 at 2e-2, as tests/test_kernels.py), with
-   every attention call of the main path: its batches are formed by
-   ``serve.make_requests`` and ``serve.batched``, as ``serve.main`` forms
-   them;
-4. the main path: ``repro_torch.launch.serve.main`` serving 8 requests of
-   12 new tokens with stablelm-1.6b at full width (random weights from a
-   seed); the kernel's launch count must be 24 x (prefills + decode steps)
-   and the batches served must be those phase 3 checked;
-5. a profile (``torch.profiler``) of decode steps at the main path's first
-   batch: wall and device-busy time per step, kernels per step, the top
-   kernels and operators;
-6. the model on the card against the same model on the CPU, where
+2. the build of both kernels from ``src/`` into ``build/kernels/``, one
+   nvcc per source, started together, with nvcc's ``-Xptxas -v`` reports;
+3. the flash kernel against its plain PyTorch version on the card, case
+   by case (float32 at 2e-5, bfloat16 at 2e-2, as tests/test_kernels.py),
+   with every attention call of the stablelm path: its batches are formed
+   by ``serve.make_requests`` and ``serve.batched``, as ``serve.main``
+   forms them;
+3b. the SSD kernel against its plain version ``ssd_chunked``, y and final
+   state, in float32 and with bfloat16 x/B/C, at 1e-5 of the reference's
+   max (see ``SSD_TOL``): the shapes of tests/test_kernels.py, an initial
+   state, every prefill batch of the mamba2 path and a 4k prefill;
+4. the stablelm path: ``repro_torch.launch.serve.main`` serving 8 requests
+   of 12 new tokens with stablelm-1.6b at full width (random weights from a
+   seed); the flash kernel's launch count must be 24 x (prefills + decode
+   steps) and the batches served must be those phase 3 checked;
+5. a profile (``torch.profiler``) of decode steps at the stablelm path's
+   first batch: wall and device-busy time per step, kernels per step, the
+   top kernels and operators;
+6. the stablelm model on the card against the same model on the CPU, where
    attention takes the plain version: a reduced config, the full-width
    weights cut to 2 layers, and all 24 layers with the attention weights
    scaled to unit score variance (see ``unit_score_scale``);
-7. the kernel's device time beside its plain version's, SDPA's (a
+7. the flash kernel's device time beside its plain version's, SDPA's (a
    yardstick the port never calls) and its bound, at the serve shapes, a
    4k prefill and a 32k decode: CUDA events around replays of a CUDA graph
    of back-to-back calls, so the host's overhead does not count; the time
-   per call with that overhead (``host_ms``) is reported beside it.
+   per call with that overhead (``host_ms``) is reported beside it;
+4b. the mamba2 path: ``serve.main`` serving 8 requests of 12 new tokens
+   with mamba2-1.3b at full width; the SSD kernel's launch count must be
+   48 x prefills, the flash kernel's 0, and the batches served those
+   phase 3b checked;
+5b. a profile of one mamba2 prefill and of decode steps;
+6b. the mamba2 model on the card against the CPU: the smoke config, the
+   full-width weights cut to 2 layers and all 48 layers; and a prefill of
+   129 tokens against a prefill of 128 and one decode step, on the card
+   and, without the kernel, on the CPU;
+7b. the SSD kernel's device and host time beside its plain version's and
+   its bound, at the serve prefill and a 4k prefill.
 
 The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``; the full report goes to
@@ -39,16 +57,23 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 KERNEL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"
 REPLACES = "src/repro/kernels/flash_attention/kernel.py:29"
+SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu"
+SSD_REPLACES = "src/repro/kernels/ssd/kernel.py:27"
 
 BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 HBM_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth, bytes/s
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: SSD: 1e-5 of the reference's max |y| (and of its max |state|), as
+#: tests/test_kernels.py, in bfloat16 too: both sides upcast the same bf16
+#: values of x, B and C, so only the order of the fp32 sums differs.
+SSD_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -162,6 +187,97 @@ def run_kernel_checks(torch, kernel, mha, attention_ref, cases):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the SSD kernel against its plain version
+# ---------------------------------------------------------------------------
+def ssd_cases(batch_shapes, cfg):
+    """(name, B, T, H, P, G, N, chunk, layout, state0)."""
+    s = cfg.ssm
+    H, P, G, N = (s.n_ssm_heads(cfg.d_model), s.head_dim, s.n_groups,
+                  s.d_state)
+    cases = [(f"oracle B{B} T{T} H{Hh} P{Pp} G{Gg} N{Nn} chunk {c}",
+              B, T, Hh, Pp, Gg, Nn, c, "bthp", None)
+             for B, T, Hh, Pp, Gg, Nn, c in [      # tests/test_kernels.py
+                 (1, 32, 2, 8, 1, 8, 8),
+                 (2, 64, 4, 16, 2, 16, 16),
+                 (1, 50, 4, 8, 1, 8, 16)]]          # unaligned T
+    cases.append(("state0 B2 T50 H4 P16 G2 N16 chunk 16", 2, 50, 4, 16, 2,
+                  16, 16, "bthp", "random"))
+    cases.append(("state0 full width B2 T129", 2, 129, H, P, G, N, s.chunk,
+                  "conv", "random"))           # two chunks, the second of 1
+    # the main path's prefills: views of the conv output, zero state0
+    for B, T, _ in batch_shapes:
+        cases.append((f"serve prefill B{B} T{T}", B, T, H, P, G, N, s.chunk,
+                      "conv", "zeros"))
+    cases.append(("prefill 4k B1 T4096", 1, 4096, H, P, G, N, s.chunk,
+                  "conv", "zeros"))             # 32 chunks: the carry
+    return cases
+
+
+def ssd_inputs(torch, B, T, H, P, G, N, dtype, layout, state0, seed):
+    """x, dt, a, B_, C_, state0 on the card, drawn as tests/test_kernels.py
+    draws them.  Layout "conv": x, B_ and C_ are strided views of one
+    (B, T, H*P + 2*G*N) tensor, as the model passes its conv output."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    if layout == "conv":
+        conv = rnd(B, T, H * P + 2 * G * N).to(dtype)
+        x = conv[..., :H * P].unflatten(-1, (H, P))
+        B_ = conv[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+        C_ = conv[..., H * P + G * N:].unflatten(-1, (G, N))
+    else:
+        x = rnd(B, T, H, P).to(dtype)
+        B_, C_ = rnd(B, T, G, N).to(dtype), rnd(B, T, G, N).to(dtype)
+    dt = (0.05 + 0.02 * rnd(B, T, H)).abs()
+    a = -(1.0 + 0.3 * rnd(H)).abs()
+    if state0 == "random":
+        s0 = rnd(B, H, P, N)
+    elif state0 == "zeros":
+        s0 = torch.zeros(B, H, P, N, device="cuda")
+    else:
+        s0 = None
+    return x, dt, a, B_, C_, s0
+
+
+def run_ssd_checks(torch, ssd_scan, ssd, ssd_chunked, cases):
+    results = []
+    for i, (name, B, T, H, P, G, N, chunk, layout, state0) in \
+            enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            x, dt, a, B_, C_, s0 = ssd_inputs(torch, B, T, H, P, G, N, dtype,
+                                              layout, state0, seed=100 + i)
+            if layout == "conv":        # through the model's entry
+                y, st = ssd(x, dt, a, B_, C_, chunk=chunk, state0=s0)
+            else:
+                y, st = ssd_scan(x, dt, a, B_, C_, chunk=chunk, state0=s0)
+            ref_y, ref_st = ssd_chunked(x, dt, a, B_, C_, chunk, state0=s0)
+            torch.cuda.synchronize()
+            check(y.dtype == st.dtype == torch.float32
+                  and y.shape == ref_y.shape and st.shape == ref_st.shape,
+                  f"{name} {dname}: y {y.dtype} {tuple(y.shape)}, state "
+                  f"{st.dtype} {tuple(st.shape)}")
+            err_y = float((y - ref_y).abs().max())
+            err_st = float((st - ref_st).abs().max())
+            rel_y = err_y / float(ref_y.abs().max())
+            rel_st = err_st / float(ref_st.abs().max())
+            ok = (bool(torch.isfinite(y).all()) and rel_y <= SSD_TOL
+                  and rel_st <= SSD_TOL)
+            print(f"  {name:40s} {dname:9s} y err {rel_y:.3e} state err "
+                  f"{rel_st:.3e} x max (tol {SSD_TOL:g}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"SSD kernel disagrees with its plain version: {name} "
+                      f"{dname}, y {rel_y:.3e}, state {rel_st:.3e} x max")
+            results.append({"case": name, "dtype": dname,
+                            "max_abs_err": err_y, "state_max_abs_err": err_st,
+                            "rel_err": rel_y, "state_rel_err": rel_st,
+                            "serve": name.startswith("serve")})
+            del x, dt, a, B_, C_, s0, y, st, ref_y, ref_st
+    return results
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the model on the card against the model on the CPU
 # ---------------------------------------------------------------------------
 def to_device(tree, device):
@@ -241,31 +357,23 @@ def _device_us(event, inclusive: bool) -> float:
     return float(getattr(event, name, getattr(event, legacy, 0.0)))
 
 
-def profile_decode(torch, loop, kernel, B, T, steps=PROFILE_STEPS):
-    """``steps`` decode steps of the served model, batch ``B`` over a
-    prompt of ``T`` tokens, under torch.profiler: wall and device-busy time
-    per step (one stream, so device events do not overlap), kernels per
-    step, the top kernels and operators by device time."""
+def profile_steps(torch, fn, steps, marker, label, launches):
+    """``fn(s)`` for s in range(steps) under torch.profiler: wall and
+    device-busy time per step (one stream, so device events do not
+    overlap), kernels per step, the device time and launches per step of
+    the kernels whose name holds ``marker``, the top kernels and
+    operators by device time.  ``launches()`` reads the kernel's counter."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    gen = torch.Generator().manual_seed(3)
-    toks = torch.randint(0, loop.cfg.vocab, (B, T), generator=gen)
-    with torch.inference_mode():
-        caches = loop.model.init_caches(B, T + steps, device=loop.device)
-        logits, caches = loop.prefill(loop.params,
-                                      {"tokens": toks.to(loop.device)}, caches)
-        tok = torch.argmax(logits[:, -1], dim=-1)
+    torch.cuda.synchronize()
+    launches0 = launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(steps):
+            fn(s)
         torch.cuda.synchronize()
-        launches0 = kernel.LAUNCHES
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for s in range(steps):
-                tok, _, caches = loop.decode(loop.params,
-                                             {"tokens": tok[:, None]},
-                                             caches, T + s)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     kernels = [(e.key, _device_us(e, False), e.count) for e in events
                if e.device_type != DeviceType.CPU]
@@ -279,26 +387,64 @@ def profile_decode(torch, loop, kernel, B, T, steps=PROFILE_STEPS):
     ops = sorted(((k, us / 1e3 / steps, n) for k, us, n in ops),
                  key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
-    flash_ms = sum(ms for k, ms, _ in kernels if "flash_fwd" in k)
-    out = {"batch": B, "prompt": T, "steps": steps,
-            "wall_ms_per_step": wall_ms / steps,
-            "device_busy_ms_per_step": busy_ms,
-            "kernels_per_step": sum(n for _, _, n in kernels) / steps,
-            "flash_ms_per_step": flash_ms,
-            "flash_launches_per_step": (kernel.LAUNCHES - launches0) / steps,
-            "kernels": kernels[:40], "operators": ops[:40]}
-    print(f"  batch {B}, cache {T}+{steps}: wall {out['wall_ms_per_step']:.3f}"
-          f" ms/step, device busy {busy_ms:.3f} ms/step "
+    own_ms = sum(ms for k, ms, _ in kernels if marker in k)
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_busy_ms_per_step": busy_ms,
+           "kernels_per_step": sum(n for _, _, n in kernels) / steps,
+           f"{label}_ms_per_step": own_ms,
+           f"{label}_launches_per_step": (launches() - launches0) / steps,
+           "kernels": kernels[:40], "operators": ops[:40]}
+    print(f"  wall {out['wall_ms_per_step']:.3f} ms/step, device busy "
+          f"{busy_ms:.3f} ms/step "
           f"({100 * busy_ms / out['wall_ms_per_step']:.1f}%) over "
-          f"{out['kernels_per_step']:.0f} kernels, flash kernel "
-          f"{flash_ms:.4f} ms/step over {out['flash_launches_per_step']:.0f}"
-          " launches", flush=True)
+          f"{out['kernels_per_step']:.0f} kernels, {label} kernel "
+          f"{own_ms:.4f} ms/step ({100 * own_ms / busy_ms:.1f}% of busy) "
+          f"over {out[f'{label}_launches_per_step']:.0f} launches",
+          flush=True)
     print("  top kernels (ms/step, calls over all steps):")
     for k, ms, n in kernels[:12]:
         print(f"    {ms:9.4f}  {n:6d}  {k[:100]}")
     print("  top operators by inclusive device time (ms/step):")
     for k, ms, n in ops[:8]:
         print(f"    {ms:9.4f}  {n:6d}  {k}")
+    return out
+
+
+def profile_serve(torch, loop, kernel, marker, label, B, T,
+                  steps=PROFILE_STEPS, prefill=False):
+    """``steps`` decode steps of the served model, batch ``B`` over a
+    prompt of ``T`` tokens, under the profiler; with ``prefill`` the
+    prefill itself is profiled first, on its own."""
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, loop.cfg.vocab, (B, T),
+                         generator=gen).to(loop.device)
+    state = {}
+
+    def run_prefill(_):
+        state["caches"] = loop.model.init_caches(B, T + steps,
+                                                 device=loop.device)
+        logits, state["caches"] = loop.prefill(loop.params, {"tokens": toks},
+                                               state["caches"])
+        state["tok"] = torch.argmax(logits[:, -1], dim=-1)
+
+    def run_decode(s):
+        state["tok"], _, state["caches"] = loop.decode(
+            loop.params, {"tokens": state["tok"][:, None]}, state["caches"],
+            T + s)
+
+    def launches():
+        return kernel.LAUNCHES
+    out = {"batch": B, "prompt": T}
+    with torch.inference_mode():
+        if prefill:
+            print(f"  prefill, batch {B}, prompt {T}:", flush=True)
+            out["prefill"] = profile_steps(torch, run_prefill, 1, marker,
+                                           label, launches)
+        else:
+            run_prefill(0)
+        print(f"  decode, batch {B}, cache {T}+{steps}:", flush=True)
+        out["decode"] = profile_steps(torch, run_decode, steps, marker,
+                                      label, launches)
     return out
 
 
@@ -423,6 +569,110 @@ def run_timings(torch, mha, attention_ref, sdpa, serve_batch, H, D):
     return rows
 
 
+def ssd_bound(B, T, H, P, G, N, chunk, elem):
+    """Least time for the SSD scan on these inputs: HBM bytes (x, dt, B_,
+    C_ and state0 read once; y and the final state written once) at the
+    HBM rate against operations at the bf16 peak, per chunk of L rows:
+    scores 2 L^2 N per group, and per head intra 2 L^2 P, inter 2 L N P
+    and the state update 2 L N P."""
+    L = min(chunk, T)
+    flops = 0
+    for t0 in range(0, T, L):
+        rows = min(L, T - t0)
+        flops += B * (G * 2 * rows * rows * N
+                      + H * (2 * rows * rows * P + 4 * rows * N * P))
+    nbytes = (elem * B * T * (H * P + 2 * G * N) + 4 * B * T * H
+              + 4 * B * T * H * P + 2 * 4 * B * H * P * N)
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def run_ssd_timings(torch, ssd, ssd_chunked, cfg, serve_batch):
+    """bf16 x/B/C as the model passes them (views of the conv output, zero
+    state0), at the main path's first prefill and at a 4k prefill."""
+    s = cfg.ssm
+    H, P, G, N = (s.n_ssm_heads(cfg.d_model), s.head_dim, s.n_groups,
+                  s.d_state)
+    rows = []
+    for name, B, T in [("serve prefill", serve_batch[0], serve_batch[1]),
+                       ("prefill 4k", 1, 4096)]:
+        x, dt, a, B_, C_, s0 = ssd_inputs(torch, B, T, H, P, G, N,
+                                          torch.bfloat16, "conv", "zeros", 7)
+
+        def kern():
+            return ssd(x, dt, a, B_, C_, chunk=s.chunk, state0=s0)
+
+        def plain():
+            return ssd_chunked(x, dt, a, B_, C_, s.chunk, state0=s0)
+        b_ms, b_by = ssd_bound(B, T, H, P, G, N, s.chunk, 2)
+        row = {"shape": name, "B": B, "T": T, "H": H, "P": P, "G": G, "N": N,
+               "chunk": s.chunk, "dtype": "bfloat16",
+               "ms": device_ms(torch, kern),
+               "plain_ms": device_ms(torch, plain),
+               "library_ms": None,
+               "library": "none: no single PyTorch call computes the SSD "
+                          "scan",
+               "host_ms": host_ms(torch, kern),
+               "plain_host_ms": host_ms(torch, plain),
+               "bound_ms": b_ms, "bound_by": b_by}
+        print(f"  {name:14s} B{B} T{T}: device: kernel {row['ms']:9.4f} ms "
+              f" plain {row['plain_ms']:9.4f} ms  bound {b_ms:9.4f} ms "
+              f"({b_by}); host per call: kernel {row['host_ms']:9.4f} ms  "
+              f"plain {row['plain_host_ms']:9.4f} ms", flush=True)
+        rows.append(row)
+        del x, dt, a, B_, C_, s0
+        torch.cuda.empty_cache()
+    return rows
+
+
+def prefill_decode_consistency(torch, build_model, cfg, params, B, T, tol,
+                               label, device="cuda"):
+    """The last logits of a prefill over T + 1 tokens against a prefill
+    over T tokens and one decode step, to ``tol`` x max|logit|.  With
+    T = chunk the long prefill ends in a chunk of one token, so on the card
+    the kernel's ragged edge and carried state meet the decode recurrence;
+    on the CPU (``device="cpu"``) the same check runs without the kernel
+    and shows how far fp32 rounding alone moves it."""
+    model = build_model(cfg)
+    params = to_device(params, device)
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (B, T + 1), generator=gen).to(device)
+    with torch.inference_mode():
+        full, _ = model.prefill(params, {"tokens": toks},
+                                model.init_caches(B, T + 1, device=device,
+                                                  cache_dtype=cfg.dtype))
+        caches = model.init_caches(B, T + 1, device=device,
+                                   cache_dtype=cfg.dtype)
+        _, caches = model.prefill(params, {"tokens": toks[:, :T]}, caches)
+        dec, _ = model.decode(params, {"tokens": toks[:, T:]}, caches, T)
+    full, dec = full[:, -1].float(), dec[:, -1].float()
+    check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
+          f"{label}: non-finite logits")
+    rel = float((full - dec).abs().max() / full.abs().max())
+    print(f"  {label}, {device}: prefill {T + 1} against prefill {T} + 1 "
+          f"decode step: {rel:.3e} x max|logit| (tol {tol})", flush=True)
+    check(rel <= tol, f"{label}, {device}: {rel:.3e} x max|logit| "
+                      f"(tol {tol})")
+    return rel
+
+
+def serve_batches(serve, vocab, n_requests, max_new):
+    """(B, T, steps) of the batches ``serve.main`` forms for ``vocab``."""
+    return [(len(b), max(len(r.prompt) for r in b), max(r.max_new for r in b))
+            for b in serve.batched(serve.make_requests(vocab, n_requests,
+                                                       max_new))]
+
+
+def check_served(summary, cfg, n_requests, max_new):
+    check(summary["requests"] == n_requests
+          and summary["tokens"] == n_requests * max_new,
+          f"served {summary['requests']} requests, {summary['tokens']} tokens")
+    for r in summary["done"]:
+        check(len(r.out) == max_new and all(0 <= t < cfg.vocab for t in r.out),
+              f"request {r.rid}: tokens {r.out}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -439,16 +689,17 @@ def main() -> int:
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import attention_ref, kernel, mha
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_scan
     from repro_torch.launch import serve
     from repro_torch.models import build_model
 
     cfg = get_config("stablelm-1.6b")
+    mcfg = get_config("mamba2-1.3b")
     H, D = cfg.n_heads, cfg.resolved_head_dim()
     n_requests, max_new = 8, 12
-    batch_shapes = [
-        (len(b), max(len(r.prompt) for r in b), max(r.max_new for r in b))
-        for b in serve.batched(serve.make_requests(cfg.vocab, n_requests,
-                                                   max_new))]
+    batch_shapes = serve_batches(serve, cfg.vocab, n_requests, max_new)
+    mbatch_shapes = serve_batches(serve, mcfg.vocab, n_requests, max_new)
 
     t_start = time.time()
     print("== phase 1: card", flush=True)
@@ -460,23 +711,34 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc {nvcc_v[-1]}, python {sys.version.split()[0]}", flush=True)
 
-    print("== phase 2: build", flush=True)
+    print("== phase 2: build (one nvcc per source, started together)",
+          flush=True)
     t0 = time.time()
-    lib = _build.build(kernel.SOURCE)
-    print(f"built {lib.relative_to(ROOT)} in {time.time() - t0:.1f}s")
-    print(_build.build_log(kernel.SOURCE).strip(), flush=True)
+    sources = [kernel.SOURCE, ssd_kernel.SOURCE]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(_build.build, sources))
+    print(f"built {', '.join(str(p.relative_to(ROOT)) for p in libs)} in "
+          f"{time.time() - t0:.1f}s")
+    for src in sources:
+        print(f"-- {Path(src).name}")
+        print(_build.build_log(src).strip(), flush=True)
 
-    print("== phase 3: kernel against its plain version; serve batches "
-          f"(B, T, steps) {batch_shapes}", flush=True)
+    print("== phase 3: flash kernel against its plain version; stablelm "
+          f"serve batches (B, T, steps) {batch_shapes}", flush=True)
     checks = run_kernel_checks(torch, kernel, mha, attention_ref,
                                kernel_cases(batch_shapes, H, D))
 
+    print("== phase 3b: SSD kernel against its plain version; mamba2 serve "
+          f"batches (B, T, steps) {mbatch_shapes}", flush=True)
+    ssd_checks = run_ssd_checks(torch, ssd_scan, ssd, ssd_chunked,
+                                ssd_cases(mbatch_shapes, mcfg))
+
     print("== phase 4: main path, stablelm-1.6b at full width", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    kernel.LAUNCHES = 0
+    kernel.LAUNCHES = ssd_kernel.LAUNCHES = 0
     summary = serve.main(["--arch", "stablelm-1.6b", "--requests",
                           str(n_requests), "--max-new", str(max_new)])
-    launches = kernel.LAUNCHES
+    launches, ssd_on_stablelm = kernel.LAUNCHES, ssd_kernel.LAUNCHES
     loop = summary.pop("loop")
     forwards = summary["prefills"] + summary["decode_steps"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -485,20 +747,18 @@ def main() -> int:
           f"{summary['median_step_ms']:.3f} ms, peak memory {peak_gb:.2f} GB, "
           f"kernel launches {launches} = {cfg.n_layers} x {forwards} forwards",
           flush=True)
-    check(summary["requests"] == n_requests
-          and summary["tokens"] == n_requests * max_new,
-          f"served {summary['requests']} requests, {summary['tokens']} tokens")
-    for r in summary["done"]:
-        check(len(r.out) == max_new and all(0 <= t < cfg.vocab for t in r.out),
-              f"request {r.rid}: tokens {r.out}")
+    check_served(summary, cfg, n_requests, max_new)
     check(launches > 0 and launches == cfg.n_layers * forwards,
           f"kernel launched {launches} times on the main path, expected "
           f"{cfg.n_layers} x {forwards}")
+    check(ssd_on_stablelm == 0,
+          f"the SSD kernel ran {ssd_on_stablelm} times on the stablelm path")
     check(loop.batch_shapes == batch_shapes,
           f"served batches {loop.batch_shapes}, checked {batch_shapes}")
 
     print("== phase 5: profile of decode steps (torch.profiler)", flush=True)
-    profile = profile_decode(torch, loop, kernel, *batch_shapes[0][:2])
+    profile = profile_serve(torch, loop, kernel, "flash_fwd", "flash",
+                            *batch_shapes[0][:2])
 
     print("== phase 6: model on the card against the model on the CPU",
           flush=True)
@@ -532,6 +792,85 @@ def main() -> int:
                        torch.nn.functional.scaled_dot_product_attention,
                        batch_shapes[0], H, D)
 
+    print("== phase 4b: main path, mamba2-1.3b at full width", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.LAUNCHES = ssd_kernel.LAUNCHES = 0
+    msummary = serve.main(["--arch", "mamba2-1.3b", "--requests",
+                           str(n_requests), "--max-new", str(max_new)])
+    ssd_launches, flash_on_mamba = ssd_kernel.LAUNCHES, kernel.LAUNCHES
+    mloop = msummary.pop("loop")
+    mpeak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefills = msummary["prefills"]
+    # the prefill's own time, at the first batch's shape (counted apart)
+    B0, T0, _ = mbatch_shapes[0]
+    toks = torch.zeros(B0, T0, dtype=torch.long, device="cuda")
+    prefill_s = []
+    with torch.inference_mode():
+        for _ in range(3):
+            caches = mloop.model.init_caches(B0, T0 + max_new, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mloop.prefill(mloop.params, {"tokens": toks}, caches)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+    del caches
+    prefill_ms = 1e3 * sorted(prefill_s)[1]
+    print(f"  requests {msummary['requests']}, tokens {msummary['tokens']}, "
+          f"wall {msummary['seconds']:.3f} s, median decode step "
+          f"{msummary['median_step_ms']:.3f} ms, prefill B{B0} T{T0} "
+          f"{prefill_ms:.3f} ms (median of 3), peak memory {mpeak_gb:.2f} GB,"
+          f" SSD kernel launches {ssd_launches} = {mcfg.n_layers} x "
+          f"{prefills} prefills, flash launches {flash_on_mamba}", flush=True)
+    check_served(msummary, mcfg, n_requests, max_new)
+    check(ssd_launches > 0 and ssd_launches == mcfg.n_layers * prefills,
+          f"SSD kernel launched {ssd_launches} times on the main path, "
+          f"expected {mcfg.n_layers} x {prefills}")
+    check(flash_on_mamba == 0,
+          f"the flash kernel ran {flash_on_mamba} times on the mamba2 path")
+    check(mloop.batch_shapes == mbatch_shapes,
+          f"served batches {mloop.batch_shapes}, checked {mbatch_shapes}")
+
+    print("== phase 5b: profile of a mamba2 prefill and decode steps "
+          "(torch.profiler)", flush=True)
+    mprofile = profile_serve(torch, mloop, ssd_kernel, "ssd_fwd", "ssd",
+                             B0, T0, prefill=True)
+
+    print("== phase 6b: mamba2 on the card against the CPU; prefill against "
+          "decode on the card", flush=True)
+    msmoke = smoke_config("mamba2-1.3b")
+    msmoke_params = build_model(msmoke).init(0, device="cpu")
+    mf32 = mcfg.with_(dtype=torch.float32)
+    f32c = {"cache_dtype": torch.float32}
+    mmodel_errs = {
+        "smoke float32": model_reference_check(
+            torch, build_model, msmoke.with_(dtype=torch.float32),
+            msmoke_params, 2, 9, 3, 1e-4, "smoke float32", **f32c),
+        "smoke bfloat16": model_reference_check(
+            torch, build_model, msmoke, msmoke_params, 2, 9, 3, 3e-2,
+            "smoke bfloat16"),
+        "full width 2 layers float32": model_reference_check(
+            torch, build_model, mf32.with_(n_layers=2),
+            first_layers(mloop.params, 2), 2, 6, 2, 1e-4,
+            "full width 2 layers float32", **f32c),
+        "full width 48 layers float32": model_reference_check(
+            torch, build_model, mf32, mloop.params, 2, 6, 2, 1e-4,
+            "full width 48 layers float32", **f32c),
+    }
+    for dev in ("cuda", "cpu"):
+        mmodel_errs[f"prefill 129 vs 128 + decode, full width float32, "
+                    f"{dev}"] = prefill_decode_consistency(
+            torch, build_model, mf32, mloop.params, 2, mcfg.ssm.chunk, 1e-4,
+            "full width 48 layers float32", device=dev)
+    del mloop, msummary["done"]
+    torch.cuda.empty_cache()
+
+    print("== phase 7b: SSD kernel timing (bf16 x/B/C; device time from "
+          "CUDA graph replays, host time from back-to-back calls)",
+          flush=True)
+    ssd_rows = run_ssd_timings(torch, ssd, ssd_chunked, mcfg,
+                               mbatch_shapes[0])
+
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
     main_row = next(r for r in rows if r["shape"] == "serve decode")
@@ -545,14 +884,35 @@ def main() -> int:
              "library_ms": main_row["library_ms"],
              "host_ms": main_row["host_ms"],
              "timed_shape": "serve decode", "shapes": rows}
-    report = {"kernels": [entry], "checks": checks, "serve": summary,
-              "batch_shapes": batch_shapes, "peak_memory_gb": peak_gb,
-              "decode_profile": profile, "model_rel_err": model_errs,
+    ssd_serve_errs = [c["max_abs_err"] for c in ssd_checks
+                      if c["serve"] and c["dtype"] == "bfloat16"]
+    ssd_row = next(r for r in ssd_rows if r["shape"] == "serve prefill")
+    ssd_entry = {"name": "ssd_scan_fwd", "route": "cuda",
+                 "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+                 "replaces_function": "_ssd_kernel",
+                 "launches": ssd_launches,
+                 "max_abs_err": max(ssd_serve_errs),
+                 "ms": ssd_row["ms"], "plain_ms": ssd_row["plain_ms"],
+                 "bound_ms": ssd_row["bound_ms"],
+                 "bound_by": ssd_row["bound_by"],
+                 "library_ms": None, "library": ssd_row["library"],
+                 "host_ms": ssd_row["host_ms"],
+                 "timed_shape": "serve prefill", "shapes": ssd_rows}
+    kernels_line = {"kernels": [entry, ssd_entry]}
+    report = {**kernels_line, "checks": checks, "ssd_checks": ssd_checks,
+              "serve": summary, "batch_shapes": batch_shapes,
+              "peak_memory_gb": peak_gb, "decode_profile": profile,
+              "model_rel_err": model_errs,
+              "mamba2": {"serve": msummary, "batch_shapes": mbatch_shapes,
+                         "peak_memory_gb": mpeak_gb,
+                         "prefill_ms": prefill_ms, "profile": mprofile,
+                         "model_rel_err": mmodel_errs},
               "card": smi, "seconds": time.time() - t_start}
     out_dir = ROOT / "build" / "reports"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    print(json.dumps({"kernels": [entry]}))
+    print(f"chip_smoke: {time.time() - t_start:.1f} s", flush=True)
+    print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

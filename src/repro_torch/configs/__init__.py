@@ -9,11 +9,10 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["stablelm-1.6b"]
+ARCHS = ["stablelm-1.6b", "mamba2-1.3b"]
 
 #: architectures of the JAX package still to port -> ROADMAP.md item
 PENDING = {
-    "mamba2-1.3b": "Queue A item 2 (the mamba2-1.3b serving path)",
     "zamba2-1.2b": "Queue A item 5 (the remaining ML plane)",
     "seamless-m4t-large-v2": "Queue A item 5 (the remaining ML plane)",
     "stablelm-12b": "Queue A item 5 (the remaining ML plane)",

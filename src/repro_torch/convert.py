@@ -1,4 +1,4 @@
-"""Weights and KV caches carried across from the JAX package.
+"""Weights and caches carried across from the JAX package.
 
 The one place that maps the JAX package's trees onto the port's.  Both
 packages keep the same names and the same stacked layouts (``blocks``
@@ -41,9 +41,16 @@ def params_from_jax(tree, cfg: ModelConfig, *, device=None) -> dict:
 
 def caches_from_jax(tree, cfg: ModelConfig, *, device=None,
                     cache_dtype=torch.bfloat16) -> dict:
-    """A JAX KV-cache tree {"blocks": {"k", "v": (L, B, Tmax, Hkv, hd)}}
-    (numpy leaves) as the port's caches."""
-    k = np.asarray(tree["blocks"]["k"])
-    defs = cache_def(cfg, k.shape[1], k.shape[2], cache_dtype)
+    """A JAX cache tree (numpy leaves) as the port's caches: dense
+    {"blocks": {"k", "v": (L, B, Tmax, Hkv, hd)}}, ssm {"blocks":
+    {"conv": (L, B, k-1, conv_ch), "state": (L, B, H, P, N)}}.  The batch
+    size (and for dense the cache length) comes from the family's own
+    leaves; the ssm state stays float32."""
+    if cfg.family == "ssm":
+        batch = np.shape(tree["blocks"]["state"])[1]
+        defs = cache_def(cfg, batch, 0, cache_dtype)
+    else:
+        k_shape = np.shape(tree["blocks"]["k"])
+        defs = cache_def(cfg, k_shape[1], k_shape[2], cache_dtype)
     return _carry(tree, defs, resolve_device(device))
 

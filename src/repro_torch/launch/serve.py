@@ -1,14 +1,16 @@
 """Batched serving loop: prefill/decode over a request queue.
 
 Counterpart of ``repro.launch.serve``: requests arrive with prompts, are
-batched up to ``max_batch``, left-padded (pad tokens are attended, as in
-the JAX package), run through ``prefill_step`` and stepped with
-``decode_step`` against a KV cache sized for the batch.  Per-step wall
+batched up to ``max_batch``, left-padded with token 0 (pad tokens are
+attended, or run into the SSM state, as in the JAX package), run through
+``prefill_step`` and stepped with ``decode_step`` against caches sized for
+the batch (KV caches, or conv-window and SSM-state caches).  Per-step wall
 time, which ends in ``torch.cuda.synchronize()`` on the card, is checked
 against a predictive envelope (mean + k*sigma) when one is given; a breach
 counts a straggler step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 from __future__ import annotations

@@ -84,7 +84,23 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense families."""
+        """Analytic parameter count of the dense and ssm families, counted
+        as the JAX package's ``_param_count`` counts them (for ssm: the
+        conv bias, ``dt_bias`` and the norms are left out)."""
+        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            s = self.ssm
+            di = s.d_inner(self.d_model)
+            nh = s.n_ssm_heads(self.d_model)
+            per = (self.d_model * (2 * di + 2 * s.n_groups * s.d_state + nh)
+                   + s.d_conv * (di + 2 * s.n_groups * s.d_state)   # conv
+                   + nh * 2                                         # A_log, D
+                   + di                                             # norm gate
+                   + di * self.d_model)                             # out_proj
+            return emb + self.n_layers * per
+        if self.family != "dense":
+            raise NotImplementedError(f"param_count of family {self.family!r}"
+                                      " is not ported yet")
         hd = self.resolved_head_dim()
         attn = (self.d_model * self.n_heads * hd
                 + 2 * self.d_model * self.n_kv_heads * hd
@@ -92,7 +108,6 @@ class ModelConfig:
         if self.qkv_bias:
             attn += self.n_heads * hd + 2 * self.n_kv_heads * hd
         mlp = (3 if self.act == "swiglu" else 2) * self.d_model * self.d_ff
-        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
         return emb + self.n_layers * (attn + mlp)
 
 

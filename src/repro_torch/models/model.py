@@ -1,8 +1,8 @@
 """Model factory: ModelConfig -> {init, init_caches, prefill, decode}.
 
-Counterpart of ``repro.models.model`` for the dense family; the others
-raise ``NotImplementedError``.  ``prefill``/``decode`` update the caches
-they are given in place and return them.
+Counterpart of ``repro.models.model`` for the dense and ssm families; the
+others raise ``NotImplementedError``.  ``prefill``/``decode`` update the
+caches they are given in place and return them.
 """
 from __future__ import annotations
 
@@ -30,7 +30,12 @@ class Model:
 
     def init_caches(self, batch: int, max_len: int, *,
                     cache_dtype=torch.bfloat16, device=None) -> dict:
-        """Zeroed KV caches {"blocks": {"k", "v": (L, B, Tmax, Hkv, hd)}}."""
+        """Zeroed caches, updated in place by ``prefill`` and ``decode``.
+
+        dense: {"blocks": {"k", "v": (L, B, Tmax, Hkv, hd)}} in
+        ``cache_dtype``; ssm: {"blocks": {"conv": (L, B, k-1, conv_ch),
+        "state": (L, B, H, P, N)}}, the window in ``cache_dtype`` and the
+        state in float32, neither growing with ``max_len``."""
         dev = resolve_device(device)
         defs = _tf.cache_def(self.cfg, batch, max_len, cache_dtype)
         return tree_defs_init(defs, None, dev)

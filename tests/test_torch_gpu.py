@@ -12,10 +12,16 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.kernels.flash_attention import attention_ref, kernel, mha
+from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_ref, ssd_scan
 from repro_torch.launch.serve import Request, ServeLoop
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: SSD: 1e-5 of the reference's max |y| (tests/test_kernels.py), in bf16
+#: too: both sides upcast the same bf16 values, so only the order of the
+#: fp32 sums differs.
+SSD_TOL = 1e-5
 
 
 def _need_card():
@@ -93,5 +99,100 @@ def test_full_width_serve_goes_through_the_kernel():
     before = kernel.LAUNCHES
     done = loop.run_batch(reqs)
     assert kernel.LAUNCHES - before == cfg.n_layers * (1 + 4)
+    for r in done:
+        assert len(r.out) == 4 and all(0 <= t < cfg.vocab for t in r.out)
+
+
+def _ssd_inputs(B, T, H, P, G, N, dtype, state=False, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    x = rnd(B, T, H, P).to(dtype)
+    dt = (0.05 + 0.02 * rnd(B, T, H)).abs()
+    a = -(1.0 + 0.3 * rnd(H)).abs()
+    B_, C_ = rnd(B, T, G, N).to(dtype), rnd(B, T, G, N).to(dtype)
+    return x, dt, a, B_, C_, (rnd(B, H, P, N) if state else None)
+
+
+def _ssd_close(out, ref):
+    scale = ref.abs().max()
+    assert bool(((out - ref).abs() <= SSD_TOL * scale).all()), \
+        float((out - ref).abs().max() / scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk,state", [
+    (1, 32, 2, 8, 1, 8, 8, False),
+    (2, 64, 4, 16, 2, 16, 16, False),
+    (1, 50, 4, 8, 1, 8, 16, False),        # unaligned T: ragged last chunk
+    (2, 50, 4, 16, 2, 16, 16, True),       # initial state
+    (2, 13, 8, 64, 1, 128, 128, True),     # serve widths, one chunk
+    (1, 300, 4, 64, 1, 128, 128, False),   # carry over 3 chunks, ragged
+])
+def test_ssd_kernel_matches_plain_version(dtype, B, T, H, P, G, N, chunk,
+                                          state):
+    _need_card()
+    x, dt, a, B_, C_, s0 = _ssd_inputs(B, T, H, P, G, N, dtype, state)
+    before = ssd_mod.kernel.LAUNCHES
+    y, st = ssd_scan(x, dt, a, B_, C_, chunk=chunk, state0=s0)
+    torch.cuda.synchronize()
+    assert ssd_mod.kernel.LAUNCHES == before + 1
+    ref_y, ref_st = ssd_chunked(x, dt, a, B_, C_, chunk, state0=s0)
+    _ssd_close(y, ref_y)
+    _ssd_close(st, ref_st)
+    if s0 is None and T <= 64:
+        _ssd_close(y, ssd_ref(x, dt, a, B_, C_))
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_reads_strided_views():
+    """The model's call: x, B_, C_ as views of one (B, T, conv_ch) conv
+    output, through ``ops.ssd``."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    H, P, N = 8, 64, 128
+    conv = torch.randn(2, 20, H * P + 2 * N, generator=g,
+                       device="cuda").bfloat16()
+    x = conv[..., :H * P].unflatten(-1, (H, P))
+    B_ = conv[..., H * P:H * P + N].unflatten(-1, (1, N))
+    C_ = conv[..., H * P + N:].unflatten(-1, (1, N))
+    dt = torch.rand(2, 20, H, generator=g, device="cuda")
+    a = -torch.rand(H, generator=g, device="cuda") - 0.5
+    y, st = ssd(x, dt, a, B_, C_, chunk=16)
+    ref_y, ref_st = ssd_chunked(x.contiguous(), dt, a, B_.contiguous(),
+                                C_.contiguous(), 16)
+    _ssd_close(y, ref_y)
+    _ssd_close(st, ref_st)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_rejects_what_it_does_not_take():
+    _need_card()
+    x, dt, a, B_, C_, _ = _ssd_inputs(1, 8, 2, 32, 1, 8, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_scan(x, dt, a, B_, C_, chunk=8)
+    x, dt, a, B_, C_, _ = _ssd_inputs(1, 200, 2, 8, 1, 8, torch.float32)
+    with pytest.raises(ValueError, match="chunk length"):
+        ssd_scan(x, dt, a, B_, C_, chunk=256)
+    with pytest.raises(ValueError, match="dtypes"):
+        ssd_scan(x.half(), dt, a, B_.half(), C_.half(), chunk=8)
+
+
+@pytest.mark.gpu
+def test_full_width_mamba2_serve_goes_through_the_ssd_kernel():
+    _need_card()
+    cfg = get_config("mamba2-1.3b")
+    loop = ServeLoop(cfg)
+    gen = torch.Generator().manual_seed(0)
+    reqs = [Request(rid=i, prompt=torch.randint(0, cfg.vocab, (n,),
+                                                generator=gen).numpy(),
+                    max_new=4) for i, n in enumerate((5, 12))]
+    before, flash_before = ssd_mod.kernel.LAUNCHES, kernel.LAUNCHES
+    done = loop.run_batch(reqs)
+    assert ssd_mod.kernel.LAUNCHES - before == cfg.n_layers
+    assert kernel.LAUNCHES == flash_before
     for r in done:
         assert len(r.out) == 4 and all(0 <= t < cfg.vocab for t in r.out)

@@ -141,11 +141,12 @@ def test_full_config_matches_jax_and_counts_params():
 
 
 def test_unported_archs_raise():
-    assert list_archs() == ["stablelm-1.6b"]
+    assert list_archs() == ["stablelm-1.6b", "mamba2-1.3b"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("mamba2-1.3b")
-    with pytest.raises(NotImplementedError, match="family"):
-        build_model(smoke_config("stablelm-1.6b").with_(family="moe"))
+        get_config("zamba2-1.2b")
+    for family in ("hybrid", "moe"):
+        with pytest.raises(NotImplementedError, match="family"):
+            build_model(smoke_config("mamba2-1.3b").with_(family=family))
 
 
 def _full_depth_f32_gap(d_model, score_scale):

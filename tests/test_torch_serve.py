@@ -39,11 +39,13 @@ def test_serve_straggler_envelope_counts():
     assert loop.straggler_steps >= 3
 
 
-def test_greedy_tokens_match_jax_serve_loop():
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "mamba2-1.3b"])
+def test_greedy_tokens_match_jax_serve_loop(arch):
     """Same carried-across weights, float32 activations, ragged prompts
-    (left-padded): the greedy tokens of both loops are equal."""
-    jcfg = jax_smoke_config("stablelm-1.6b").with_(dtype=jnp.float32)
-    cfg = smoke_config("stablelm-1.6b").with_(dtype=torch.float32)
+    (left-padded with token 0, which the SSM runs into its state as the
+    JAX loop does): the greedy tokens of both loops are equal."""
+    jcfg = jax_smoke_config(arch).with_(dtype=jnp.float32)
+    cfg = smoke_config(arch).with_(dtype=torch.float32)
     jloop = JaxServeLoop(jcfg, max_batch=3)
     loop = ServeLoop(cfg, max_batch=3, device="cpu")
     loop.params = params_from_jax(jax.tree.map(np.asarray, jloop.params), cfg,
@@ -81,3 +83,5 @@ def test_no_card_raises_instead_of_running_on_cpu():
         ServeLoop(cfg)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        serve.main(["--arch", "mamba2-1.3b", "--smoke"])
