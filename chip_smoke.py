@@ -14,9 +14,10 @@ run with a non-zero exit code:
    nvcc per source, started together, with nvcc's ``-Xptxas -v`` reports;
 3. the flash kernel against its plain PyTorch version on the card, case
    by case (float32 at 2e-5, bfloat16 at 2e-2, as tests/test_kernels.py),
-   with every attention call of the stablelm path: its batches are formed
-   by ``serve.make_requests`` and ``serve.batched``, as ``serve.main``
-   forms them;
+   through each of its three paths (the tensor-core prefill, the split
+   decode, the float32 kernel) and their edges, with every attention call
+   of the stablelm path: its batches are formed by ``serve.make_requests``
+   and ``serve.batched``, as ``serve.main`` forms them;
 3b. the SSD kernel against its plain version ``ssd_chunked``, y and final
    state, in float32 and with bfloat16 x/B/C, at 1e-5 of the reference's
    max (see ``SSD_TOL``): the shapes of tests/test_kernels.py, an initial
@@ -36,7 +37,9 @@ run with a non-zero exit code:
    yardstick the port never calls) and its bound, at the serve shapes, a
    4k prefill and a 32k decode: CUDA events around replays of a CUDA graph
    of back-to-back calls, so the host's overhead does not count; the time
-   per call with that overhead (``host_ms``) is reported beside it;
+   per call with that overhead (``host_ms``) is reported beside it.  At
+   each shape the kernel is first held against its plain version (bf16
+   bar), and the launcher's path (and split count) is recorded;
 4b. the mamba2 path: ``serve.main`` serving 8 requests of 12 new tokens
    with mamba2-1.3b at full width; the SSD kernel's launch count must be
    48 x prefills, the flash kernel's 0, and the batches served those
@@ -120,6 +123,8 @@ def kernel_cases(batch_shapes, serve_heads, serve_head_dim):
         cases.append((f"oracle B{B} H{Hq}/{Hkv} Sq{Sq} Sk{Sk} D{D}",
                       B, Hq, Hkv, Sq, Sk, D, causal, None, 0, "bhsd"))
     cases.append(("kv_len=50", 1, 2, 2, 8, 128, 32, False, 50, 0, "bhsd"))
+    cases.append(("kv_len=50 decode", 1, 2, 2, 1, 128, 32, False, 50, 0,
+                  "bhsd"))
     cases.append(("decode q_offset=39", 2, 4, 2, 1, 64, 64, True, 40, 39,
                   "bhsd"))
     cases.append(("chunk q_offset=20", 2, 4, 2, 5, 64, 64, True, 25, 20,
@@ -128,6 +133,31 @@ def kernel_cases(batch_shapes, serve_heads, serve_head_dim):
         for Sq in (1, 33):
             cases.append((f"instances D{D} Sq{Sq}", 2, 4, 2, Sq, 70, D, True,
                           70, 70 - Sq, "bhsd"))
+    # the edges of the tensor-core prefill and of the split decode
+    for name, B, Hq, Hkv, Sq, Sk, D, causal, kv_len, q_off in [
+            ("prefill Sq15", 2, 4, 4, 15, 27, 64, True, 15, 0),
+            ("prefill Sq33", 1, 2, 2, 33, 33, 64, True, None, 0),
+            ("prefill Sq100", 1, 2, 1, 100, 100, 64, True, None, 0),
+            ("prefill Sk150 kv_len=130 bidir", 1, 2, 2, 100, 150, 64, False,
+             130, 0),
+            ("chunk q_offset=111 Sk200", 2, 4, 4, 70, 200, 64, True, 181, 111),
+            ("chunk D32 GQA q_offset=100", 2, 8, 2, 48, 160, 32, True, 148,
+             100),
+            ("chunk D128 MQA q_offset=200", 1, 8, 1, 40, 256, 128, True, 240,
+             200),
+            ("chunk D128 q_offset=160", 1, 4, 2, 130, 300, 128, True, 290,
+             160),
+            ("decode kv_len=1", 2, 4, 2, 1, 64, 64, True, 1, 0),
+            ("decode empty splits q_offset=300", 1, 2, 2, 1, 4096, 64, True,
+             4096, 300),
+            ("decode Sk4096 splits", 1, 2, 2, 1, 4096, 64, True, 4096, 4095),
+            ("decode MQA D128 splits", 2, 8, 1, 1, 4096, 128, True, 3000,
+             2999),
+            ("decode GQA8 D32 bidir", 1, 16, 2, 1, 1000, 32, False, None, 0),
+            ("decode GQA12 two head chunks", 1, 24, 2, 1, 500, 64, True, 500,
+             499)]:
+        cases.append((name, B, Hq, Hkv, Sq, Sk, D, causal, kv_len, q_off,
+                      "bhsd"))
     # the serve shapes: (B, S, H, D) over views of a stacked cache
     return cases + serve_cases(batch_shapes, serve_heads, serve_head_dim)
 
@@ -171,17 +201,22 @@ def run_kernel_checks(torch, kernel, mha, attention_ref, cases):
             err = float(diff.max())
             tol = TOL[dname]
             ok = bool((diff <= tol + tol * ref.float().abs()).all())
-            if name == "kv_len=50":   # keys past kv_len must not matter
+            if name.startswith("kv_len=50"):  # keys past kv_len must not matter
                 k2 = k.clone()
                 k2[:, :, kv_len:] = 1e3
                 out2 = kernel.flash_attention(q, k2, v, causal=causal,
                                               kv_len=kv_len, q_offset=q_off)
                 ok = ok and bool(torch.equal(out2, out))
-            print(f"  {name:32s} {dname:9s} max_abs_err {err:.3e} "
-                  f"tol {tol:g} {'ok' if ok else 'FAIL'}", flush=True)
+            path, splits = kernel.plan(
+                dtype, B, Hq, Hkv, Sq, Sk if kv_len is None else kv_len,
+                kernel.sm_count(q.device.index))
+            print(f"  {name:34s} {dname:9s} {path:12s} splits {splits:3d} "
+                  f"max_abs_err {err:.3e} tol {tol:g} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"kernel disagrees with its plain version: {name} "
                       f"{dname}, max_abs_err {err}")
             results.append({"case": name, "dtype": dname, "max_abs_err": err,
+                            "path": path, "splits": splits,
                             "serve": layout == "cache"})
     return results
 
@@ -507,9 +542,12 @@ def bound(B, Hq, Hkv, Sq, D, causal, kv_len, q_offset, elem, flops_peak):
                                        else "bytes")
 
 
-def run_timings(torch, mha, attention_ref, sdpa, serve_batch, H, D):
+def run_timings(torch, kernel, mha, attention_ref, sdpa, serve_batch, H,
+                D):
     """bf16 at the main path's first batch (its prefill and its last decode
-    step), a 4k prefill and a 32k decode."""
+    step), a 4k prefill and a 32k decode.  At each shape the kernel and SDPA
+    are first held against the plain version (bf16 bar), and the path the
+    launcher takes is recorded."""
     B0, T0, steps0 = serve_batch
     Sk0 = T0 + steps0
     shapes = [  # name, B, Sq, Sk, kv_len, q_offset, causal
@@ -545,12 +583,22 @@ def run_timings(torch, mha, attention_ref, sdpa, serve_batch, H, D):
 
         def lib():
             return sdpa(qc, kc, vc, **kw)
-        lib_err = float((lib().float() - plain().float()).abs().max())
+        ref = plain().float()
+        lib_err = float((lib().float() - ref).abs().max())
         check(lib_err < 5e-2, f"SDPA yardstick disagrees at {name}: {lib_err}")
+        diff = (kern().transpose(1, 2).float() - ref).abs()
+        err, tol = float(diff.max()), TOL["bfloat16"]
+        check(bool((diff <= tol + tol * ref.abs()).all()),
+              f"kernel disagrees with its plain version at {name}: "
+              f"max_abs_err {err}")
+        del ref, diff
+        path, splits = kernel.plan(dtype, B, H, H, Sq, kv_len,
+                                   kernel.sm_count(q.device.index))
         b_ms, b_by = bound(B, H, H, Sq, D, causal, kv_len, q_off, 2,
                            BF16_FLOPS)
         row = {"shape": name, "B": B, "H": H, "Sq": Sq, "Sk": Sk,
                "kv_len": kv_len, "q_offset": q_off, "D": D, "dtype": "bfloat16",
+               "path": path, "splits": splits, "max_abs_err": err,
                "ms": device_ms(torch, kern),
                "plain_ms": device_ms(torch, plain),
                "library_ms": device_ms(torch, lib),
@@ -558,6 +606,8 @@ def run_timings(torch, mha, attention_ref, sdpa, serve_batch, H, D):
                "plain_host_ms": host_ms(torch, plain),
                "library_host_ms": host_ms(torch, lib),
                "bound_ms": b_ms, "bound_by": b_by}
+        print(f"  {name:14s} {path} (splits {splits}), max_abs_err "
+              f"{err:.3e} (tol {tol:g})", flush=True)
         print(f"  {name:14s} device: kernel {row['ms']:9.4f} ms  plain "
               f"{row['plain_ms']:9.4f} ms  sdpa {row['library_ms']:9.4f} ms  "
               f"bound {b_ms:9.4f} ms ({b_by}); host per call: kernel "
@@ -788,7 +838,7 @@ def main() -> int:
 
     print("== phase 7: kernel timing (bf16, D 64; device time from CUDA "
           "graph replays, host time from back-to-back calls)", flush=True)
-    rows = run_timings(torch, mha, attention_ref,
+    rows = run_timings(torch, kernel, mha, attention_ref,
                        torch.nn.functional.scaled_dot_product_attention,
                        batch_shapes[0], H, D)
 

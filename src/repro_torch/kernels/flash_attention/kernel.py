@@ -2,8 +2,9 @@
 
 The hand-written CUDA kernel that replaces the TPU Pallas kernel
 ``repro.kernels.flash_attention.kernel._flash_fwd_kernel``; the source's
-header says how it is laid out and what bounds it.  It is built by nvcc at
-first use (``repro_torch.kernels._build``), never at import.
+header says how each of its three paths is laid out and what bounds it.
+``plan`` picks the path and the decode split count.  The library is built
+by nvcc at first use (``repro_torch.kernels._build``), never at import.
 """
 from __future__ import annotations
 
@@ -19,18 +20,51 @@ from .._build import build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the source's paths, by the number its entry takes
+PATHS = {"prefill_mma": 0, "decode_split": 1, "fp32": 2}
+#: decode: keys per tile, stages of the cp.async ring, most query heads per
+#: block; the source's kBK, kDecStages and largest R
+DECODE_TILE, DECODE_STAGES, DECODE_HEADS = 64, 3, 8
+#: decode: blocks to aim for, in waves of one block per SM
+DECODE_WAVES = 2
 
-#: launches of the kernel in this process (chip_smoke.py reads it)
+#: launches of the kernel in this process (chip_smoke.py reads it): one per
+#: call, also where a split decode launches its merge as well
 LAUNCHES = 0
+
+
+def decode_splits(B: int, Hq: int, Hkv: int, kv_len: int, sms: int) -> int:
+    """Key splits of the decode path: enough blocks for ``DECODE_WAVES``
+    waves on ``sms`` SMs, each split at least one ring of keys."""
+    blocks = B * Hkv * -(-(Hq // Hkv) // DECODE_HEADS)
+    most = max(1, -(-kv_len // (DECODE_TILE * DECODE_STAGES)))
+    return max(1, min(most, -(-DECODE_WAVES * sms // blocks)))
+
+
+def plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, kv_len: int,
+         sms: int) -> tuple[str, int]:
+    """(path, splits): Sq 1 takes the split decode; a bf16 prefill the
+    tensor cores; a float32 prefill the CUDA-core kernel."""
+    if Sq == 1:
+        return "decode_split", decode_splits(B, Hq, Hkv, kv_len, sms)
+    if dtype == torch.bfloat16:
+        return "prefill_mma", 1
+    return "fp32", 1
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build(SOURCE)))
     lib.flash_fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
         + [ctypes.POINTER(ctypes.c_longlong)]
-        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.flash_fwd.restype = ctypes.c_int
     lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_fwd_error_string.restype = ctypes.c_char_p
@@ -67,9 +101,13 @@ def _check(q, k, v) -> None:
     if Sq < 1 or B < 1 or B > 65535 or Hq > 65535:
         raise ValueError(f"flash_attention: unsupported B={B}, Hq={Hq}, "
                          f"Sq={Sq}")
-    # K and V tiles are read with 16-byte loads.
+    # K and V tiles, and Q on the tensor-core path, are copied 16 bytes at
+    # a time.
     chunk = 16 // k.element_size()
-    for name, t in (("k", k), ("v", v)):
+    copied = (("k", k), ("v", v))
+    if Sq > 1 and q.dtype == torch.bfloat16:
+        copied = (("q", q),) + copied
+    for name, t in copied:
         if t.data_ptr() % 16 or any(s % chunk for s in t.stride()[:3]):
             raise ValueError(f"flash_attention: {name} strides "
                              f"{t.stride()} or its address are not 16-byte "
@@ -101,12 +139,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         strides += [sb, ss, sh]
     lib = _lib()
     with torch.cuda.device(q.device):
+        path, splits = plan(q.dtype, B, Hq, Hkv, Sq, kv_len,
+                            sm_count(q.device.index))
+        scratch = None
+        if splits > 1:      # (max, sum, accumulator) of each split
+            scratch = torch.empty(B * Hq * splits * (D + 2), device=q.device,
+                                  dtype=torch.float32)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), PATHS[path],
             DTYPES[q.dtype], B, Hq, Hkv, Sq, D,
             (ctypes.c_longlong * 12)(*strides), kv_len, int(q_offset),
-            int(causal), 1.0 / math.sqrt(D), stream)
+            int(causal), 1.0 / math.sqrt(D), splits, stream)
     if rc != 0:
         raise RuntimeError("flash_fwd launch failed: "
                            + lib.flash_fwd_error_string(rc).decode())

@@ -114,3 +114,42 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     q = torch.zeros(1, 2, 4, 32)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         kernel.flash_attention(q, q, q)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("B,T,steps", [(4, 15, 12), (4, 13, 12), (1, 5, 4)])
+def test_serve_shapes_take_one_split_and_the_tensor_cores(B, T, steps):
+    """At the serve shapes (stablelm-1.6b: 32 heads, no GQA) a decode step
+    is one launch with no scratch, and a bf16 prefill goes to the tensor
+    cores; a float32 prefill keeps the CUDA-core kernel."""
+    H = 32
+    for kv_len in range(T + 1, T + steps + 1):
+        assert kernel.plan(torch.bfloat16, B, H, H, 1, kv_len,
+                           H100_SMS) == ("decode_split", 1)
+    assert kernel.plan(torch.bfloat16, B, H, H, T, T,
+                       H100_SMS) == ("prefill_mma", 1)
+    assert kernel.plan(torch.float32, B, H, H, T, T, H100_SMS) == ("fp32", 1)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,kv_len", [
+    (8, 32, 32, 32768),      # the 32k decode of chip_smoke.py
+    (1, 32, 32, 32768),
+    (1, 32, 8, 8192),        # GQA: one block per kv head
+    (1, 64, 1, 100000),      # MQA, 8 heads a block
+])
+def test_long_decode_splits_fill_two_waves(B, Hq, Hkv, kv_len):
+    splits = kernel.decode_splits(B, Hq, Hkv, kv_len, H100_SMS)
+    blocks = B * Hkv * -(-(Hq // Hkv) // kernel.DECODE_HEADS)
+    assert blocks * splits >= kernel.DECODE_WAVES * H100_SMS
+    # each split keeps at least one ring of keys
+    ring = kernel.DECODE_TILE * kernel.DECODE_STAGES
+    assert -(-kv_len // splits) >= ring
+
+
+@pytest.mark.parametrize("kv_len,want", [(0, 1), (1, 1), (191, 1), (192, 1),
+                                         (193, 2), (4096, 22)])
+def test_decode_splits_stop_at_one_ring_per_split(kv_len, want):
+    """One block (B 1, one head): the split count is capped by kv_len."""
+    assert kernel.decode_splits(1, 1, 1, kv_len, H100_SMS) == want

@@ -42,6 +42,22 @@ def _need_card():
     (1, 2, 2, 8, 128, 32, False, 50, 0),        # kv_len mask
     (2, 4, 2, 1, 64, 64, True, 40, 39),         # decode at an offset
     (2, 4, 2, 33, 70, 128, True, 70, 37),       # D 128, 4-row tiles
+    # tensor-core prefill (bf16; float32 takes the CUDA-core path)
+    (2, 4, 4, 15, 27, 64, True, 15, 0),         # Sq 15: one ragged warp
+    (1, 2, 2, 33, 33, 64, True, None, 0),       # Sq 33: ragged 64-row tile
+    (1, 2, 1, 100, 100, 64, True, None, 0),     # Sq 100: ragged 128-row tile
+    (1, 2, 2, 100, 150, 64, False, 130, 0),     # Sk 150, kv_len < Sk, bidir
+    (2, 4, 4, 70, 200, 64, True, 181, 111),     # chunk at an offset, ragged
+    (2, 8, 2, 48, 160, 32, True, 148, 100),     # chunk, D 32, GQA
+    (1, 8, 1, 40, 256, 128, True, 240, 200),    # chunk, D 128, MQA
+    (1, 4, 2, 130, 300, 128, True, 290, 160),   # chunk, D 128, 3 q tiles
+    # split decode
+    (2, 4, 2, 1, 64, 64, True, 1, 0),           # kv_len 1
+    (1, 2, 2, 1, 4096, 64, True, 4096, 300),    # causal cut: empty splits
+    (1, 2, 2, 1, 4096, 64, True, 4096, 4095),   # Sk 4096: splits merged
+    (2, 8, 1, 1, 4096, 128, True, 3000, 2999),  # MQA, D 128, splits
+    (1, 16, 2, 1, 1000, 32, False, None, 0),    # GQA 8, D 32, bidir
+    (1, 24, 2, 1, 500, 64, True, 500, 499),     # GQA 12: two head chunks
 ])
 def test_kernel_matches_plain_version(dtype, B, Hq, Hkv, Sq, Sk, D, causal,
                                       kv_len, q_offset):
@@ -59,6 +75,57 @@ def test_kernel_matches_plain_version(dtype, B, Hq, Hkv, Sq, Sk, D, causal,
                         q_offset=q_offset)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq", [8, 1], ids=["prefill", "decode"])
+def test_keys_past_kv_len_do_not_matter(dtype, Sq):
+    """The kv_len=50 case: keys past kv_len holding 1e3 leave the output
+    bit for bit as it was, on the prefill paths and the decode path."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(1, 2, Sq, 32, generator=g, device="cuda").to(dtype)
+    k = torch.randn(1, 2, 128, 32, generator=g, device="cuda").to(dtype)
+    v = torch.randn(1, 2, 128, 32, generator=g, device="cuda").to(dtype)
+    out = kernel.flash_attention(q, k, v, causal=False, kv_len=50)
+    k2 = k.clone()
+    k2[:, :, 50:] = 1e3
+    out2 = kernel.flash_attention(q, k2, v, causal=False, kv_len=50)
+    ref = attention_ref(q, k, v, causal=False, kv_len=50)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.gpu
+def test_split_decode_in_a_cuda_graph():
+    """A decode of several splits (scratch and merge) replays in a CUDA
+    graph, as chip_smoke.py times it, and agrees with the eager call."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn(2, 4, 1, 64, generator=g, device="cuda").bfloat16()
+    k = torch.randn(2, 4, 8192, 64, generator=g, device="cuda").bfloat16()
+    v = torch.randn(2, 4, 8192, 64, generator=g, device="cuda").bfloat16()
+    path, splits = kernel.plan(q.dtype, 2, 4, 4, 1, 8192,
+                               kernel.sm_count(q.device.index))
+    assert path == "decode_split" and splits > 1
+    eager = kernel.flash_attention(q, k, v, causal=True, kv_len=8000,
+                                   q_offset=7999)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel.flash_attention(q, k, v, causal=True, kv_len=8000,
+                               q_offset=7999)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernel.flash_attention(q, k, v, causal=True, kv_len=8000,
+                                     q_offset=7999)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.gpu
