@@ -19,9 +19,13 @@ run with a non-zero exit code:
    of the stablelm path: its batches are formed by ``serve.make_requests``
    and ``serve.batched``, as ``serve.main`` forms them;
 3b. the SSD kernel against its plain version ``ssd_chunked``, y and final
-   state, in float32 and with bfloat16 x/B/C, at 1e-5 of the reference's
-   max (see ``SSD_TOL``): the shapes of tests/test_kernels.py, an initial
-   state, every prefill batch of the mamba2 path and a 4k prefill;
+   state, in float32 (the CUDA-core path) and with bfloat16 x/B/C (the
+   chunked tensor-core path), at 1e-5 of the reference's max (see
+   ``SSD_TOL``): the shapes of tests/test_kernels.py, initial states (one
+   over 8 chunks at full width), every prefill batch of the mamba2 path
+   and a 4k prefill; each case prints the path it took, and its call,
+   captured into a CUDA graph, must launch that path's kernels
+   (``plan(...).kernels``) once each, as the driver records them;
 4. the stablelm path: ``repro_torch.launch.serve.main`` serving 8 requests
    of 12 new tokens with stablelm-1.6b at full width (random weights from a
    seed); the flash kernel's launch count must be 24 x (prefills + decode
@@ -50,7 +54,11 @@ run with a non-zero exit code:
    129 tokens against a prefill of 128 and one decode step, on the card
    and, without the kernel, on the CPU;
 7b. the SSD kernel's device and host time beside its plain version's and
-   its bound, at the serve prefill and a 4k prefill.
+   its bound, at the serve prefill and a 4k prefill; at each shape the
+   kernel is first held against its plain version (``SSD_TOL``), its path
+   and its device launches per call, as the driver records them, are
+   recorded and held to the plan, and torch.profiler splits its device
+   time by kernel.
 
 The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``; the full report goes to
@@ -68,6 +76,7 @@ SRC = ROOT / "src"
 KERNEL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"
 REPLACES = "src/repro/kernels/flash_attention/kernel.py:29"
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu"
+SSD_KERNEL_NAME = r"(ssd_\w+)(?![\w:])"   # a kernel of ssd_fwd.cu, by name
 SSD_REPLACES = "src/repro/kernels/ssd/kernel.py:27"
 
 BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
@@ -239,6 +248,8 @@ def ssd_cases(batch_shapes, cfg):
                   16, 16, "bthp", "random"))
     cases.append(("state0 full width B2 T129", 2, 129, H, P, G, N, s.chunk,
                   "conv", "random"))           # two chunks, the second of 1
+    cases.append(("state0 full width B1 T1000", 1, 1000, H, P, G, N, s.chunk,
+                  "conv", "random"))           # 8 chunks, ragged
     # the main path's prefills: views of the conv output, zero state0
     for B, T, _ in batch_shapes:
         cases.append((f"serve prefill B{B} T{T}", B, T, H, P, G, N, s.chunk,
@@ -275,7 +286,14 @@ def ssd_inputs(torch, B, T, H, P, G, N, dtype, layout, state0, seed):
     return x, dt, a, B_, C_, s0
 
 
-def run_ssd_checks(torch, ssd_scan, ssd, ssd_chunked, cases):
+def ssd_rel_errs(y, st, ref_y, ref_st):
+    """Max |error| of y and of the state, each over the reference's max."""
+    return (float((y - ref_y).abs().max() / ref_y.abs().max()),
+            float((st - ref_st).abs().max() / ref_st.abs().max()))
+
+
+def run_ssd_checks(torch, ssd_kernel, ssd, ssd_chunked, launched_kernels,
+                   cases):
     results = []
     for i, (name, B, T, H, P, G, N, chunk, layout, state0) in \
             enumerate(cases):
@@ -283,10 +301,17 @@ def run_ssd_checks(torch, ssd_scan, ssd, ssd_chunked, cases):
             dname = str(dtype).split(".")[1]
             x, dt, a, B_, C_, s0 = ssd_inputs(torch, B, T, H, P, G, N, dtype,
                                               layout, state0, seed=100 + i)
-            if layout == "conv":        # through the model's entry
-                y, st = ssd(x, dt, a, B_, C_, chunk=chunk, state0=s0)
-            else:
-                y, st = ssd_scan(x, dt, a, B_, C_, chunk=chunk, state0=s0)
+            # through the model's entry, or the kernel's own
+            scan = ssd if layout == "conv" else ssd_kernel.ssd_scan
+
+            def call():
+                return scan(x, dt, a, B_, C_, chunk=chunk, state0=s0)
+            y, st = call()
+            path, pl = ssd_kernel.LAST_PATH, ssd_kernel.plan(dtype, T, chunk)
+            check(path == pl.path,
+                  f"{name} {dname}: the kernel took the {path} path")
+            launched = check_launches(launched_kernels, call, pl,
+                                      f"{name} {dname}")
             ref_y, ref_st = ssd_chunked(x, dt, a, B_, C_, chunk, state0=s0)
             torch.cuda.synchronize()
             check(y.dtype == st.dtype == torch.float32
@@ -295,16 +320,18 @@ def run_ssd_checks(torch, ssd_scan, ssd, ssd_chunked, cases):
                   f"{st.dtype} {tuple(st.shape)}")
             err_y = float((y - ref_y).abs().max())
             err_st = float((st - ref_st).abs().max())
-            rel_y = err_y / float(ref_y.abs().max())
-            rel_st = err_st / float(ref_st.abs().max())
+            rel_y, rel_st = ssd_rel_errs(y, st, ref_y, ref_st)
             ok = (bool(torch.isfinite(y).all()) and rel_y <= SSD_TOL
                   and rel_st <= SSD_TOL)
-            print(f"  {name:40s} {dname:9s} y err {rel_y:.3e} state err "
+            print(f"  {name:40s} {dname:9s} {path:8s} "
+                  f"{len(launched)} launches, y err {rel_y:.3e} "
+                  f"state err "
                   f"{rel_st:.3e} x max (tol {SSD_TOL:g}) "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"SSD kernel disagrees with its plain version: {name} "
                       f"{dname}, y {rel_y:.3e}, state {rel_st:.3e} x max")
-            results.append({"case": name, "dtype": dname,
+            results.append({"case": name, "dtype": dname, "path": path,
+                            "launched": launched,
                             "max_abs_err": err_y, "state_max_abs_err": err_st,
                             "rel_err": rel_y, "state_rel_err": rel_st,
                             "serve": name.startswith("serve")})
@@ -638,9 +665,46 @@ def ssd_bound(B, T, H, P, G, N, chunk, elem):
                                        else "bytes")
 
 
-def run_ssd_timings(torch, ssd, ssd_chunked, cfg, serve_batch):
+def device_ms_per_launch(torch, fn, pattern, calls=10):
+    """Device ms per launch of each kernel whose name matches the regex
+    ``pattern`` (its first group names it), from torch.profiler over
+    ``calls`` calls of ``fn``: where a call's time goes among its
+    launches.  An average over the launches the profile recorded (it can
+    miss the first)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, count = {}, {}
+    for e in prof.key_averages():
+        m = re.search(pattern, e.key)
+        if m and e.count:
+            us[m.group(1)] = us.get(m.group(1), 0.0) + _device_us(e, False)
+            count[m.group(1)] = count.get(m.group(1), 0) + e.count
+    return {k: us[k] / 1e3 / count[k] for k in us}
+
+
+def check_launches(launched_kernels, fn, pl, what):
+    """The kernels one call of ``fn`` launches, as the driver records them
+    (``repro_torch.kernels._launches``): each kernel of the plan once,
+    and no other."""
+    launched = launched_kernels(fn)
+    check(sorted(launched) == sorted(pl.kernels),
+          f"{what}: the {pl.path} path should launch {list(pl.kernels)} "
+          f"once each; the driver recorded {launched}")
+    return launched
+
+
+def run_ssd_timings(torch, ssd_kernel, ssd, ssd_chunked, launched_kernels,
+                    cfg, serve_batch):
     """bf16 x/B/C as the model passes them (views of the conv output, zero
-    state0), at the main path's first prefill and at a 4k prefill."""
+    state0), at the main path's first prefill and at a 4k prefill.  At
+    each shape the kernel is first held against the plain version
+    (``SSD_TOL``), and its path and its device launches per call, as the
+    driver records them, are recorded."""
     s = cfg.ssm
     H, P, G, N = (s.n_ssm_heads(cfg.d_model), s.head_dim, s.n_groups,
                   s.d_state)
@@ -655,9 +719,24 @@ def run_ssd_timings(torch, ssd, ssd_chunked, cfg, serve_batch):
 
         def plain():
             return ssd_chunked(x, dt, a, B_, C_, s.chunk, state0=s0)
+        y, st = kern()
+        ref_y, ref_st = plain()
+        rel_y, rel_st = ssd_rel_errs(y, st, ref_y, ref_st)
+        err = float((y - ref_y).abs().max())
+        pl = ssd_kernel.plan(torch.bfloat16, T, s.chunk)
+        check(ssd_kernel.LAST_PATH == pl.path and rel_y <= SSD_TOL
+              and rel_st <= SSD_TOL,
+              f"SSD kernel ({ssd_kernel.LAST_PATH}) disagrees with its plain "
+              f"version at {name}: y {rel_y:.3e}, state {rel_st:.3e} x max")
+        launched = check_launches(launched_kernels, kern, pl, name)
+        per_launch = device_ms_per_launch(torch, kern, SSD_KERNEL_NAME)
+        del y, st, ref_y, ref_st
         b_ms, b_by = ssd_bound(B, T, H, P, G, N, s.chunk, 2)
         row = {"shape": name, "B": B, "T": T, "H": H, "P": P, "G": G, "N": N,
-               "chunk": s.chunk, "dtype": "bfloat16",
+               "chunk": s.chunk, "dtype": "bfloat16", "path": pl.path,
+               "launches_per_call": len(launched), "launched": launched,
+               "max_abs_err": err,
+               "rel_err": rel_y, "state_rel_err": rel_st,
                "ms": device_ms(torch, kern),
                "plain_ms": device_ms(torch, plain),
                "library_ms": None,
@@ -665,11 +744,20 @@ def run_ssd_timings(torch, ssd, ssd_chunked, cfg, serve_batch):
                           "scan",
                "host_ms": host_ms(torch, kern),
                "plain_host_ms": host_ms(torch, plain),
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by,
+               "kernels_ms": {k: per_launch.get(k) for k in launched}}
+        print(f"  {name:14s} B{B} T{T}: {pl.path}, {len(launched)} launches "
+              "a call (as the driver records them), "
+              f"y err {rel_y:.3e}, state err {rel_st:.3e} x max "
+              f"(tol {SSD_TOL:g})", flush=True)
         print(f"  {name:14s} B{B} T{T}: device: kernel {row['ms']:9.4f} ms "
               f" plain {row['plain_ms']:9.4f} ms  bound {b_ms:9.4f} ms "
               f"({b_by}); host per call: kernel {row['host_ms']:9.4f} ms  "
               f"plain {row['plain_host_ms']:9.4f} ms", flush=True)
+        print(f"  {name:14s} B{B} T{T}: device ms per launch by kernel "
+              "(torch.profiler): " + ", ".join(
+                  f"{k} {v:.4f}" if v is not None else f"{k} not recorded"
+                  for k, v in row["kernels_ms"].items()), flush=True)
         rows.append(row)
         del x, dt, a, B_, C_, s0
         torch.cuda.empty_cache()
@@ -740,7 +828,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import attention_ref, kernel, mha
     from repro_torch.kernels.ssd import kernel as ssd_kernel
-    from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_scan
+    from repro_torch.kernels.ssd import ssd, ssd_chunked
+    from repro_torch.kernels._launches import launched_kernels
     from repro_torch.launch import serve
     from repro_torch.models import build_model
 
@@ -780,7 +869,8 @@ def main() -> int:
 
     print("== phase 3b: SSD kernel against its plain version; mamba2 serve "
           f"batches (B, T, steps) {mbatch_shapes}", flush=True)
-    ssd_checks = run_ssd_checks(torch, ssd_scan, ssd, ssd_chunked,
+    ssd_checks = run_ssd_checks(torch, ssd_kernel, ssd, ssd_chunked,
+                                launched_kernels,
                                 ssd_cases(mbatch_shapes, mcfg))
 
     print("== phase 4: main path, stablelm-1.6b at full width", flush=True)
@@ -883,7 +973,7 @@ def main() -> int:
 
     print("== phase 5b: profile of a mamba2 prefill and decode steps "
           "(torch.profiler)", flush=True)
-    mprofile = profile_serve(torch, mloop, ssd_kernel, "ssd_fwd", "ssd",
+    mprofile = profile_serve(torch, mloop, ssd_kernel, "ssd_", "ssd",
                              B0, T0, prefill=True)
 
     print("== phase 6b: mamba2 on the card against the CPU; prefill against "
@@ -918,8 +1008,8 @@ def main() -> int:
     print("== phase 7b: SSD kernel timing (bf16 x/B/C; device time from "
           "CUDA graph replays, host time from back-to-back calls)",
           flush=True)
-    ssd_rows = run_ssd_timings(torch, ssd, ssd_chunked, mcfg,
-                               mbatch_shapes[0])
+    ssd_rows = run_ssd_timings(torch, ssd_kernel, ssd, ssd_chunked,
+                               launched_kernels, mcfg, mbatch_shapes[0])
 
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ssd as ssd_mod
+from repro_torch.kernels._launches import launched_kernels
 from repro_torch.kernels.flash_attention import attention_ref, kernel, mha
 from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_ref, ssd_scan
 from repro_torch.launch.serve import Request, ServeLoop
@@ -198,6 +199,9 @@ def _ssd_close(out, ref):
     (2, 50, 4, 16, 2, 16, 16, True),       # initial state
     (2, 13, 8, 64, 1, 128, 128, True),     # serve widths, one chunk
     (1, 300, 4, 64, 1, 128, 128, False),   # carry over 3 chunks, ragged
+    (1, 4096, 8, 64, 1, 128, 128, False),  # serve widths, 32 chunks
+    (2, 1000, 8, 64, 1, 128, 128, True),   # 8 chunks, ragged, state0
+    (1, 300, 8, 64, 4, 128, 128, True),    # G 4 across 3 chunks
 ])
 def test_ssd_kernel_matches_plain_version(dtype, B, T, H, P, G, N, chunk,
                                           state):
@@ -207,6 +211,11 @@ def test_ssd_kernel_matches_plain_version(dtype, B, T, H, P, G, N, chunk,
     y, st = ssd_scan(x, dt, a, B_, C_, chunk=chunk, state0=s0)
     torch.cuda.synchronize()
     assert ssd_mod.kernel.LAUNCHES == before + 1
+    pl = ssd_mod.kernel.plan(dtype, T, chunk)
+    assert ssd_mod.kernel.LAST_PATH == pl.path
+    launched = launched_kernels(
+        lambda: ssd_scan(x, dt, a, B_, C_, chunk=chunk, state0=s0))
+    assert sorted(launched) == sorted(pl.kernels), launched
     ref_y, ref_st = ssd_chunked(x, dt, a, B_, C_, chunk, state0=s0)
     _ssd_close(y, ref_y)
     _ssd_close(st, ref_st)
@@ -233,6 +242,91 @@ def test_ssd_kernel_reads_strided_views():
                                 C_.contiguous(), 16)
     _ssd_close(y, ref_y)
     _ssd_close(st, ref_st)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ssd_kernel_reads_unaligned_views(dtype):
+    """Views whose rows do not start on 16 bytes (an odd offset and row
+    stride) take the element-by-element loads of the chunked path; a
+    state0 that does not start on 16 bytes is read as well."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    H, P, N, T = 4, 64, 128, 200
+    conv = torch.randn(2, T, 1 + H * P + 2 * N, generator=g,
+                       device="cuda").to(dtype)[..., 1:]
+    x = conv[..., :H * P].unflatten(-1, (H, P))
+    B_ = conv[..., H * P:H * P + N].unflatten(-1, (1, N))
+    C_ = conv[..., H * P + N:].unflatten(-1, (1, N))
+    dt = (0.05 + 0.02 * torch.randn(2, T, H, generator=g, device="cuda")).abs()
+    a = -(1.0 + 0.3 * torch.randn(H, generator=g, device="cuda")).abs()
+    s0 = torch.randn(2 * H * P * N + 1, generator=g,
+                     device="cuda")[1:].view(2, H, P, N)
+    y, st = ssd_scan(x, dt, a, B_, C_, chunk=128, state0=s0)
+    ref_y, ref_st = ssd_chunked(x, dt, a, B_, C_, 128, state0=s0)
+    _ssd_close(y, ref_y)
+    _ssd_close(st, ref_st)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "chunked"),
+                                        (torch.float32, "fp32")],
+                         ids=["bfloat16", "float32"])
+def test_ssd_path_by_dtype(dtype, path):
+    """bf16 x/B/C take the chunked tensor-core path, float32 the CUDA-core
+    kernel: the wrapper records the path, and the driver records its
+    kernels, once each."""
+    _need_card()
+    x, dt, a, B_, C_, s0 = _ssd_inputs(1, 40, 2, 16, 1, 16, dtype, True)
+    ssd_scan(x, dt, a, B_, C_, chunk=16, state0=s0)
+    assert ssd_mod.kernel.LAST_PATH == path
+    launched = launched_kernels(
+        lambda: ssd_scan(x, dt, a, B_, C_, chunk=16, state0=s0))
+    expected = (["ssd_chunk_cb", "ssd_chunk_state", "ssd_state_passing",
+                 "ssd_chunk_scan"] if path == "chunked" else ["ssd_fwd_fp32"])
+    assert sorted(launched) == sorted(expected), launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,ok", [(torch.float32, True),
+                                      (torch.bfloat16, False)],
+                         ids=["float32", "bfloat16"])
+def test_ssd_grid_limit_by_path(dtype, ok):
+    """B x H past the grid's 65535 rows: the fp32 path's grid is (H, B)
+    and takes it; the chunked path's is (chunks, B x H) and refuses it."""
+    _need_card()
+    x, dt, a, B_, C_, _ = _ssd_inputs(1100, 8, 64, 8, 1, 8, dtype)
+    if not ok:
+        with pytest.raises(ValueError, match="chunked path"):
+            ssd_scan(x, dt, a, B_, C_, chunk=8)
+        return
+    y, st = ssd_scan(x, dt, a, B_, C_, chunk=8)
+    ref_y, ref_st = ssd_chunked(x, dt, a, B_, C_, 8)
+    _ssd_close(y, ref_y)
+    _ssd_close(st, ref_st)
+
+
+@pytest.mark.gpu
+def test_ssd_chunked_path_in_a_cuda_graph():
+    """The chunked path (scratch, four launches) replays in a CUDA graph,
+    as chip_smoke.py times it, and agrees with the eager call."""
+    _need_card()
+    x, dt, a, B_, C_, s0 = _ssd_inputs(2, 1000, 8, 64, 1, 128,
+                                       torch.bfloat16, True, seed=6)
+    eager = ssd_scan(x, dt, a, B_, C_, chunk=128, state0=s0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd_scan(x, dt, a, B_, C_, chunk=128, state0=s0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, st = ssd_scan(x, dt, a, B_, C_, chunk=128, state0=s0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert ssd_mod.kernel.LAST_PATH == "chunked"
+    assert torch.equal(y, eager[0]) and torch.equal(st, eager[1])
 
 
 @pytest.mark.gpu

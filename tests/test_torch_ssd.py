@@ -109,3 +109,111 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     inp = _inputs(5, 1, 8, 2, 8, 1, 8)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         kernel.ssd_scan(*_torch(inp), chunk=8)
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "chunked"),
+                                        (torch.float32, "fp32")])
+@pytest.mark.parametrize("T,chunk,L,n_chunks", [
+    (15, 128, 15, 1),       # a serve prompt: one chunk, no state passing
+    (128, 128, 128, 1),     # exactly one chunk
+    (129, 128, 128, 2),     # a second chunk of one row
+    (4096, 128, 128, 32),   # 32 chunks
+    (50, 16, 16, 4),        # chunk 16, ragged
+    (32, 8, 8, 4),          # chunk 8 < the mma tile
+])
+def test_plan_picks_the_path_by_dtype(dtype, path, T, chunk, L, n_chunks):
+    """bf16 takes the chunked tensor-core path, its chunk padded to the
+    mma tile and the state passing launched only past one chunk; float32
+    takes the one-launch CUDA-core kernel, its chunk padded to a float4.
+    The card's profile of a call is held to ``kernels`` (the gpu tests,
+    chip_smoke.py)."""
+    pl = kernel.plan(dtype, T, chunk)
+    tile = 16 if path == "chunked" else 4
+    assert (pl.path, pl.L, pl.n_chunks) == (path, L, n_chunks)
+    assert pl.Lp % tile == 0 and 0 <= pl.Lp - L < tile
+    if path == "fp32":
+        assert pl.kernels == ("ssd_fwd_fp32",)
+    else:
+        assert pl.kernels == (("ssd_chunk_cb", "ssd_chunk_state")
+                              + ("ssd_state_passing",) * (n_chunks > 1)
+                              + ("ssd_chunk_scan",))
+
+
+def _split(v: torch.Tensor, terms: int) -> list[torch.Tensor]:
+    """An fp32 tensor as ``terms`` bf16 terms whose sum approximates it:
+    hi = bf16(v), lo = bf16(v - hi), ..."""
+    out, rest = [], v
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16).float()
+        out.append(t)
+        rest = rest - t
+    return out
+
+
+def _mm_split(a: torch.Tensor, b: torch.Tensor, terms: int,
+              split_a: bool) -> torch.Tensor:
+    """a @ b with fp32 accumulation, the fp32 operand (a if ``split_a``,
+    else b) split into bf16 terms and each term multiplied: what the
+    chunked path issues as mma.sync bf16 products."""
+    if split_a:
+        return sum(t @ b for t in _split(a, terms))
+    return sum(a @ t for t in _split(b, terms))
+
+
+def _emulate_chunked(x, dt, a, B_, C_, chunk, state0, terms):
+    """The chunked path's arithmetic in plain PyTorch, for G 1: C B^T on
+    the bf16 inputs as they are; att, the carried state and w B split into
+    ``terms`` = (att, state, wB) bf16 terms; every sum in fp32."""
+    t_att, t_state, t_wb = terms
+    Bb, T, H, P = x.shape
+    N = B_.shape[3]
+    L = min(chunk, T)
+    x, B_, C_ = x.float(), B_.float(), C_.float()
+    y = torch.zeros(Bb, T, H, P)
+    state = state0.clone()
+    for t0 in range(0, T, L):
+        sl = slice(t0, min(t0 + L, T))
+        for b in range(Bb):
+            Bc, Cc = B_[b, sl, 0], C_[b, sl, 0]                 # (l, N)
+            cb = Cc @ Bc.T                                       # exact products
+            for h in range(H):
+                xc, dtc = x[b, sl, h], dt[b, sl, h]
+                css = torch.cumsum(dtc * a[h], 0)
+                seg = css[-1]
+                diff = css[:, None] - css[None, :]
+                mask = torch.tril(torch.ones_like(diff, dtype=torch.bool))
+                att = torch.where(mask, cb * torch.exp(
+                    diff.masked_fill(~mask, float("-inf"))) * dtc[None], 0.)
+                s_in = state[b, h]                               # (P, N)
+                y[b, sl, h] = (torch.exp(css)[:, None]
+                               * _mm_split(Cc, s_in.T, t_state, False)
+                               + _mm_split(att, xc, t_att, True))
+                wB = torch.exp(seg - css)[:, None] * dtc[:, None] * Bc
+                state[b, h] = (torch.exp(seg) * s_in
+                               + _mm_split(xc.T, wB, t_wb, False))
+    return y, state
+
+
+@pytest.mark.parametrize("terms,meets_bar", [
+    ((3, 2, 3), True),          # the kernel's: att and w B in three terms
+    ((2, 2, 2), True),          # hi + lo throughout
+    ((1, 1, 1), False),         # one bf16 term
+], ids=["kernel", "hi+lo", "one term"])
+def test_chunked_path_arithmetic_needs_the_split(terms, meets_bar):
+    """At the model's widths (L 128, P 64, N 128) over 4 chunks, the
+    chunked path's products with the fp32 operand (att, the carried state,
+    w B) split into bf16 terms hold y and the final state to the JAX
+    model's ssd_chunked within 1e-5 of max, the bar of
+    tests/test_kernels.py; one bf16 term does not."""
+    B, T, H, P, G, N, chunk = 1, 512, 2, 64, 1, 128, 128
+    inp = _inputs(6, B, T, H, P, G, N, state=True)
+    jx = _jax(inp, jnp.bfloat16)
+    ref_y, ref_state = jax_ssd_chunked(*jx, chunk,
+                                       state0=jnp.asarray(inp["state0"]))
+    x, dt, a, B_, C_ = _torch(inp, torch.bfloat16)
+    y, state = _emulate_chunked(x, dt, a, B_, C_, chunk,
+                                torch.from_numpy(inp["state0"]), terms)
+    err = max(float(np.abs(np.asarray(out) - np.asarray(ref)).max()
+                    / np.abs(np.asarray(ref)).max())
+              for out, ref in ((y.numpy(), ref_y), (state.numpy(), ref_state)))
+    assert (err <= TOL) == meets_bar, err
