@@ -5,8 +5,8 @@
 
 It drives both of the port's serving paths, stablelm-1.6b (every attention
 through the flash-attention kernel) and mamba2-1.3b (every prefill of every
-layer through the SSD-scan kernel).  Phases, in order; any failure ends the
-run with a non-zero exit code:
+layer through the SSD-scan kernel), and Lotaru's estimator path.  Phases,
+in order; any failure ends the run with a non-zero exit code:
 
 1. the card's name and power limit (nvidia-smi), torch, CUDA and nvcc
    versions;
@@ -59,6 +59,20 @@ run with a non-zero exit code:
    and its device launches per call, as the driver records them, are
    recorded and held to the plan, and torch.profiler splits its device
    time by kernel.
+
+8. the estimator path, which has no kernel (float64 tensor code on the
+   card, HEFT on the host), held to the same calls on the CPU at 1e-12
+   (``rel_err``) and HEFT's makespans at 1e-9: the first and the warm
+   ``inv_ex`` calls; 8a ``profile_local`` on the card (fp32 matmul
+   GFLOP/s and stream GB/s); 8b the paper path (every workflow fitted
+   from ``ClusterSimulator(seed=0)``'s local runs, its matrix, the gates
+   and ``w``, and HEFT of the chipseq chain, 6 samples on 10 nodes); 8c
+   the scale of benchmarks/bench_predict.py (1,000 tasks x 64 nodes,
+   ``fit_task_batch``, the full matrix, a 4,096-observation update
+   stream and ``observe_batch``, the dirty-row matrix, the scalar
+   ``predict``, HEFT over ``synthetic_dag(100, 140)``), each call's host
+   ms, CUDA-event ms and profiler-busy ms on the card beside its CPU ms,
+   and the peak device memory.
 
 The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``; the full report goes to
@@ -811,6 +825,418 @@ def check_served(summary, cfg, n_requests, max_new):
               f"request {r.rid}: tokens {r.out}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the estimator path (profile -> fit -> matrix -> updates -> HEFT)
+# ---------------------------------------------------------------------------
+#: card against CPU on the float64 estimator path (tests/test_tick_engine.py)
+EST_TOL = 1e-12
+#: HEFT makespans scheduled from the card's and from the CPU's matrices
+HEFT_TOL = 1e-9
+#: benchmarks/bench_predict.py's scale: tasks, nodes, the predicted size;
+#: the observation stream absorbed by observe_batch
+EST_TASKS, EST_NODES, EST_SIZE, EST_STREAM = 1000, 64, 128.0, 4096
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / (1 + |b|) over the entries: at most EST_TOL exactly
+    when ``np.allclose(a, b, rtol=EST_TOL, atol=EST_TOL)`` holds, the bar
+    of the tests (relative for entries of magnitude >= 1, absolute for the
+    near-zero entries of a posterior mean)."""
+    import numpy as np
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    check(a.shape == b.shape, f"shapes {a.shape} and {b.shape} differ")
+    return float(np.max(np.abs(a - b) / (1.0 + np.abs(b)), initial=0.0))
+
+
+def timed(torch, fn, device, reps=1):
+    """(the last call's result, host ms, device ms), each the median over
+    ``reps`` calls: the host clock around the call and a synchronize, and
+    on the card CUDA events recorded around the call (the span of the
+    device's timeline it covers, idle gaps included; None on the CPU)."""
+    walls, devs, out = [], [], None
+    for _ in range(reps):
+        if device == "cuda":
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            devs.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    return (out, sorted(walls)[len(walls) // 2],
+            sorted(devs)[len(devs) // 2] if devs else None)
+
+
+def device_busy(torch, fn):
+    """One call under torch.profiler: the device-busy ms (the summed device
+    time of its kernels and copies), their count and the top entries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    ev = sorted(((e.key, _device_us(e, False) / 1e3, e.count) for e in avg
+                 if e.device_type != DeviceType.CPU), key=lambda r: -r[1])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in avg if e.device_type == DeviceType.CPU),
+                  key=lambda r: -r[1])
+    return {"wall_ms_profiled": wall_ms,
+            "busy_ms": sum(ms for _, ms, _ in ev),
+            "device_launches": sum(n for _, _, n in ev), "top": ev[:8],
+            "host_top": host[:10]}
+
+
+def synthetic_estimator(n_tasks, n_nodes, device, seed=0):
+    """benchmarks/bench_predict.py's ``_synthetic_estimator``, built from
+    the port: T tasks fitted from seeded samples (70% size-correlated, the
+    rest flat) over N synthetic node benches."""
+    import numpy as np
+    from repro_torch.core import LotaruEstimator, fit_task
+    from repro_torch.core.estimator import FittedTask
+    from repro_torch.core.profiler import BenchResult
+    rng = np.random.default_rng(seed)
+    local = BenchResult(node="local-cpu", cpu_events_s=450.0,
+                        matmul_gflops=90.0, mem_gbps=18.0,
+                        io_read_mbps=420.0, io_write_mbps=400.0,
+                        link_gbps=0.0)
+    benches = {}
+    for j in range(n_nodes):
+        nm = f"node{j:03d}"
+        benches[nm] = BenchResult(
+            node=nm, cpu_events_s=float(rng.uniform(150, 900)),
+            matmul_gflops=float(rng.uniform(50, 5000)),
+            mem_gbps=float(rng.uniform(10, 900)),
+            io_read_mbps=float(rng.uniform(100, 900)),
+            io_write_mbps=float(rng.uniform(100, 900)),
+            link_gbps=float(rng.uniform(0, 100)))
+    est = LotaruEstimator(local, benches, device=device)
+    n_part = 8
+    for i in range(n_tasks):
+        sizes = np.geomspace(1.0, 256.0, n_part) * rng.uniform(0.5, 2.0)
+        if rng.random() < 0.7:      # size-correlated task -> BLR
+            rts = (rng.uniform(0.1, 5.0) * sizes + rng.uniform(1, 50)
+                   + rng.normal(0, 0.05, n_part))
+        else:                       # flat -> median fallback
+            rts = rng.uniform(20, 200) + rng.normal(0, 0.5, n_part)
+        est.tasks[f"task{i:04d}"] = FittedTask(
+            model=fit_task(sizes, rts, device=device),
+            w=float(rng.uniform(0, 1)), sizes=sizes, runtimes=np.abs(rts))
+    return est
+
+
+def paper_path(device):
+    """The quickstart path with the port on ``device``: every workflow
+    fitted from the simulator's local runs (seed 0), then its (task x
+    target node) matrix."""
+    import numpy as np
+    from repro_torch.core import (LotaruEstimator, get_node, profile_cluster,
+                                  profile_node, target_nodes)
+    from repro_torch.sched.simulator import ClusterSimulator
+    from repro_torch.sched.workflows import INPUTS, WORKFLOWS
+    sim = ClusterSimulator(seed=0)
+    local = get_node("local-cpu")
+    local_bench = profile_node(local, np.random.default_rng(7))
+    tbenches = profile_cluster(target_nodes(), seed=13)
+    nodes = [nt.name for nt in target_nodes()]
+    out = {}
+    for wf, tasks in WORKFLOWS.items():
+        by = {t.name: t for t in tasks}
+        size = INPUTS[(wf, 1)]
+        est = LotaruEstimator(local_bench, tbenches, device=device)
+        est.fit_tasks(list(by), size,
+                      lambda n, s, cf: sim.run_task(by[n], local, s,
+                                                    cpu_factor=cf))
+        mean, std = est.predict_matrix(nodes, size)
+        out[wf] = {"est": est, "nodes": nodes, "mean": mean, "std": std,
+                   "gates": [est.tasks[n].model.correlated
+                             for n in est.task_names()],
+                   "w": [est.tasks[n].w for n in est.task_names()]}
+    return out
+
+
+def chain_schedule(run, n_samples=6):
+    """heterogeneous_schedule.py's plan: the chipseq chain over
+    ``n_samples`` inputs on 2 nodes of each type, risk_k 1.0, its costs
+    read from the (task x node type) matrix."""
+    from repro_torch.core import target_nodes
+    from repro_torch.sched.heft import SchedTask, heft_schedule
+    est, mean, std = run["est"], run["mean"], run["std"]
+    row = {n: i for i, n in enumerate(est.task_names())}
+    col = {n: j for j, n in enumerate(run["nodes"])}
+    hnodes = [f"{nt.name}/{i}" for nt in target_nodes() for i in range(2)]
+    ntype = {n: n.rsplit("/", 1)[0] for n in hnodes}
+    tasks, cost, unc = {}, {}, {}
+    for s in range(n_samples):
+        prev = None
+        for name in est.task_names():
+            tid = f"s{s}.{name}"
+            tasks[tid] = SchedTask(id=tid)
+            if prev:
+                tasks[tid].pred.append(prev)
+                tasks[prev].succ.append(tid)
+            prev = tid
+            cost[tid] = {n: float(mean[row[name], col[ntype[n]]])
+                         for n in hnodes}
+            unc[tid] = {n: float(std[row[name], col[ntype[n]]])
+                        for n in hnodes}
+    return heft_schedule(tasks, cost, hnodes, uncertainty=unc, risk_k=1.0)
+
+
+def estimator_at_scale(torch, device):
+    """Phase 8c on ``device``: the T x N synthetic estimator's batched fit,
+    full matrix, update stream, observe_batch, dirty-row matrix, scalar
+    predict, and HEFT over a ~10k-task DAG from its matrix."""
+    import numpy as np
+    from repro_torch.core import blr
+    from repro_torch.data.synthetic import synthetic_dag
+    from repro_torch.sched.heft import heft_schedule_array
+    T, N, S, size = EST_TASKS, EST_NODES, EST_STREAM, EST_SIZE
+    t = {}
+    est, t["build_ms"], _ = timed(
+        torch, lambda: synthetic_estimator(T, N, device), device)
+    nodes, names = list(est.target_benches), est.task_names()
+    fts = [est.tasks[n] for n in names]
+
+    def fit():
+        return blr.fit_task_batch([ft.sizes for ft in fts],
+                                  [ft.runtimes for ft in fts], device=device)
+
+    def full():
+        est._mat_cache = None
+        return est.predict_matrix(nodes, size)
+
+    model, t["fit_ms"], t["fit_device_ms"] = timed(torch, fit, device, 5)
+    est.predict_matrix(nodes, size)          # primes the batch cache
+    (mean, std), t["matrix_ms"], t["matrix_device_ms"] = timed(
+        torch, full, device, 5)
+    _, base, _ = est._batched()
+    rng = np.random.default_rng(1)
+    ti = rng.integers(0, T, S)
+    ni = rng.integers(0, N, S)
+    xs = rng.uniform(1.0, 256.0, S)
+    rs = rng.uniform(5.0, 2000.0, S)
+
+    def stream():       # on a copy of the log: the estimator's stays as is
+        st = base.stats
+        return blr.update_task_batch_stream(
+            blr.BatchedTaskModel(base.correlated, base.post, base.median,
+                                 base.spread,
+                                 blr.OnlineStats(st.moments, st.log.copy())),
+            ti, xs, rs)
+
+    upd, t["stream_ms"], t["stream_device_ms"] = timed(torch, stream,
+                                                       device, 3)
+    obs = [(names[i], nodes[j], float(x), float(r))
+           for i, j, x, r in zip(ti, ni, xs, rs)]
+    ys, t["observe_ms"], t["observe_device_ms"] = timed(
+        torch, lambda: est.observe_batch(obs), device)
+    dirty = sorted(est._dirty_rows)
+    (dmean, dstd), t["dirty_matrix_ms"], t["dirty_matrix_device_ms"] = \
+        timed(torch, lambda: est.predict_matrix(nodes, size), device)
+    calls = 100
+    _, scalar_ms, _ = timed(torch, lambda: [
+        est.predict(names[k], nodes[k % N], size) for k in range(calls)],
+        device)
+    t["scalar_predict_ms_per_call"] = scalar_ms / calls
+    dag = synthetic_dag(width=100, depth=140, fanout=2.0, seed=0)
+    cost = dmean[np.arange(dag.n_tasks) % T]
+    sched, t["heft_ms"], _ = timed(
+        torch, lambda: heft_schedule_array(dag.succ, dag.pred, cost), "cpu")
+    prof = {}
+    if device == "cuda":
+        prof = {"fit": device_busy(torch, fit),
+                "matrix": device_busy(torch, full),
+                "stream": device_busy(torch, stream)}
+        est._dirty_rows = set(dirty)         # the same rows, recomputed
+        prof["dirty_matrix"] = device_busy(
+            torch, lambda: est.predict_matrix(nodes, size))
+    t["per_observation_ms"] = t["stream_ms"] / S
+    return {"times": t, "profile": prof, "model": model, "mean": mean,
+            "std": std, "upd": upd, "ys": ys, "dirty_rows": len(dirty),
+            "dmean": dmean, "dstd": dstd, "sched": sched,
+            "dag": (dag.n_tasks, dag.n_edges)}
+
+
+def run_estimator_phase(torch, smi):
+    """Phase 8: the port's estimator path on the card, held to the same
+    path on the CPU (float64, EST_TOL) and timed beside it."""
+    import numpy as np
+    from repro_torch.core import blr, profile_local
+    report = {}
+
+    print("  the first inv_ex call of the process, then warm ones "
+          f"({EST_TASKS} 2x2 float64 matrices)", flush=True)
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(EST_TASKS, 2, 2))
+    a = a @ a.transpose(0, 2, 1) + np.eye(2)
+    ac = torch.tensor(a, device="cuda")
+    inv, first_ms, first_dev = timed(
+        torch, lambda: torch.linalg.inv_ex(ac).inverse, "cuda")
+    _, warm_ms, warm_dev = timed(
+        torch, lambda: torch.linalg.inv_ex(ac).inverse, "cuda", 21)
+    err = rel_err(inv.cpu(), torch.linalg.inv_ex(torch.tensor(a)).inverse)
+    print(f"  first {first_ms:.3f} ms host / {first_dev:.3f} ms device, "
+          f"warm {warm_ms:.4f} / {warm_dev:.4f} ms; against the CPU "
+          f"{err:.3e}", flush=True)
+    check(err <= EST_TOL, f"inv_ex on the card against the CPU: {err:.3e}")
+    report["inv_ex"] = {"first_ms": first_ms, "first_device_ms": first_dev,
+                        "warm_ms": warm_ms, "warm_device_ms": warm_dev,
+                        "rel_err": err}
+
+    print("== phase 8a: profile_local on the card (fp32, TF32 off)",
+          flush=True)
+    bench = profile_local(device="cuda", fast=False)
+    for k in ("matmul_gflops", "mem_gbps"):
+        v = getattr(bench, k)
+        check(np.isfinite(v) and v > 0, f"profile_local {k} = {v}")
+    print(f"  {smi}: matmul {bench.matmul_gflops:.1f} GFLOP/s "
+          f"(512 x 512 fp32, 8 chained products), memory "
+          f"{bench.mem_gbps:.1f} GB/s (256 MB stream, 8 passes)",
+          flush=True)
+    report["profile_local"] = bench.to_dict()
+
+    print("== phase 8b: the paper path, five workflows x 6 node types, on "
+          "the card and on the CPU", flush=True)
+    card, first_ms, _ = timed(torch, lambda: paper_path("cuda"), "cuda")
+    card, card_ms, _ = timed(torch, lambda: paper_path("cuda"), "cuda")
+    host, host_ms_, _ = timed(torch, lambda: paper_path("cpu"), "cpu")
+    paper = {"card_first_ms": first_ms, "card_ms": card_ms,
+             "cpu_ms": host_ms_, "workflows": {}}
+    for wf in card:
+        c, h = card[wf], host[wf]
+        e_mean, e_std = rel_err(c["mean"], h["mean"]), rel_err(c["std"],
+                                                              h["std"])
+        print(f"  {wf}: {len(c['gates'])} tasks, {sum(c['gates'])} on the "
+              f"BLR branch; matrix card vs CPU {e_mean:.3e} / {e_std:.3e}",
+              flush=True)
+        check(e_mean <= EST_TOL and e_std <= EST_TOL,
+              f"{wf}: card against CPU {e_mean:.3e} / {e_std:.3e}")
+        check(c["gates"] == h["gates"], f"{wf}: Pearson gates differ")
+        check(c["w"] == h["w"], f"{wf}: w differs")
+        paper["workflows"][wf] = {"tasks": len(c["gates"]),
+                                  "blr_tasks": sum(c["gates"]),
+                                  "rel_err_mean": e_mean,
+                                  "rel_err_std": e_std}
+    sc, sh = chain_schedule(card["chipseq"]), chain_schedule(host["chipseq"])
+    e_span = abs(sc["makespan"] - sh["makespan"]) / sh["makespan"]
+    same = np.mean([sc["assignment"][k] == sh["assignment"][k]
+                    for k in sh["assignment"]])
+    print(f"  HEFT chipseq x 6 samples on 10 nodes, risk_k 1.0: makespan "
+          f"{sc['makespan']:.3f} s (card) vs {sh['makespan']:.3f} s (CPU), "
+          f"{e_span:.3e} apart; equal assignments {100 * same:.1f}%; "
+          f"paper path {card_ms:.1f} ms on the card (its first run "
+          f"{first_ms:.1f}), {host_ms_:.1f} ms on the CPU", flush=True)
+    check(e_span <= HEFT_TOL, f"HEFT makespans {e_span:.3e} apart")
+    paper["heft"] = {"makespan_card": sc["makespan"],
+                     "makespan_cpu": sh["makespan"], "rel_err": e_span,
+                     "equal_assignments": float(same)}
+    report["paper"] = paper
+
+    print(f"== phase 8c: {EST_TASKS} tasks x {EST_NODES} nodes, a "
+          f"{EST_STREAM}-observation stream, HEFT over synthetic_dag(100, "
+          "140) (card against CPU)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    held_mb = torch.cuda.memory_allocated() / 1e6
+    g = estimator_at_scale(torch, "cuda")
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    c = estimator_at_scale(torch, "cpu")
+    errs = {}
+    for f in blr.POSTERIOR_FIELDS:
+        errs[f"fit_{f}"] = rel_err(blr._np(getattr(g["model"].post, f)),
+                                   blr._np(getattr(c["model"].post, f)))
+        errs[f"stream_{f}"] = rel_err(blr._np(getattr(g["upd"].post, f)),
+                                      blr._np(getattr(c["upd"].post, f)))
+    errs["stream_moments"] = rel_err(blr._np(g["upd"].stats.moments),
+                                     blr._np(c["upd"].stats.moments))
+    errs["matrix_mean"] = rel_err(g["mean"], c["mean"])
+    errs["matrix_std"] = rel_err(g["std"], c["std"])
+    errs["observe_ys"] = rel_err(g["ys"], c["ys"])
+    errs["dirty_mean"] = rel_err(g["dmean"], c["dmean"])
+    errs["dirty_std"] = rel_err(g["dstd"], c["dstd"])
+    abs_errs = {}
+    for f in blr.POSTERIOR_FIELDS:
+        abs_errs[f"fit_{f}"] = float(np.max(np.abs(
+            blr._np(getattr(g["model"].post, f))
+            - blr._np(getattr(c["model"].post, f)))))
+        abs_errs[f"stream_{f}"] = float(np.max(np.abs(
+            blr._np(getattr(g["upd"].post, f))
+            - blr._np(getattr(c["upd"].post, f)))))
+    worst = max(errs, key=errs.get)
+    print(f"  card against CPU: worst {worst} {errs[worst]:.3e} (bar "
+          f"{EST_TOL:g}, |a - b| / (1 + |b|)); posteriors' max |a - b| "
+          f"{max(abs_errs.values()):.3e}; gates after the stream equal: "
+          f"{torch.equal(g['upd'].correlated.cpu(), c['upd'].correlated)}",
+          flush=True)
+    check(errs[worst] <= EST_TOL, f"8c card against CPU: {worst} "
+          f"{errs[worst]:.3e}")
+    check(torch.equal(g["model"].correlated.cpu(), c["model"].correlated)
+          and torch.equal(g["upd"].correlated.cpu(), c["upd"].correlated),
+          "8c: Pearson gates differ between the card and the CPU")
+    gs, cs = g["sched"], c["sched"]
+    e_span = abs(gs["makespan"] - cs["makespan"]) / cs["makespan"]
+    same = float(np.mean(gs["assignment"] == cs["assignment"]))
+    check(e_span <= HEFT_TOL, f"8c HEFT makespans {e_span:.3e} apart")
+    print(f"  HEFT over {g['dag'][0]} tasks / {g['dag'][1]} edges on "
+          f"{EST_NODES} nodes: makespan {gs['makespan']:.3f} (card's "
+          f"matrix) vs {cs['makespan']:.3f} (CPU's), {e_span:.3e} apart, "
+          f"equal assignments {100 * same:.1f}%", flush=True)
+    print(f"  {'call':34s} {'card host ms':>13s} {'card events ms':>15s} "
+          f"{'card busy ms':>13s} {'launches':>9s} {'CPU ms':>10s}")
+    rows = (("fit_task_batch (T 1000)", "fit", "fit"),
+            ("predict_matrix, full", "matrix", "matrix"),
+            (f"update stream ({EST_STREAM} obs)", "stream", "stream"),
+            (f"observe_batch ({EST_STREAM} obs)", "observe", None),
+            (f"predict_matrix, {g['dirty_rows']} dirty rows",
+             "dirty_matrix", "dirty_matrix"),
+            ("heft_schedule_array (host)", "heft", None))
+    for label, key, pk in rows:
+        p = g["profile"].get(pk, {}) if pk else {}
+        dev = g["times"].get(f"{key}_device_ms")
+        print(f"  {label:34s} {g['times'][f'{key}_ms']:13.3f} "
+              f"{dev if dev is not None else float('nan'):15.3f} "
+              f"{p.get('busy_ms', float('nan')):13.3f} "
+              f"{p.get('device_launches', 0):9d} "
+              f"{c['times'][f'{key}_ms']:10.3f}", flush=True)
+    for pk in ("matrix", "stream"):
+        print(f"  host ops of {pk} by self time (ms, calls): " + ", ".join(
+            f"{k} {ms:.2f} x{n}" for k, ms, n in
+            g["profile"][pk]["host_top"][:6]), flush=True)
+    launches_per_obs = g["profile"]["stream"]["device_launches"] / EST_STREAM
+    print(f"  update: {g['times']['per_observation_ms'] * 1e3:.2f} us per "
+          f"observation on the card ({launches_per_obs:.2f} device launches "
+          f"each, by the profiler), {c['times']['per_observation_ms'] * 1e3:.2f}"
+          f" us on the CPU; scalar predict "
+          f"{g['times']['scalar_predict_ms_per_call']:.4f} ms per call "
+          f"(card) / {c['times']['scalar_predict_ms_per_call']:.4f} (CPU); "
+          f"peak device memory {peak_mb:.1f} MB ({held_mb:.1f} MB held "
+          "before 8c)", flush=True)
+    report["scale"] = {
+        "tasks": EST_TASKS, "nodes": EST_NODES, "stream": EST_STREAM,
+        "size": EST_SIZE, "dag": g["dag"], "dirty_rows": g["dirty_rows"],
+        "card": g["times"], "cpu": c["times"], "card_profile": g["profile"],
+        "launches_per_observation": launches_per_obs,
+        "peak_memory_mb": peak_mb, "held_before_mb": held_mb,
+        "rel_err": errs,
+        "posterior_max_abs_err": abs_errs,
+        "heft": {"makespan_card": gs["makespan"],
+                 "makespan_cpu": cs["makespan"], "rel_err": e_span,
+                 "equal_assignments": same}}
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1011,6 +1437,10 @@ def main() -> int:
     ssd_rows = run_ssd_timings(torch, ssd_kernel, ssd, ssd_chunked,
                                launched_kernels, mcfg, mbatch_shapes[0])
 
+    print("== phase 8: the estimator path (float64; card against the CPU "
+          "at 1e-12)", flush=True)
+    estimator = run_estimator_phase(torch, smi)
+
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
     main_row = next(r for r in rows if r["shape"] == "serve decode")
@@ -1047,6 +1477,7 @@ def main() -> int:
                          "peak_memory_gb": mpeak_gb,
                          "prefill_ms": prefill_ms, "profile": mprofile,
                          "model_rel_err": mmodel_errs},
+              "estimator": estimator,
               "card": smi, "seconds": time.time() - t_start}
     out_dir = ROOT / "build" / "reports"
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -1,4 +1,5 @@
-"""Weights and caches carried across from the JAX package.
+"""Weights, caches and fitted estimator state carried across from the JAX
+package.
 
 The one place that maps the JAX package's trees onto the port's.  Both
 packages keep the same names and the same stacked layouts (``blocks``
@@ -7,6 +8,11 @@ leaves carry a leading layers dim; ``embed`` (V, d), ``unembed`` (d, V),
 port's definition tree must be present in the JAX tree, and nothing else.
 The input is numpy only (``jax.tree.map(np.asarray, params)``), so the
 port still imports no JAX.
+
+The estimator's state crosses the same way: a posterior's six fields, a
+``TaskModel`` and a ``BatchedTaskModel`` (with its (T, 8) moments and the
+raw-sample log), each given as numpy arrays, become the port's on
+``device`` in ``dtype`` (float64 by default), value for value.
 """
 from __future__ import annotations
 
@@ -14,6 +20,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.blr import (POSTERIOR_FIELDS, BatchedTaskModel,
+                                  BLRPosterior, OnlineStats, SampleLog,
+                                  TaskModel, _default_dtype, _to_device)
 from repro_torch.models.common import ModelConfig, is_def
 from repro_torch.models.transformer import cache_def, lm_def
 
@@ -54,3 +63,55 @@ def caches_from_jax(tree, cfg: ModelConfig, *, device=None,
         defs = cache_def(cfg, k_shape[1], k_shape[2], cache_dtype)
     return _carry(tree, defs, resolve_device(device))
 
+
+def posterior_from_numpy(mu, V, a, b, x_scale, y_scale, *, device=None,
+                         dtype=None) -> BLRPosterior:
+    """A JAX ``BLRPosterior``'s fields (numpy; scalar or with a leading
+    (T,) axis) as the port's posterior."""
+    dev, dt = resolve_device(device), _default_dtype(dtype)
+    return BLRPosterior(*(_to_device(np.asarray(v, np.float64), dev, dt)
+                          for v in (mu, V, a, b, x_scale, y_scale)))
+
+
+def _post(post, device, dtype):
+    return posterior_from_numpy(*(post[f] for f in POSTERIOR_FIELDS),
+                                device=device, dtype=dtype)
+
+
+def task_model_from_numpy(correlated, median, spread, post=None, *,
+                          device=None, dtype=None) -> TaskModel:
+    """A JAX ``TaskModel`` as the port's: ``post`` maps the posterior's
+    field names to numpy arrays, or is ``None`` for a median-fallback
+    task."""
+    return TaskModel(correlated=bool(correlated),
+                     post=None if post is None else _post(post, device,
+                                                          dtype),
+                     median=float(median), spread=float(spread))
+
+
+def batched_task_model_from_numpy(correlated, post, median, spread,
+                                  moments=None, samples=None, *,
+                                  device=None,
+                                  dtype=None) -> BatchedTaskModel:
+    """A JAX ``BatchedTaskModel`` as the port's.  ``post`` maps the
+    posterior's field names to (T, ...) numpy arrays; ``moments`` (T, 8)
+    and ``samples`` = (x, y, count), the ``SampleLog``'s arrays, carry the
+    streamed statistics (both or neither: without them the model predicts
+    but cannot update)."""
+    dev, dt = resolve_device(device), _default_dtype(dtype)
+    if (moments is None) != (samples is None):
+        raise ValueError("moments and samples come together: the update "
+                         "needs both")
+    stats = None
+    if moments is not None:
+        x, y, count = samples
+        stats = OnlineStats(
+            moments=_to_device(np.asarray(moments, np.float64), dev, dt),
+            log=SampleLog(np.array(x, np.float64), np.array(y, np.float64),
+                          np.array(count, np.int64)))
+    return BatchedTaskModel(
+        correlated=_to_device(np.asarray(correlated, bool), dev, torch.bool),
+        post=_post(post, dev, dt),
+        median=_to_device(np.asarray(median, np.float64), dev, dt),
+        spread=_to_device(np.asarray(spread, np.float64), dev, dt),
+        stats=stats)

@@ -357,3 +357,191 @@ def test_full_width_mamba2_serve_goes_through_the_ssd_kernel():
     assert kernel.LAUNCHES == flash_before
     for r in done:
         assert len(r.out) == 4 and all(0 <= t < cfg.vocab for t in r.out)
+
+
+# ---------------------------------------------------------------------------
+# The estimator path: float64 on the card, held to the same calls on the CPU
+# ---------------------------------------------------------------------------
+#: card against CPU on the float64 estimator path (tests/test_tick_engine.py)
+EST_TOL = 1e-12
+
+
+def _est_close(card, cpu):
+    import numpy as np
+    np.testing.assert_allclose(np.asarray(card, np.float64),
+                               np.asarray(cpu, np.float64),
+                               rtol=EST_TOL, atol=EST_TOL)
+
+
+def _est_tasks(T=300, seed=0):
+    """Ragged tasks from a seed: size-correlated ones, flat ones and
+    one-sample ones."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes, runs = [], []
+    for _ in range(T):
+        n = int(rng.integers(1, 11))
+        s = np.geomspace(1.0, 256.0, n) * rng.uniform(0.5, 2.0)
+        if rng.random() < 0.7:
+            r = rng.uniform(0.1, 5.0) * s + rng.uniform(1, 50) \
+                + rng.normal(0, 0.5, n)
+        else:
+            r = rng.uniform(20, 200) + rng.normal(0, 2.0, n)
+        sizes.append(s)
+        runs.append(r)
+    return sizes, runs
+
+
+def _est_stream(T, S=2000, seed=1):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, T, S), rng.uniform(1.0, 256.0, S),
+            rng.uniform(5.0, 2000.0, S))
+
+
+def _same_models(card, cpu):
+    from repro_torch.core import blr
+    assert card.median.device.type == "cuda"
+    assert torch.equal(card.correlated.cpu(), cpu.correlated)
+    for f in blr.POSTERIOR_FIELDS:
+        _est_close(blr._np(getattr(card.post, f)),
+                   blr._np(getattr(cpu.post, f)))
+    _est_close(blr._np(card.median), blr._np(cpu.median))
+    _est_close(blr._np(card.spread), blr._np(cpu.spread))
+    _est_close(blr._np(card.stats.moments), blr._np(cpu.stats.moments))
+
+
+@pytest.mark.gpu
+def test_fit_task_batch_card_matches_cpu():
+    _need_card()
+    from repro_torch.core import blr
+    sizes, runs = _est_tasks()
+    card = blr.fit_task_batch(sizes, runs)          # the default: the card
+    cpu = blr.fit_task_batch(sizes, runs, device="cpu")
+    assert card.post.mu.dtype == torch.float64
+    _same_models(card, cpu)
+    for x in (128.0, [float(v) for v in range(1, 301)]):
+        for a, b in zip(blr.predict_task_batch(card, x),
+                        blr.predict_task_batch(cpu, x)):
+            _est_close(blr._np(a), blr._np(b))
+
+
+@pytest.mark.gpu
+def test_update_task_batch_stream_card_matches_cpu():
+    _need_card()
+    from repro_torch.core import blr
+    sizes, runs = _est_tasks()
+    idx, xs, ys = _est_stream(len(sizes))
+    card = blr.update_task_batch_stream(
+        blr.fit_task_batch(sizes, runs, device="cuda"), idx, xs, ys)
+    cpu = blr.update_task_batch_stream(
+        blr.fit_task_batch(sizes, runs, device="cpu"), idx, xs, ys)
+    _same_models(card, cpu)
+    # the moments are summed in stream order on both: equal bit for bit
+    assert torch.equal(card.stats.moments.cpu(), cpu.stats.moments)
+
+
+@pytest.mark.gpu
+def test_update_stream_never_waits_on_the_card():
+    """The update path syncs nowhere: any synchronising call (a blocking
+    copy, ``.item()``, ``nonzero``) raises under sync debug mode "error"."""
+    _need_card()
+    from repro_torch.core import blr
+    sizes, runs = _est_tasks()
+    idx, xs, ys = _est_stream(len(sizes))
+    model = blr.fit_task_batch(sizes, runs, device="cuda")
+    mu0 = model.post.mu.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new = blr.update_task_batch_stream(model, idx, xs, ys)
+        new = blr.update_task_batch(new, 7, 100.0, 321.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(model.post.mu, mu0)          # the input is unchanged
+    cpu = blr.update_task_batch_stream(
+        blr.fit_task_batch(sizes, runs, device="cpu"), idx, xs, ys)
+    cpu = blr.update_task_batch(cpu, 7, 100.0, 321.0)
+    _same_models(new, cpu)
+
+
+@pytest.mark.gpu
+def test_predict_matrix_and_observe_batch_card_match_cpu():
+    _need_card()
+    import numpy as np
+    from repro_torch.core import LotaruEstimator, fit_task
+    from repro_torch.core.estimator import FittedTask
+    from repro_torch.core.profiler import BenchResult
+
+    def build(device):
+        rng = np.random.default_rng(0)
+        local = BenchResult("local-cpu", 450.0, 90.0, 18.0, 420.0, 400.0,
+                            0.0)
+        benches = {f"n{j}": BenchResult(
+            f"n{j}", *(float(v) for v in rng.uniform(100, 900, 5)), 0.0)
+            for j in range(16)}
+        est = LotaruEstimator(local, benches, device=device)
+        sizes, runs = _est_tasks(200, seed=2)
+        for i, (s, r) in enumerate(zip(sizes, runs)):
+            est.tasks[f"t{i}"] = FittedTask(
+                model=fit_task(s, r, device=device),
+                w=float(rng.uniform(0, 1)), sizes=s, runtimes=r)
+        return est
+
+    card, cpu = build("cuda"), build("cpu")
+    nodes = list(card.target_benches)
+    for a, b in zip(card.predict_matrix(nodes, 128.0),
+                    cpu.predict_matrix(nodes, 128.0)):
+        _est_close(a, b)
+    idx, xs, ys = _est_stream(200, 500, seed=3)
+    names = card.task_names()
+    obs = [(names[i], nodes[i % 16], float(x), float(y))
+           for i, x, y in zip(idx, xs, ys)]
+    _est_close(card.observe_batch(obs), cpu.observe_batch(obs))
+    assert card._dirty_rows == cpu._dirty_rows
+    for a, b in zip(card.predict_matrix(nodes, 128.0),
+                    cpu.predict_matrix(nodes, 128.0)):
+        _est_close(a, b)
+    for n in names[:20]:
+        _est_close(card.predict(n, nodes[3], 50.0),
+                   cpu.predict(n, nodes[3], 50.0))
+
+
+@pytest.mark.gpu
+def test_inv_ex_first_and_warm_call():
+    """The first ``inv_ex`` of a fresh process (library set-up included)
+    and the warm ones, timed in a child process; each agrees with the CPU,
+    and none waits on the card."""
+    _need_card()
+    import json
+    import subprocess
+    import sys
+    code = (
+        "import json, time, numpy as np, torch\n"
+        "rng = np.random.default_rng(0)\n"
+        "a = rng.normal(size=(1000, 2, 2))\n"
+        "a = a @ a.transpose(0, 2, 1) + np.eye(2)\n"
+        "ac = torch.tensor(a, device='cuda')\n"
+        "torch.cuda.synchronize()\n"
+        "ms = []\n"
+        "for k in range(6):\n"
+        "    t0 = time.perf_counter()\n"
+        "    if k == 0:\n"
+        "        torch.cuda.set_sync_debug_mode('error')\n"
+        "    inv = torch.linalg.inv_ex(ac).inverse\n"
+        "    torch.cuda.set_sync_debug_mode('default')\n"
+        "    torch.cuda.synchronize()\n"
+        "    ms.append((time.perf_counter() - t0) * 1e3)\n"
+        "ref = torch.linalg.inv_ex(torch.tensor(a)).inverse\n"
+        "err = float(((inv.cpu() - ref).abs() / (ref.abs() + 1e-12)).max())\n"
+        "print(json.dumps({'first_ms': ms[0], 'warm_ms': sorted(ms[1:])[2],"
+        " 'rel_err': err}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"inv_ex on (1000, 2, 2) float64: first {got['first_ms']:.3f} ms, "
+          f"warm {got['warm_ms']:.4f} ms")
+    assert got["rel_err"] <= EST_TOL
+    assert got["warm_ms"] <= got["first_ms"]
