@@ -72,7 +72,19 @@ in order; any failure ends the run with a non-zero exit code:
    stream and ``observe_batch``, the dirty-row matrix, the scalar
    ``predict``, HEFT over ``synthetic_dag(100, 140)``), each call's host
    ms, CUDA-event ms and profiler-busy ms on the card beside its CPU ms,
-   and the peak device memory.
+   and the peak device memory;
+9. the online loop, which has no kernel either (``core/tick.py``'s fused
+   tick, ``online/executor.py``): 9a the five paper workflows through
+   ``OnlineExecutor`` at the reference tests' sizes (2 samples, 2 nodes
+   per type), on the card and on the CPU, fused and legacy, faults off
+   and on — the same assignments and counters, times within 1e-12, and
+   fused equal to legacy; 9b one online tick at 8c's scale through
+   ``TickEngine.observe_batch``, eager and replayed from a CUDA graph (bit
+   for bit equal, and equal across two eager runs), beside the legacy
+   tick (``observe_batch`` + the dirty-row ``predict_matrix``) and the
+   same tick on the CPU (1e-12), then the HEFT re-plan over the
+   10,610-task DAG; host ms, CUDA-event ms, the ``tick_step`` span,
+   device-busy ms and launches.
 
 The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``; the full report goes to
@@ -1237,6 +1249,390 @@ def run_estimator_phase(torch, smi):
     return report
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 9: the online loop (fused tick engine, OnlineExecutor)
+# ---------------------------------------------------------------------------
+#: the reference tests' executor scenario (tests/test_tick_engine.py)
+ONLINE_SAMPLES, ONLINE_NODES_PER_TYPE = 2, 2
+
+
+def online_run(device, wf, fused, with_faults, seed=0):
+    """One run of the port's ``OnlineExecutor`` on ``device``: ``wf``
+    fanned over ONLINE_SAMPLES inputs on ONLINE_NODES_PER_TYPE nodes of
+    each type, risk_k 0.5, spec_tail 0.6, with or without the fault
+    injector (p_fail 0.08), the estimator fitted from
+    ``ClusterSimulator(seed)`` and the truth from seed + 2000."""
+    import numpy as np
+    from repro_torch.core import (LotaruEstimator, get_node, profile_cluster,
+                                  profile_node, target_nodes)
+    from repro_torch.online import OnlineExecutor, fanout_chain_dag
+    from repro_torch.sched.simulator import (ClusterSimulator, FaultInjector,
+                                             GridEngine)
+    from repro_torch.sched.workflows import INPUTS, WORKFLOWS
+    local = get_node("local-cpu")
+    size = INPUTS[(wf, 1)]
+    by = {t.name: t for t in WORKFLOWS[wf]}
+    tasks, task_name = fanout_chain_dag(list(by), ONLINE_SAMPLES)
+    truth = ClusterSimulator(seed=seed + 2000)
+    tab = {(tid, nt.name): truth.run_task(by[task_name[tid]], nt, size)
+           for tid in tasks for nt in target_nodes()}
+    sim = ClusterSimulator(seed=seed)
+    est = LotaruEstimator(profile_node(local, np.random.default_rng(7)),
+                          profile_cluster(target_nodes(), seed=13),
+                          bias_empirical_bayes=True, device=device)
+    est.fit_tasks(list(by), size, lambda n, s, cf: sim.run_task(
+        by[n], local, s, cpu_factor=cf))
+    grid = GridEngine.from_types(nodes_per_type=ONLINE_NODES_PER_TYPE)
+    faults = FaultInjector(p_fail=0.08, seed=seed + 31) if with_faults \
+        else None
+    return OnlineExecutor(
+        est, tasks, task_name, size, grid,
+        lambda tid, node: tab[(tid, grid.type_of(node).name)],
+        confidence=0.9, risk_k=0.5, spec_tail=0.6, faults=faults,
+        rel_k=1.0 if with_faults else None, max_attempts=6, strict=False,
+        fused=fused).run()
+
+
+def trace_agreement(a, b):
+    """(same assignments, same counters, max relative time error) of two
+    execution traces: task -> node, the loop's counters, and every
+    start/end time and dispatch-time prediction (``rel_err``)."""
+    import numpy as np
+
+    def sig(tr):
+        recs = sorted((r.id, r.node, r.start, r.end, r.pred_mean, r.pred_std)
+                      for r in tr.records)
+        return ([r[:2] for r in recs],
+                (tr.replans, tr.surprises, tr.completed, tr.failures,
+                 tr.retries, tr.speculations, tr.spec_wins, tr.stranded),
+                np.array([r[2:] for r in recs] + [[tr.makespan] * 4]))
+
+    sa, sb = sig(a), sig(b)
+    same = sa[0] == sb[0]
+    return same, sa[1] == sb[1], rel_err(sa[2], sb[2]) if same else None
+
+
+def online_executors(torch):
+    """Phase 9a: the five paper workflows through the port's executor on
+    the card and on the CPU, fused and legacy, faults off and on."""
+    from repro_torch.sched.workflows import WORKFLOWS
+    runs, ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        for wf in WORKFLOWS:
+            for faults in (False, True):
+                for fused in (False, True):
+                    key = (dev, wf, faults, fused)
+                    runs[key], ms[key], _ = timed(
+                        torch, lambda: online_run(dev, wf, fused, faults),
+                        dev)
+    out = []
+    print(f"  {'workflow':10s} {'faults':>6s} {'mode':>6s} {'tasks':>5s} "
+          f"{'replans':>7s} {'card vs CPU':>12s} {'fused vs legacy':>16s} "
+          f"{'card ms':>9s} {'CPU ms':>9s}", flush=True)
+    for wf in WORKFLOWS:
+        for faults in (False, True):
+            for fused in (False, True):
+                card = runs[("cuda", wf, faults, fused)]
+                cpu = runs[("cpu", wf, faults, fused)]
+                same, counters, err = trace_agreement(card, cpu)
+                fl = trace_agreement(card, runs[("cuda", wf, faults, False)])
+                row = {"workflow": wf, "faults": faults, "fused": fused,
+                       "completed": card.completed, "replans": card.replans,
+                       "surprises": card.surprises,
+                       "failures": card.failures,
+                       "same_assignments": same, "same_counters": counters,
+                       "rel_err": err, "fused_vs_legacy": list(fl),
+                       "card_ms": ms[("cuda", wf, faults, fused)],
+                       "cpu_ms": ms[("cpu", wf, faults, fused)]}
+                out.append(row)
+                print(f"  {wf:10s} {str(faults):>6s} "
+                      f"{'fused' if fused else 'legacy':>6s} "
+                      f"{card.completed:5d} {card.replans:7d} "
+                      f"{'equal' if same and counters else 'DIFFER':>6s} "
+                      f"{err if err is not None else float('nan'):.0e} "
+                      f"{'equal' if fl[0] and fl[1] else 'DIFFER':>9s} "
+                      f"{fl[2] if fl[2] is not None else float('nan'):.0e} "
+                      f"{row['card_ms']:9.1f} {row['cpu_ms']:9.1f}",
+                      flush=True)
+                check(same and counters and err <= EST_TOL,
+                      f"9a {wf} faults={faults} fused={fused}: the card's "
+                      f"trace differs from the CPU's ({same}, {counters}, "
+                      f"{err})")
+                check(fl[0] and fl[1] and fl[2] <= EST_TOL,
+                      f"9a {wf} faults={faults}: fused differs from legacy "
+                      f"on the card ({fl})")
+    return out
+
+
+#: ticks of phase 9b: the first warms up (eager) or captures (graph)
+TICKS = 4
+
+
+def tick_engines(torch, base, obs):
+    """Phase 9b's engines: a fresh ``TickEngine`` over a copy of the fitted
+    estimator for each of eager on the card, graph on the card, a second
+    eager on the card and eager on the CPU.  They absorb the same stream
+    TICKS times, taking turns tick by tick, so that the host's drift hits
+    them alike; each tick's ``observe_batch`` is timed (host ms,
+    CUDA-event ms) and its ``tick_step`` span (the tick's dispatch and its
+    one copy back) read from an ``EventLog``."""
+    import copy
+    from repro_torch.core.tick import TickEngine
+    from repro_torch.obs import EventLog
+    kinds = {"eager": ("cuda", False), "graph": ("cuda", True),
+             "second_eager": ("cuda", False), "cpu": ("cpu", False)}
+    engines, recs = {}, {k: [] for k in kinds}
+    for name, (dev, graph) in kinds.items():
+        b = base[dev]
+        engines[name] = TickEngine(copy.deepcopy(b), list(b.target_benches),
+                                   size=EST_SIZE, cuda_graph=graph)
+        engines[name].tracer = EventLog()
+    for _ in range(TICKS):
+        for name, (dev, _) in kinds.items():
+            e = engines[name]
+            ys, host, devms = timed(torch, lambda: e.observe_batch(obs), dev)
+            span = e.tracer.spans("tick_step")[-1].data["dur_s"] * 1e3
+            recs[name].append({
+                "host_ms": host, "device_ms": devms, "span_ms": span,
+                "host_loop_ms": host - span, "mean": e._mean.copy(),
+                "std": e._std.copy(), "ys": ys,
+                "leaves": [t.detach().clone() for t in
+                           tick_leaves(e.state)]})
+    return engines, recs
+
+
+def tick_breakdown(torch, engine, obs, reps=3):
+    """Where a ``tick_step`` span goes, from ``reps`` more ticks of
+    ``engine`` (medians, host ms): ``pack`` the wave ranks
+    (``pack_waves``), ``dispatch`` the tick's launches (eager) or its
+    input copy and graph replay, ``wait`` for the device to finish,
+    ``copy`` the one device-to-host copy, ``take`` the host views."""
+    from repro_torch.core import tick
+    parts = {k: [] for k in ("pack", "dispatch", "wait", "copy", "take")}
+    pack, fetch, take = tick.pack_waves, engine._fetch, engine._take
+
+    def timed_pack(*a):
+        t0 = time.perf_counter()
+        out = pack(*a)
+        parts["pack"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_fetch(out):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        flat = fetch(out)
+        parts["wait"].append((t1 - t0) * 1e3)
+        parts["copy"].append((time.perf_counter() - t1) * 1e3)
+        return flat
+
+    def timed_take(flat):
+        t0 = time.perf_counter()
+        take(flat)
+        parts["take"].append((time.perf_counter() - t0) * 1e3)
+
+    tick.pack_waves, engine._fetch, engine._take = \
+        timed_pack, timed_fetch, timed_take
+    try:
+        for _ in range(reps):
+            engine.observe_batch(obs)
+            span = engine.tracer.spans("tick_step")[-1].data["dur_s"] * 1e3
+            parts["dispatch"].append(span - sum(
+                parts[k][-1] for k in ("pack", "wait", "copy", "take")))
+    finally:
+        tick.pack_waves = pack
+        del engine._fetch, engine._take
+    return {f"{k}_ms": sorted(v)[len(v) // 2] for k, v in parts.items()}
+
+
+def steady(ticks, key):
+    """The median of ``key`` over the ticks after the first."""
+    vals = sorted(t[key] for t in ticks[1:] if t[key] is not None)
+    return vals[len(vals) // 2] if vals else None
+
+
+def tick_leaves(state):
+    from repro_torch.core import blr
+    m = state.model
+    return ([m.stats.moments, m.correlated, m.median, m.spread,
+             state.bias_counts, state.bias_log_sum, state.bias_log_sq]
+            + [getattr(m.post, f) for f in blr.POSTERIOR_FIELDS])
+
+
+def online_tick_at_scale(torch):
+    """Phase 9b: one online tick at phase 8c's scale through
+    ``TickEngine.observe_batch``, eager and CUDA-graphed, beside the
+    legacy tick (``observe_batch`` + the dirty-row ``predict_matrix``)
+    and the same tick on the CPU, then the HEFT re-plan."""
+    import copy
+    import numpy as np
+    from repro_torch.core.tick import pack_waves
+    from repro_torch.data.synthetic import synthetic_dag
+    from repro_torch.sched.heft import heft_schedule_array
+    T, N, S = EST_TASKS, EST_NODES, EST_STREAM
+    base = {dev: synthetic_estimator(T, N, dev) for dev in ("cuda", "cpu")}
+    for b in base.values():
+        b._batched()                            # the batched fit, once
+    nodes, names = list(base["cuda"].target_benches), \
+        base["cuda"].task_names()
+    rng = np.random.default_rng(1)
+    ti, ni = rng.integers(0, T, S), rng.integers(0, N, S)
+    xs, rs = rng.uniform(1.0, 256.0, S), rng.uniform(5.0, 2000.0, S)
+    obs = [(names[i], nodes[j], float(x), float(r))
+           for i, j, x, r in zip(ti, ni, xs, rs)]
+    packed = np.column_stack([ti, ni, np.zeros((S, 5)), np.ones(S)])
+    _, wm, wb = pack_waves(packed, N)
+    res = {"tasks": T, "nodes": N, "stream": S, "waves": [wm, wb],
+           "ticks": TICKS}
+    engines, recs = tick_engines(torch, base, obs)
+    te, tc = recs["eager"], recs["cpu"]
+    # bit for bit: graph = eager, and eager = eager across two engines
+    for k in range(TICKS):
+        for name in ("graph", "second_eager"):
+            other = recs[name]
+            check(np.array_equal(te[k]["mean"], other[k]["mean"])
+                  and np.array_equal(te[k]["std"], other[k]["std"])
+                  and all(torch.equal(a, b) for a, b in
+                          zip(te[k]["leaves"], other[k]["leaves"])),
+                  f"9b tick {k + 1}: the {name} engine differs from eager "
+                  "in some bit")
+    errs = {}
+    for k in range(TICKS):
+        errs[f"tick{k + 1}_mean"] = rel_err(te[k]["mean"], tc[k]["mean"])
+        errs[f"tick{k + 1}_std"] = rel_err(te[k]["std"], tc[k]["std"])
+        errs[f"tick{k + 1}_leaves"] = max(
+            rel_err(a.cpu().double(), b.double())
+            for a, b in zip(te[k]["leaves"], tc[k]["leaves"]))
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= EST_TOL, f"9b card against CPU: {worst} "
+          f"{errs[worst]:.3e}")
+    # profile of one more tick on the eager and the graph engines (the
+    # same state bit for bit, so the same work)
+    prof = {name: device_busy(
+        torch, lambda: engines[name].observe_batch(obs))
+        for name in ("eager", "graph")}
+    split = {name: tick_breakdown(torch, engines[name], obs)
+             for name in ("eager", "graph")}
+    # the legacy tick on the card and on the CPU, from the same fit
+    legacy = {}
+    for dev in ("cuda", "cpu"):
+        est = copy.deepcopy(base[dev])
+        est.predict_matrix(nodes, EST_SIZE)
+        ys, ob_ms, ob_dev = timed(torch, lambda: est.observe_batch(obs), dev)
+        (lm, ls), pm_ms, pm_dev = timed(
+            torch, lambda: est.predict_matrix(nodes, EST_SIZE), dev)
+        legacy[dev] = {"observe_ms": ob_ms, "observe_device_ms": ob_dev,
+                       "dirty_matrix_ms": pm_ms,
+                       "dirty_matrix_device_ms": pm_dev,
+                       "tick_ms": ob_ms + pm_ms, "mean": lm, "std": ls,
+                       "ys": ys}
+    lg = legacy["cuda"]
+    errs["legacy_vs_fused_mean"] = rel_err(lg["mean"], te[0]["mean"])
+    errs["legacy_vs_fused_std"] = rel_err(lg["std"], te[0]["std"])
+    errs["legacy_vs_fused_ys"] = rel_err(lg["ys"], te[0]["ys"])
+    check(max(errs[k] for k in errs if k.startswith("legacy")) <= EST_TOL,
+          "9b: the legacy tick and the fused tick disagree")
+    # the re-plan: HEFT over the ~10k-task DAG from the tick's matrix
+    dag = synthetic_dag(width=100, depth=140, fanout=2.0, seed=0)
+    rows = np.arange(dag.n_tasks) % T
+    heft = {}
+    for dev, tick in (("cuda", te[0]), ("cpu", tc[0])):
+        sched, h_ms, _ = timed(torch, lambda: heft_schedule_array(
+            dag.succ, dag.pred, tick["mean"][rows]), "cpu")
+        heft[dev] = {"ms": h_ms, "makespan": sched["makespan"],
+                     "assignment": sched["assignment"]}
+    e_span = abs(heft["cuda"]["makespan"] - heft["cpu"]["makespan"]) \
+        / heft["cpu"]["makespan"]
+    check(e_span <= HEFT_TOL, f"9b HEFT makespans {e_span:.3e} apart")
+    same = float(np.mean(heft["cuda"]["assignment"]
+                         == heft["cpu"]["assignment"]))
+
+    def rec(ticks):
+        out = {"ticks": [{k: v for k, v in t.items()
+                          if k not in ("mean", "std", "leaves", "ys")}
+                         for t in ticks]}
+        for key in ("host_ms", "device_ms", "span_ms", "host_loop_ms"):
+            out[f"steady_{key}"] = steady(ticks, key)
+        return out
+
+    res.update({name: rec(r) for name, r in recs.items()})
+    res.update({
+        "graphs_captured": len(engines["graph"]._graphs),
+        "span_split": split,
+        "profile": prof,
+        "legacy": {d: {k: v for k, v in r.items()
+                       if k not in ("mean", "std", "ys")}
+                   for d, r in legacy.items()},
+        "heft": {"card_ms": heft["cuda"]["ms"], "cpu_ms": heft["cpu"]["ms"],
+                 "makespan_card": heft["cuda"]["makespan"],
+                 "makespan_cpu": heft["cpu"]["makespan"],
+                 "rel_err": e_span, "equal_assignments": same,
+                 "dag": [dag.n_tasks, dag.n_edges]},
+        "rel_err": errs, "bitwise": {"graph_vs_eager": True,
+                                     "eager_run_to_run": True}})
+    return res
+
+
+def run_online_phase(torch, smi):
+    """Phase 9: the online loop on the card."""
+    report = {}
+    print("== phase 9a: the five workflows through OnlineExecutor, card "
+          "and CPU, fused and legacy, faults off and on (2 samples, 2 "
+          "nodes per type)", flush=True)
+    report["executors"] = online_executors(torch)
+    print(f"== phase 9b: one online tick at {EST_TASKS} tasks x "
+          f"{EST_NODES} nodes, {EST_STREAM} observations (numpy seed 1), "
+          "then HEFT over synthetic_dag(100, 140)", flush=True)
+    r = online_tick_at_scale(torch)
+    report["tick"] = r
+    pe, pg = r["profile"]["eager"], r["profile"]["graph"]
+    print(f"  {smi}; waves (moments, bias) {r['waves']}; bit for bit: "
+          "graph = eager, eager = eager across two engines; card against "
+          f"CPU worst {max(r['rel_err'].values()):.3e}", flush=True)
+    print(f"  ticks of {EST_STREAM} observations, the first (warm-up or "
+          f"capture) and the median of the {TICKS - 1} after it; the span "
+          "is tick_step's (dispatch and the one copy back), the host loop "
+          "the rest of observe_batch")
+    print(f"  {'observe_batch':26s} {'host ms':>9s} {'events ms':>10s} "
+          f"{'span ms':>8s} {'loop ms':>8s} {'busy ms':>8s} "
+          f"{'launches':>8s}")
+    nan = float("nan")
+    for name, label in (("eager", "eager, card"), ("graph", "graph, card"),
+                        ("second_eager", "eager again, card"),
+                        ("cpu", "eager, CPU")):
+        t0, p = r[name]["ticks"][0], r["profile"].get(name)
+        for tag, t in (("tick 1", t0), ("steady", {
+                k[len("steady_"):]: v for k, v in r[name].items()
+                if k.startswith("steady_")})):
+            dev = t["device_ms"]
+            q = p if (p and tag == "steady") else None
+            print(f"  {label + ', ' + tag:26s} {t['host_ms']:9.3f} "
+                  f"{dev if dev is not None else nan:10.3f} "
+                  f"{t['span_ms']:8.3f} {t['host_loop_ms']:8.3f} "
+                  f"{q['busy_ms'] if q else nan:8.3f} "
+                  f"{q['device_launches'] if q else 0:8d}", flush=True)
+    for name in ("eager", "graph"):
+        print(f"  the {name} span, ms: " + ", ".join(
+            f"{k[:-3]} {v:.3f}" for k, v in r["span_split"][name].items()),
+            flush=True)
+    for dev in ("cuda", "cpu"):
+        lg = r["legacy"][dev]
+        print(f"  legacy tick on {'the card' if dev == 'cuda' else 'the CPU'}"
+              f": observe_batch {lg['observe_ms']:.3f} ms + dirty-row "
+              f"predict_matrix {lg['dirty_matrix_ms']:.3f} ms = "
+              f"{lg['tick_ms']:.3f} ms", flush=True)
+    h = r["heft"]
+    print(f"  HEFT re-plan over {h['dag'][0]} tasks: {h['card_ms']:.3f} ms "
+          f"(card's matrix) / {h['cpu_ms']:.3f} ms (CPU's), makespans "
+          f"{h['rel_err']:.3e} apart, equal assignments "
+          f"{100 * h['equal_assignments']:.1f}%", flush=True)
+    print("  host ops of the eager tick by self time (ms, calls): "
+          + ", ".join(f"{k} {ms:.2f} x{n}" for k, ms, n in
+                      pe["host_top"][:6]), flush=True)
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1441,6 +1837,10 @@ def main() -> int:
           "at 1e-12)", flush=True)
     estimator = run_estimator_phase(torch, smi)
 
+    print("== phase 9: the online loop (fused tick engine and executor; "
+          "float64, card against the CPU at 1e-12)", flush=True)
+    online = run_online_phase(torch, smi)
+
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
     main_row = next(r for r in rows if r["shape"] == "serve decode")
@@ -1477,7 +1877,7 @@ def main() -> int:
                          "peak_memory_gb": mpeak_gb,
                          "prefill_ms": prefill_ms, "profile": mprofile,
                          "model_rel_err": mmodel_errs},
-              "estimator": estimator,
+              "estimator": estimator, "online": online,
               "card": smi, "seconds": time.time() - t_start}
     out_dir = ROOT / "build" / "reports"
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -1,9 +1,9 @@
 """Lotaru's four phases in PyTorch: infrastructure profiling,
 downsampled local execution, Bayesian linear regression with Pearson
 gating, per-node factor adjustment — the estimator path that feeds the
-scheduler.  Port of ``repro.core``; the array-native tick engine
-(``state``/``tick``) and the accelerator-plane ``LotaruML`` are not ported
-yet."""
+scheduler, and the fused online tick over one ``EstimatorState``
+(``state``/``tick``).  Port of ``repro.core``; the accelerator-plane
+``LotaruML`` is not ported yet."""
 from .blr import (BatchedTaskModel, BiasModel, BLRPosterior, OnlineStats,
                   ReliabilityModel, SampleLog, TaskModel,
                   fit, fit_batch, fit_task, fit_task_batch, pearson,
@@ -20,6 +20,9 @@ from .downsample import (WorkloadPartition, downsample_workload,
 from .estimator import FittedTask, LotaruEstimator, SCHEMA_VERSION
 from .nodes import NODE_TYPES, NodeType, PAPER_ALIAS, get_node, target_nodes
 from .profiler import BenchResult, profile_cluster, profile_local, profile_node
+from .state import (EstimatorState, StateMeta, StateNames, bias_view,
+                    build_state, reliability_view, write_back)
+from .tick import TickEngine, predict_state, tick_step
 
 __all__ = [
     "BatchedTaskModel", "BiasModel", "BLRPosterior", "OnlineStats",
@@ -36,5 +39,8 @@ __all__ = [
     "downsample_workload", "partition_sizes", "reduced_model_factor",
     "FittedTask", "LotaruEstimator", "NODE_TYPES", "NodeType",
     "PAPER_ALIAS", "get_node", "target_nodes", "BenchResult",
-    "profile_cluster", "profile_local", "profile_node",
+    "profile_cluster", "profile_local", "profile_node", "EstimatorState",
+    "StateMeta", "StateNames", "bias_view", "build_state",
+    "reliability_view", "write_back", "TickEngine", "predict_state",
+    "tick_step",
 ]

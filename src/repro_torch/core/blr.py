@@ -30,7 +30,9 @@ The online engine: the NIG posterior is a function of the streamed
 moments (n, Σx, Σy, Σx², Σy², Σxy, max|x|, max|y|), so an observation is
 a rank-1 moment update plus an O(d²) posterior recompute of its row.
 ``update_task_batch_stream`` folds a stream into the (T, 8) moments in
-stream order (two launches an observation, nothing read back), then
+stream order (``fold_moments``: one ``index_add_`` "wave" per occurrence
+of a row, so as many launches as a row's largest count in the stream,
+nothing read back), then
 recomputes the posteriors of the rows it touched in one batched solve —
 the same numbers as recomputing after every observation, since a
 posterior is a function of its row's moments alone.
@@ -345,6 +347,20 @@ def fit_task(sizes, runtimes, *, threshold: float = CORRELATION_THRESHOLD,
 # ---------------------------------------------------------------------------
 # Batched per-task models (BLR + median fallback) — one batched solve
 # ---------------------------------------------------------------------------
+def occurrence_ranks(keys: np.ndarray) -> np.ndarray:
+    """rank[k] = the number of earlier entries of ``keys`` equal to
+    ``keys[k]`` (a stable sort, then each entry's place in its run)."""
+    keys = np.asarray(keys)
+    order = np.argsort(keys, kind="stable")
+    ks = keys[order]
+    pos = np.arange(len(ks))
+    start = np.maximum.accumulate(
+        np.where(np.r_[True, ks[1:] != ks[:-1]], pos, 0))
+    rank = np.empty(len(keys), np.int64)
+    rank[order] = pos - start
+    return rank
+
+
 class SampleLog:
     """Host-side mutable raw-sample history of T tasks.
 
@@ -372,10 +388,46 @@ class SampleLog:
         self.y[i, k] = yv
         self.count[i] = k + 1
 
+    def extend(self, rows, xv, yv) -> None:
+        """Append samples to ``rows`` in input order: the same arrays as
+        one ``append`` a sample, in one scatter."""
+        rows = np.asarray(rows, np.int64)
+        if not len(rows):
+            return
+        pos = self.count[rows] + occurrence_ranks(rows)
+        cap = self.x.shape[1]
+        while int(pos.max()) >= cap:
+            pad = ((0, 0), (0, cap))            # double the capacity
+            self.x = np.pad(self.x, pad)
+            self.y = np.pad(self.y, pad)
+            cap *= 2
+        self.x[rows, pos] = xv
+        self.y[rows, pos] = yv
+        self.count += np.bincount(rows, minlength=len(self.count))
+
     def median_spread(self, i: int) -> tuple[float, float]:
         row = self.y[i, :self.count[i]]
         med = float(np.median(row))
         return med, float(1.4826 * np.median(np.abs(row - med)) + 1e-12)
+
+    def median_spread_rows(self, rows) -> tuple[np.ndarray, np.ndarray]:
+        """``median_spread`` of each of ``rows`` (non-empty), in one sort:
+        the same numbers bit for bit — the middle order statistic, or
+        the two middle ones summed and halved, as ``np.median`` takes
+        them."""
+        rows = np.asarray(rows, np.int64)
+        n = self.count[rows]
+        valid = np.arange(int(n.max(initial=1)))[None, :] < n[:, None]
+
+        def middle(a):
+            a = np.sort(np.where(valid, a, np.inf), axis=1)
+            r = np.arange(len(n))
+            lo, hi = a[r, (n - 1) // 2], a[r, n // 2]
+            return np.where(n % 2 == 1, lo, (lo + hi) / 2.0)
+
+        med = middle(self.y[rows, :valid.shape[1]])
+        mad = middle(np.abs(self.y[rows, :valid.shape[1]] - med[:, None]))
+        return med, 1.4826 * mad + 1e-12
 
     def copy(self) -> "SampleLog":
         return SampleLog(self.x.copy(), self.y.copy(), self.count.copy())
@@ -615,37 +667,58 @@ def unstack_task_models(model: BatchedTaskModel) -> list[TaskModel]:
 # ---------------------------------------------------------------------------
 # Incremental (online) updates — rank-1 conjugate absorption of samples
 # ---------------------------------------------------------------------------
-def _update_core_impl(model: BatchedTaskModel, task_idx: np.ndarray, obs,
+def fold_moments(moments, rows, x, y, rank, waves: int):
+    """The (T, 8) moments after absorbing observation k's (``x[k]``,
+    ``y[k]``) into row ``rows[k]``, for every k, in input order.
+
+    ``rank[k]`` is k's occurrence rank in its row (``occurrence_ranks``)
+    and ``waves`` the largest rank plus one, a host int.  Wave ``w`` adds
+    the ``w``-th observation of every row in one ``index_add_``, so no
+    row is hit twice in a launch and each row's sums are added one term
+    at a time in input order — the order of the JAX package's scan, bit
+    for bit on every device (an atomic scatter with repeated rows would
+    sum in no fixed order).  A row index equal to T sends its
+    observation to a scratch row, so it changes nothing.  The maxima of
+    |x| and |y| need no order: one ``scatter_reduce_``.  The input is
+    not written."""
+    T = moments.shape[0]
+    dt, dev = moments.dtype, moments.device
+    inc = torch.stack([torch.ones_like(x), x, y, x * x, y * y, x * y], -1)
+    sums = torch.zeros((T + 1, 6), dtype=dt, device=dev)
+    sums[:T] = moments[:, :6]
+    for w in range(waves):
+        sums.index_add_(0, torch.where(rank == w, rows, T), inc)
+    maxes = torch.zeros((T + 1, 2), dtype=dt, device=dev)
+    maxes[:T] = moments[:, 6:]
+    maxes.scatter_reduce_(0, rows[:, None].expand(-1, 2),
+                          torch.stack([x.abs(), y.abs()], -1), "amax")
+    return torch.cat([sums[:T], maxes[:T]], 1)
+
+
+def _update_core_impl(model: BatchedTaskModel, S: int, waves: int, obs,
                       prior_scale, a0, b0, threshold) -> BatchedTaskModel:
     """Absorb a stream of S observations into the R rows it touches.
-    ``task_idx`` (S,) are host ints; ``obs`` is one float64 vector on the
-    device, packed by ``_pack_stream``: the sizes and runtimes (S each),
-    then the touched rows (sorted unique ``task_idx``) and their refreshed
-    medians and MADs (R each), computed on the host from the
-    ``SampleLog`` (order statistics are not moments).
+    ``obs`` is one float64 vector on the device, packed by
+    ``_pack_stream``: each observation's row, its occurrence rank in the
+    row, its size and runtime (S each), then the touched rows (sorted
+    unique) and their refreshed medians and MADs (R each), computed on
+    the host from the ``SampleLog`` (order statistics are not moments).
 
-    The moments are folded in stream order, one observation at a time, so
-    each row's sums are added in the order the JAX scan adds them: two
-    in-place launches an observation, with the row a host int and nothing
-    read back.  Then the posteriors and gates of the touched rows are
-    recomputed in one batched solve from their final moments — the state
-    the scan leaves after recomputing them at every step.  The input's
-    arrays are not written: the moments are cloned once, the other fields
-    are written by out-of-place ``index_copy``.
+    The moments are folded in stream order by ``fold_moments`` (``waves``
+    launches of ``index_add_``, nothing read back).  Then the posteriors
+    and gates of the touched rows are recomputed in one batched solve
+    from their final moments — the state the scan leaves after
+    recomputing them at every step.  The input's arrays are not written:
+    the fields are written by out-of-place ``index_copy``.
     """
-    S = len(task_idx)
-    R = (obs.shape[0] - 2 * S) // 3
+    R = (obs.shape[0] - 4 * S) // 3
     dt = model.median.dtype
-    x, y = obs[:S].to(dt), obs[S:2 * S].to(dt)
-    it = obs[2 * S:2 * S + R].long()
-    med, spr = obs[2 * S + R:2 * S + 2 * R].to(dt), obs[2 * S + 2 * R:].to(dt)
-    inc = torch.stack([torch.ones_like(x), x, y, x * x, y * y, x * y], -1)
-    ext = torch.stack([x.abs(), y.abs()], -1)
-    moments = model.stats.moments.clone()
-    sums, maxes = moments[:, :6].unbind(0), moments[:, 6:].unbind(0)
-    for i, v, e in zip(task_idx.tolist(), inc.unbind(0), ext.unbind(0)):
-        sums[i].add_(v)
-        torch.maximum(maxes[i], e, out=maxes[i])
+    rows, rank = obs[:S].long(), obs[S:2 * S].long()
+    x, y = obs[2 * S:3 * S].to(dt), obs[3 * S:4 * S].to(dt)
+    it = obs[4 * S:4 * S + R].long()
+    med = obs[4 * S + R:4 * S + 2 * R].to(dt)
+    spr = obs[4 * S + 2 * R:].to(dt)
+    moments = fold_moments(model.stats.moments, rows, x, y, rank, waves)
     m = moments.index_select(0, it)
     fields = _posterior_from_stats(m, prior_scale, a0, b0)
     p = model.post
@@ -658,16 +731,17 @@ def _update_core_impl(model: BatchedTaskModel, task_idx: np.ndarray, obs,
         stats=OnlineStats(moments=moments, log=model.stats.log))
 
 
-def _pack_stream(log: SampleLog, task_idx, x, y) -> np.ndarray:
+def _pack_stream(log: SampleLog, task_idx, x, y) -> tuple[np.ndarray, int]:
     """Append the stream to the host-side log and pack what the device
     update needs into one float64 vector (one host->device transfer):
-    sizes, runtimes, the touched rows, their medians and MADs."""
-    for i, xv, yv in zip(task_idx.tolist(), x.tolist(), y.tolist()):
-        log.append(i, xv, yv)
+    rows, occurrence ranks, sizes, runtimes, then the touched rows, their
+    medians and MADs; and the number of waves of the fold."""
+    log.extend(task_idx, x, y)
+    rank = occurrence_ranks(task_idx)
     rows = np.unique(task_idx)
-    med_spr = np.array([log.median_spread(int(i)) for i in rows],
-                       np.float64).reshape(-1, 2)
-    return np.concatenate([x, y, rows, med_spr[:, 0], med_spr[:, 1]])
+    med, spr = log.median_spread_rows(rows)
+    return (np.concatenate([task_idx, rank, x, y, rows, med, spr]),
+            int(rank.max()) + 1)
 
 
 def _require_stats(model: BatchedTaskModel) -> None:
@@ -1076,7 +1150,7 @@ def update_task_batch_stream(model: BatchedTaskModel, task_idx, x, y, *,
     y = np.asarray(y, np.float64).reshape(-1)
     if len(task_idx) == 0:
         return model
-    obs = _to_device(_pack_stream(model.stats.log, task_idx, x, y),
-                     model.median.device, torch.float64)
-    return _update_core_impl(model, task_idx, obs, prior_scale, a0, b0,
-                             threshold)
+    packed, waves = _pack_stream(model.stats.log, task_idx, x, y)
+    obs = _to_device(packed, model.median.device, torch.float64)
+    return _update_core_impl(model, len(task_idx), waves, obs, prior_scale,
+                             a0, b0, threshold)

@@ -39,13 +39,17 @@ class Request:
 
 
 class ServeLoop:
-    def __init__(self, cfg, *, max_batch: int = MAX_BATCH, envelope=None,
+    def __init__(self, cfg, *, max_batch: int = MAX_BATCH,
+                 max_len: int = 128, envelope=None,
                  straggler_k: float = 3.0, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
         self.params = self.model.init(0, device=self.device)
         self.max_batch = max_batch
+        # stored as the JAX package stores it; caches are sized from each
+        # batch (prompt + new tokens), as there
+        self.max_len = max_len
         self.prefill = make_prefill_step(self.model)
         self.decode = make_decode_step(self.model)
         self.envelope = envelope            # (mean_s, sigma_s) or None

@@ -545,3 +545,210 @@ def test_inv_ex_first_and_warm_call():
           f"warm {got['warm_ms']:.4f} ms")
     assert got["rel_err"] <= EST_TOL
     assert got["warm_ms"] <= got["first_ms"]
+
+
+# ---------------------------------------------------------------------------
+# The fused tick (core/state.py, core/tick.py) and the online executor
+# ---------------------------------------------------------------------------
+def _tick_estimator(device, wf="chipseq", **kw):
+    """A paper workflow fitted from the port's simulator (seed 0)."""
+    import numpy as np
+    from repro_torch.core import (LotaruEstimator, get_node,
+                                  profile_cluster, profile_node,
+                                  target_nodes)
+    from repro_torch.sched.simulator import ClusterSimulator
+    from repro_torch.sched.workflows import INPUTS, WORKFLOWS
+    local = get_node("local-cpu")
+    est = LotaruEstimator(profile_node(local, np.random.default_rng(7)),
+                          profile_cluster(target_nodes(), seed=13),
+                          device=device, **kw)
+    by = {t.name: t for t in WORKFLOWS[wf]}
+    sim = ClusterSimulator(seed=0)
+    est.fit_tasks(list(by), INPUTS[(wf, 1)], lambda n, s, cf: sim.run_task(
+        by[n], local, s, cpu_factor=cf))
+    return est, [nt.name for nt in target_nodes()], INPUTS[(wf, 1)]
+
+
+def _tick_batches(names, nodes, size, ticks=6, seed=3):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [[(names[int(rng.integers(0, len(names)))],
+              nodes[int(rng.integers(0, len(nodes)))],
+              size * float(rng.uniform(0.5, 1.5)),
+              float(rng.uniform(5.0, 80.0)))
+             for _ in range(int(rng.integers(1, 9)))] for _ in range(ticks)]
+
+
+def _tick_leaves(state):
+    from repro_torch.core import blr
+    m = state.model
+    return ([m.stats.moments, m.correlated, m.median, m.spread,
+             state.bias_counts, state.bias_log_sum, state.bias_log_sq]
+            + [getattr(m.post, f) for f in blr.POSTERIOR_FIELDS])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cuda_graph", [False, True], ids=["eager", "graph"])
+def test_tick_engine_card_matches_cpu(cuda_graph):
+    _need_card()
+    from repro_torch.core.tick import TickEngine
+    kw = {"bias_decay": 0.9, "bias_empirical_bayes": True}
+    card, nodes, size = _tick_estimator("cuda", **kw)
+    cpu, _, _ = _tick_estimator("cpu", **kw)
+    ec = TickEngine(card, nodes, size=size, cuda_graph=cuda_graph)
+    eh = TickEngine(cpu, nodes, size=size)
+    assert ec.state.factors.device.type == "cuda"
+    for batch in _tick_batches(card.task_names(), nodes, size):
+        _est_close(ec.observe_batch(batch), eh.observe_batch(batch))
+        for a, b in zip(ec.predict_matrix(nodes, size),
+                        eh.predict_matrix(nodes, size)):
+            _est_close(a, b)
+        _est_close(ec._bias.log_sum, eh._bias.log_sum)
+        for n in card.task_names()[:4]:
+            _est_close(ec.predict_interval_node(n, nodes[1], size),
+                       eh.predict_interval_node(n, nodes[1], size))
+    for a, b in zip(_tick_leaves(ec.state), _tick_leaves(eh.state)):
+        _est_close(a.cpu().double(), b.double())
+    ec.finalize()
+    eh.finalize()
+    for a, b in zip(card.predict_matrix(nodes, size),
+                    cpu.predict_matrix(nodes, size)):
+        _est_close(a, b)
+
+
+@pytest.mark.gpu
+def test_tick_padding_and_scatter_order_on_the_card():
+    """On the card: valid = 0 rows change no bit, and two runs of the
+    same tick (a pair hit many times) give the same bits — the wave
+    scatter is order-exact where an atomic scatter would not be."""
+    _need_card()
+    import numpy as np
+    from repro_torch.core.state import build_state
+    from repro_torch.core.tick import tick_step
+    est, nodes, size = _tick_estimator("cuda", bias_decay=0.8,
+                                       bias_empirical_bayes=True)
+    rng = np.random.default_rng(9)
+    B = 512
+    obs = np.zeros((B, 8))
+    obs[:, 0] = rng.choice([1, 4, 7], B)
+    obs[:, 1] = rng.choice([0, 2], B)
+    obs[:, 2] = size * rng.uniform(0.5, 1.5, B)
+    obs[:, 3] = rng.uniform(1.0, 1e4, B)
+    obs[:, 4] = obs[:, 3]
+    obs[:, 5:7] = [30.0, 1.0]
+    obs[:, 7] = 1.0
+    junk = obs[rng.integers(0, B, 100)].copy()
+    junk[:, 7] = 0.0
+    padded = np.insert(obs, rng.integers(0, B, 100), junk, axis=0)
+    runs = []
+    for batch in (obs, obs, padded):
+        for host_deadjust in (True, False):
+            state, _ = build_state(est, nodes)
+            state, mean, std, _ = tick_step(state, batch, size,
+                                            host_deadjust)
+            runs.append(_tick_leaves(state) + [mean, std])
+    for k in (2, 4):
+        for a, b in zip(runs[0], runs[k]):
+            assert torch.equal(a, b)
+        for a, b in zip(runs[1], runs[k + 1]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cuda_graph", [False, True], ids=["eager", "graph"])
+def test_observe_batch_waits_on_the_card_once(cuda_graph):
+    """``TickEngine.observe_batch`` syncs only in its one copy of the
+    tick's outputs (``_fetch``): everything else raises under sync debug
+    mode "error".  A graph tick is captured before the mode is set (a
+    capture synchronises), then replayed under it."""
+    _need_card()
+    from repro_torch.core.tick import TickEngine
+    est, nodes, size = _tick_estimator("cuda")
+    engine = TickEngine(est, nodes, size=size, cuda_graph=cuda_graph)
+    batch = _tick_batches(est.task_names(), nodes, size, 1)[0]
+    engine.observe_batch(batch)             # capture (graph) or warm-up
+    fetch = engine._fetch
+    calls = []
+
+    def relaxed(out):
+        calls.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return fetch(out)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    engine._fetch = relaxed
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.observe_batch(batch)
+        engine.predict_matrix(nodes, size)
+        engine.predict_interval_node(est.task_names()[0], nodes[0], size)
+        engine.bias_tail_mass(est.task_names()[0], nodes[0], 1.1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert calls == [1]
+
+
+@pytest.mark.gpu
+def test_cuda_graph_tick_equals_eager_bit_for_bit():
+    """Ragged ticks, padded to the graph's batch: every output and every
+    leaf equals eager's, tick after tick."""
+    _need_card()
+    import numpy as np
+    from repro_torch.core.tick import TickEngine
+    kw = {"bias_decay": 0.9, "bias_empirical_bayes": True}
+    a, nodes, size = _tick_estimator("cuda", **kw)
+    b, _, _ = _tick_estimator("cuda", **kw)
+    eager = TickEngine(a, nodes, size=size, cuda_graph=False)
+    graph = TickEngine(b, nodes, size=size)      # the default on a card
+    batches = _tick_batches(a.task_names(), nodes, size, ticks=10, seed=5)
+    batches += batches[:3]                  # replays of captured keys
+    for batch in batches:
+        assert eager.observe_batch(batch) == graph.observe_batch(batch)
+        for x, y in zip(eager.predict_matrix(nodes, size),
+                        graph.predict_matrix(nodes, size)):
+            assert np.array_equal(x, y)
+        for x, y in zip(_tick_leaves(eager.state), _tick_leaves(graph.state)):
+            assert torch.equal(x, y)
+    assert graph.cuda_graph and 1 <= len(graph._graphs) < len(batches)
+
+
+@pytest.mark.gpu
+def test_online_executor_card_matches_cpu():
+    """The chipseq loop with faults, fused and legacy, on the card and on
+    the CPU: the same assignments and counters, times within 1e-12."""
+    _need_card()
+    import numpy as np
+    from repro_torch.core import target_nodes
+    from repro_torch.online import OnlineExecutor, fanout_chain_dag
+    from repro_torch.sched.simulator import (ClusterSimulator,
+                                             FaultInjector, GridEngine)
+    from repro_torch.sched.workflows import WORKFLOWS
+
+    def run(device, fused):
+        est, _, size = _tick_estimator(device, bias_empirical_bayes=True)
+        by = {t.name: t for t in WORKFLOWS["chipseq"]}
+        tasks, task_name = fanout_chain_dag(list(by), 2)
+        truth = ClusterSimulator(seed=2000)
+        tab = {(tid, nt.name): truth.run_task(by[task_name[tid]], nt, size)
+               for tid in tasks for nt in target_nodes()}
+        grid = GridEngine.from_types(nodes_per_type=2)
+        tr = OnlineExecutor(
+            est, tasks, task_name, size, grid,
+            lambda tid, node: tab[(tid, grid.type_of(node).name)],
+            risk_k=0.5, spec_tail=0.6, rel_k=1.0, max_attempts=6,
+            strict=False, faults=FaultInjector(p_fail=0.08, seed=31),
+            fused=fused).run()
+        return (sorted((r.id, r.node) for r in tr.records),
+                (tr.replans, tr.surprises, tr.completed, tr.failures,
+                 tr.retries, tr.speculations),
+                np.array(sorted((r.id, r.start, r.end, r.pred_mean)
+                                for r in tr.records))[:, 1:].astype(float))
+
+    cpu = run("cpu", False)
+    for fused in (False, True):
+        card = run("cuda", fused)
+        assert card[:2] == cpu[:2]
+        _est_close(card[2], cpu[2])

@@ -28,7 +28,13 @@ def _forbidden_imports(path: Path) -> list[str]:
     return bad
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+#: the port's entry points outside the package: they stand alone too
+ENTRY_POINTS = [ROOT / "chip_smoke.py",
+                ROOT / "examples" / "online_reestimation_torch.py",
+                ROOT / "scripts" / "report_trace_torch.py"]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + ENTRY_POINTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     assert _forbidden_imports(path) == []
@@ -41,6 +47,12 @@ def test_importing_every_port_module_loads_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 15, mods\n"
+        "need = {'repro_torch.core.state', 'repro_torch.core.tick',\n"
+        "        'repro_torch.obs.trace', 'repro_torch.obs.calibration',\n"
+        "        'repro_torch.obs.profiling', 'repro_torch.obs.registry',\n"
+        "        'repro_torch.obs.report', 'repro_torch.online.buffer',\n"
+        "        'repro_torch.online.executor'}\n"
+        "assert need <= set(mods), sorted(need - set(mods))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")

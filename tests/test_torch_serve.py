@@ -85,3 +85,21 @@ def test_no_card_raises_instead_of_running_on_cpu():
         serve.main(["--smoke"])
     with pytest.raises(RuntimeError, match="no CUDA card"):
         serve.main(["--arch", "mamba2-1.3b", "--smoke"])
+
+
+@pytest.mark.parametrize("max_len", [None, 64])
+def test_serve_loop_takes_max_len_like_the_jax_package(max_len):
+    """``max_len`` is stored, as ``repro.launch.serve.ServeLoop`` stores
+    it (default 128); the caches stay sized from each batch."""
+    cfg = smoke_config("stablelm-1.6b")
+    kw = {} if max_len is None else {"max_len": max_len}
+    loop = ServeLoop(cfg, max_batch=1, device="cpu", **kw)
+    jloop = JaxServeLoop(jax_smoke_config("stablelm-1.6b"), max_batch=1,
+                         **kw)
+    assert loop.max_len == jloop.max_len == (128 if max_len is None
+                                             else max_len)
+    rng = np.random.default_rng(2)
+    done = loop.run_batch([Request(rid=0, prompt=rng.integers(0, cfg.vocab,
+                                                              5),
+                                   max_new=3)])
+    assert len(done[0].out) == 3 and loop.batch_shapes == [(1, 5, 3)]
