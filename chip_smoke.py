@@ -1369,14 +1369,31 @@ def online_executors(torch):
 TICKS = 4
 
 
-def tick_engines(torch, base, obs):
+def tick_stream(names, nodes, seed):
+    """A stream of EST_STREAM observations over random (task, node) pairs
+    from numpy seed ``seed``, and its wave counts (moments, bias)."""
+    import numpy as np
+    from repro_torch.core.tick import pack_waves
+    T, N, S = len(names), len(nodes), EST_STREAM
+    rng = np.random.default_rng(seed)
+    ti, ni = rng.integers(0, T, S), rng.integers(0, N, S)
+    xs, rs = rng.uniform(1.0, 256.0, S), rng.uniform(5.0, 2000.0, S)
+    obs = [(names[i], nodes[j], float(x), float(r))
+           for i, j, x, r in zip(ti, ni, xs, rs)]
+    packed = np.column_stack([ti, ni, np.zeros((S, 5)), np.ones(S)])
+    _, wm, wb = pack_waves(packed, N)
+    return obs, [wm, wb]
+
+
+def tick_engines(torch, base, streams):
     """Phase 9b's engines: a fresh ``TickEngine`` over a copy of the fitted
     estimator for each of eager on the card, graph on the card, a second
-    eager on the card and eager on the CPU.  They absorb the same stream
-    TICKS times, taking turns tick by tick, so that the host's drift hits
-    them alike; each tick's ``observe_batch`` is timed (host ms,
-    CUDA-event ms) and its ``tick_step`` span (the tick's dispatch and its
-    one copy back) read from an ``EventLog``."""
+    eager on the card and eager on the CPU.  Tick k feeds every engine
+    ``streams[k]`` (a fresh stream a tick, so the wave counts vary as in
+    real traffic), the engines taking turns tick by tick so that the
+    host's drift hits them alike; each tick's ``observe_batch`` is timed
+    (host ms, CUDA-event ms) and its ``tick_step`` span (the tick's
+    dispatch and its one copy back) read from an ``EventLog``."""
     import copy
     from repro_torch.core.tick import TickEngine
     from repro_torch.obs import EventLog
@@ -1388,62 +1405,18 @@ def tick_engines(torch, base, obs):
         engines[name] = TickEngine(copy.deepcopy(b), list(b.target_benches),
                                    size=EST_SIZE, cuda_graph=graph)
         engines[name].tracer = EventLog()
-    for _ in range(TICKS):
+    for obs in streams:
         for name, (dev, _) in kinds.items():
             e = engines[name]
             ys, host, devms = timed(torch, lambda: e.observe_batch(obs), dev)
             span = e.tracer.spans("tick_step")[-1].data["dur_s"] * 1e3
             recs[name].append({
                 "host_ms": host, "device_ms": devms, "span_ms": span,
-                "host_loop_ms": host - span, "mean": e._mean.copy(),
-                "std": e._std.copy(), "ys": ys,
+                "host_loop_ms": host - span, "graphs": len(e._graphs),
+                "mean": e._mean.copy(), "std": e._std.copy(), "ys": ys,
                 "leaves": [t.detach().clone() for t in
                            tick_leaves(e.state)]})
     return engines, recs
-
-
-def tick_breakdown(torch, engine, obs, reps=3):
-    """Where a ``tick_step`` span goes, from ``reps`` more ticks of
-    ``engine`` (medians, host ms): ``pack`` the wave ranks
-    (``pack_waves``), ``dispatch`` the tick's launches (eager) or its
-    input copy and graph replay, ``wait`` for the device to finish,
-    ``copy`` the one device-to-host copy, ``take`` the host views."""
-    from repro_torch.core import tick
-    parts = {k: [] for k in ("pack", "dispatch", "wait", "copy", "take")}
-    pack, fetch, take = tick.pack_waves, engine._fetch, engine._take
-
-    def timed_pack(*a):
-        t0 = time.perf_counter()
-        out = pack(*a)
-        parts["pack"].append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    def timed_fetch(out):
-        t0 = time.perf_counter()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        flat = fetch(out)
-        parts["wait"].append((t1 - t0) * 1e3)
-        parts["copy"].append((time.perf_counter() - t1) * 1e3)
-        return flat
-
-    def timed_take(flat):
-        t0 = time.perf_counter()
-        take(flat)
-        parts["take"].append((time.perf_counter() - t0) * 1e3)
-
-    tick.pack_waves, engine._fetch, engine._take = \
-        timed_pack, timed_fetch, timed_take
-    try:
-        for _ in range(reps):
-            engine.observe_batch(obs)
-            span = engine.tracer.spans("tick_step")[-1].data["dur_s"] * 1e3
-            parts["dispatch"].append(span - sum(
-                parts[k][-1] for k in ("pack", "wait", "copy", "take")))
-    finally:
-        tick.pack_waves = pack
-        del engine._fetch, engine._take
-    return {f"{k}_ms": sorted(v)[len(v) // 2] for k, v in parts.items()}
 
 
 def steady(ticks, key):
@@ -1467,7 +1440,6 @@ def online_tick_at_scale(torch):
     and the same tick on the CPU, then the HEFT re-plan."""
     import copy
     import numpy as np
-    from repro_torch.core.tick import pack_waves
     from repro_torch.data.synthetic import synthetic_dag
     from repro_torch.sched.heft import heft_schedule_array
     T, N, S = EST_TASKS, EST_NODES, EST_STREAM
@@ -1476,16 +1448,13 @@ def online_tick_at_scale(torch):
         b._batched()                            # the batched fit, once
     nodes, names = list(base["cuda"].target_benches), \
         base["cuda"].task_names()
-    rng = np.random.default_rng(1)
-    ti, ni = rng.integers(0, T, S), rng.integers(0, N, S)
-    xs, rs = rng.uniform(1.0, 256.0, S), rng.uniform(5.0, 2000.0, S)
-    obs = [(names[i], nodes[j], float(x), float(r))
-           for i, j, x, r in zip(ti, ni, xs, rs)]
-    packed = np.column_stack([ti, ni, np.zeros((S, 5)), np.ones(S)])
-    _, wm, wb = pack_waves(packed, N)
-    res = {"tasks": T, "nodes": N, "stream": S, "waves": [wm, wb],
-           "ticks": TICKS}
-    engines, recs = tick_engines(torch, base, obs)
+    # tick k absorbs the stream of numpy seed k + 1; one more stream for
+    # the profiled tick
+    streams, waves = zip(*(tick_stream(names, nodes, seed)
+                           for seed in range(1, TICKS + 2)))
+    res = {"tasks": T, "nodes": N, "stream": S, "seeds": TICKS + 1,
+           "waves": list(waves), "ticks": TICKS}
+    engines, recs = tick_engines(torch, base, streams[:TICKS])
     te, tc = recs["eager"], recs["cpu"]
     # bit for bit: graph = eager, and eager = eager across two engines
     for k in range(TICKS):
@@ -1510,16 +1479,16 @@ def online_tick_at_scale(torch):
     # profile of one more tick on the eager and the graph engines (the
     # same state bit for bit, so the same work)
     prof = {name: device_busy(
-        torch, lambda: engines[name].observe_batch(obs))
+        torch, lambda: engines[name].observe_batch(streams[TICKS]))
         for name in ("eager", "graph")}
-    split = {name: tick_breakdown(torch, engines[name], obs)
-             for name in ("eager", "graph")}
-    # the legacy tick on the card and on the CPU, from the same fit
+    # the legacy tick on the card and on the CPU, from the same fit and
+    # tick 1's stream
     legacy = {}
     for dev in ("cuda", "cpu"):
         est = copy.deepcopy(base[dev])
         est.predict_matrix(nodes, EST_SIZE)
-        ys, ob_ms, ob_dev = timed(torch, lambda: est.observe_batch(obs), dev)
+        ys, ob_ms, ob_dev = timed(
+            torch, lambda: est.observe_batch(streams[0]), dev)
         (lm, ls), pm_ms, pm_dev = timed(
             torch, lambda: est.predict_matrix(nodes, EST_SIZE), dev)
         legacy[dev] = {"observe_ms": ob_ms, "observe_device_ms": ob_dev,
@@ -1559,7 +1528,7 @@ def online_tick_at_scale(torch):
     res.update({name: rec(r) for name, r in recs.items()})
     res.update({
         "graphs_captured": len(engines["graph"]._graphs),
-        "span_split": split,
+        "graph_keys": [list(k) for k in engines["graph"]._graphs],
         "profile": prof,
         "legacy": {d: {k: v for k, v in r.items()
                        if k not in ("mean", "std", "ys")}
@@ -1582,14 +1551,16 @@ def run_online_phase(torch, smi):
           "nodes per type)", flush=True)
     report["executors"] = online_executors(torch)
     print(f"== phase 9b: one online tick at {EST_TASKS} tasks x "
-          f"{EST_NODES} nodes, {EST_STREAM} observations (numpy seed 1), "
-          "then HEFT over synthetic_dag(100, 140)", flush=True)
+          f"{EST_NODES} nodes, {EST_STREAM} observations (numpy seeds 1-"
+          f"{TICKS + 1}, one a tick), then HEFT over synthetic_dag(100, "
+          "140)", flush=True)
     r = online_tick_at_scale(torch)
     report["tick"] = r
-    pe, pg = r["profile"]["eager"], r["profile"]["graph"]
-    print(f"  {smi}; waves (moments, bias) {r['waves']}; bit for bit: "
-          "graph = eager, eager = eager across two engines; card against "
-          f"CPU worst {max(r['rel_err'].values()):.3e}", flush=True)
+    pe = r["profile"]["eager"]
+    print(f"  {smi}; waves (moments, bias) by tick {r['waves']}; graphs "
+          f"captured {r['graphs_captured']} (keys {r['graph_keys']}); bit "
+          "for bit: graph = eager, eager = eager across two engines; card "
+          f"against CPU worst {max(r['rel_err'].values()):.3e}", flush=True)
     print(f"  ticks of {EST_STREAM} observations, the first (warm-up or "
           f"capture) and the median of the {TICKS - 1} after it; the span "
           "is tick_step's (dispatch and the one copy back), the host loop "
@@ -1612,10 +1583,6 @@ def run_online_phase(torch, smi):
                   f"{t['span_ms']:8.3f} {t['host_loop_ms']:8.3f} "
                   f"{q['busy_ms'] if q else nan:8.3f} "
                   f"{q['device_launches'] if q else 0:8d}", flush=True)
-    for name in ("eager", "graph"):
-        print(f"  the {name} span, ms: " + ", ".join(
-            f"{k[:-3]} {v:.3f}" for k, v in r["span_split"][name].items()),
-            flush=True)
     for dev in ("cuda", "cpu"):
         lg = r["legacy"][dev]
         print(f"  legacy tick on {'the card' if dev == 'cuda' else 'the CPU'}"

@@ -7,8 +7,7 @@ the factor cannot see.
     PYTHONPATH=src python examples/online_reestimation_torch.py --device cpu
 
 The estimator's posteriors and matrices live on ``--device`` (default
-``cuda``; it raises without a card).  ``--fused`` serves the loop from the
-port's ``TickEngine`` (one device tick per completion batch).
+``cuda``; it raises without a card).
 
 The flow is the full closed loop of the online subsystem:
 
@@ -58,8 +57,6 @@ def main(argv=None):
     ap.add_argument("--workflow", default=WORKFLOW, choices=list(WORKFLOWS))
     ap.add_argument("--samples", type=int, default=N_SAMPLES)
     ap.add_argument("--nodes-per-type", type=int, default=2)
-    ap.add_argument("--fused", action="store_true",
-                    help="serve the loop from the fused TickEngine")
     args = ap.parse_args(argv)
     wf, n_samples = args.workflow, args.samples
     local = get_node("local-cpu")
@@ -93,8 +90,7 @@ def main(argv=None):
             est, tasks, task_name, size, grid,
             lambda tid, node: truth_tab[(tid, grid.type_of(node).name)],
             online=online, confidence=0.9, speculate=True,
-            risk_k=1.0 if risk else 0.0, spec_tail=0.8 if risk else None,
-            fused=args.fused)
+            risk_k=1.0 if risk else 0.0, spec_tail=0.8 if risk else None)
 
     static = make_executor(online=False).run()
     pr2 = make_executor(online=True, bias_correction=False).run()

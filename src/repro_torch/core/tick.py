@@ -276,6 +276,14 @@ def _bucket(n: int) -> int:
     return max(8, 1 << (n - 1).bit_length())
 
 
+def _bucket_waves(n: int) -> int:
+    """The wave count of a CUDA-graph tick: ``n`` rounded up to a power
+    of two.  A wave past the last rank holds no observation and sends
+    every index to the scratch slot, so the padding waves change no leaf
+    and the number of graphs grows with log2 of the waves, not with them."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
 class TickEngine:
     """Executor-facing driver of the fused tick.
 
@@ -296,7 +304,8 @@ class TickEngine:
     ``cuda_graph`` (the default on a CUDA state; ``False`` runs the tick
     eagerly): replay the tick core from a CUDA graph captured per (padded
     batch, wave counts) key; a ragged tick is padded to a power of two
-    with ``valid = 0`` rows.  Its outputs equal eager's bit for bit
+    with ``valid = 0`` rows, and each wave count is rounded up to a power
+    of two (``_bucket_waves``).  Its outputs equal eager's bit for bit
     (``chip_smoke.py`` phase 9b and the ``gpu`` tests check it).  A new
     key pays one eager warm-up tick on a copy of the state and the
     capture; a replay saves the host's launch of every kernel.
@@ -421,18 +430,20 @@ class TickEngine:
 
     def _graph_tick(self, obs: np.ndarray) -> torch.Tensor:
         """The tick core replayed from a CUDA graph: the batch is padded
-        with ``valid = 0`` rows to ``_bucket(B)`` and copied into the
-        graph's input buffer; the graph updates the state's leaves in
-        place and writes the packed outputs to its output buffer."""
+        with ``valid = 0`` rows to ``_bucket(B)``, the wave counts to
+        ``_bucket_waves``, and the rows are copied into the graph's input
+        buffer; the graph updates the state's leaves in place and writes
+        the packed outputs to its output buffer."""
         B = len(obs)
         pad = np.zeros((_bucket(B), 8), np.float64)
         pad[:B] = obs
         packed, wm, wb = pack_waves(pad, len(self.names.nodes))
-        key = (len(pad), wm, wb)
+        waves = (_bucket_waves(wm), _bucket_waves(wb))
+        key = (len(pad),) + waves
         dev = self.state.device
         src = _to_device(packed, dev, torch.float64)
         if key not in self._graphs:
-            self._graphs[key] = self._capture(src, (wm, wb))
+            self._graphs[key] = self._capture(src, waves)
         graph, inp, out = self._graphs[key]
         inp.copy_(src)
         graph.replay()

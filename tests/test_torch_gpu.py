@@ -713,6 +713,8 @@ def test_cuda_graph_tick_equals_eager_bit_for_bit():
         for x, y in zip(_tick_leaves(eager.state), _tick_leaves(graph.state)):
             assert torch.equal(x, y)
     assert graph.cuda_graph and 1 <= len(graph._graphs) < len(batches)
+    # every key is a padded batch and two wave counts, powers of two
+    assert all(n & (n - 1) == 0 for key in graph._graphs for n in key)
 
 
 @pytest.mark.gpu

@@ -292,6 +292,33 @@ def test_padded_rows_leave_every_leaf_bitwise(cluster, host_deadjust):
         assert torch.equal(x, z)
 
 
+@pytest.mark.parametrize("pad", ["bucket", "plus_five"])
+def test_padded_waves_leave_every_leaf_bitwise(cluster, pad):
+    """Wave counts past the last occurrence rank (the CUDA graph's
+    ``_bucket_waves``) change no bit of any leaf or output."""
+    _, pe, _, size = _fitted_pair(cluster, "chipseq", bias_decay=0.8,
+                                  bias_empirical_bayes=True)
+    nodes = [nt.name for nt in target_nodes()]
+    packed, wm, wb = ptick.pack_waves(_packed(size), len(nodes))
+    more = {"bucket": ptick._bucket_waves, "plus_five": lambda n: n + 5}[pad]
+    assert (more(wm), more(wb)) != (wm, wb)
+    size_t = torch.tensor(size, dtype=torch.float64)
+    outs = []
+    for waves in ((wm, wb), (more(wm), more(wb))):
+        state, _ = pstate.build_state(pe, nodes)
+        for _ in range(2):
+            state, mean, std, y = ptick._tick_core(
+                state, torch.tensor(packed), size_t, True, waves)
+        outs.append(_leaves(state) + [mean, std, y])
+    for x, z in zip(*outs):
+        assert torch.equal(x, z)
+
+
+def test_bucket_waves_rounds_up_to_a_power_of_two():
+    got = [ptick._bucket_waves(n) for n in (0, 1, 2, 3, 4, 5, 11, 16, 17)]
+    assert got == [1, 1, 2, 4, 4, 8, 16, 16, 32]
+
+
 def test_bias_scatter_sums_a_pair_in_input_order(cluster):
     """A pair hit many times in one tick: the port's wave scatter equals a
     sequential host scatter (``np.add.at``) bit for bit, like the JAX
