@@ -5,7 +5,8 @@
 
 It drives both of the port's serving paths, stablelm-1.6b (every attention
 through the flash-attention kernel) and mamba2-1.3b (every prefill of every
-layer through the SSD-scan kernel), and Lotaru's estimator path.  Phases,
+layer through the SSD-scan kernel), and Lotaru's estimator path, online
+loop, multi-workflow fleet and accelerator-plane estimator.  Phases,
 in order; any failure ends the run with a non-zero exit code:
 
 1. the card's name and power limit (nvidia-smi), torch, CUDA and nvcc
@@ -84,7 +85,20 @@ in order; any failure ends the run with a non-zero exit code:
    tick (``observe_batch`` + the dirty-row ``predict_matrix``) and the
    same tick on the CPU (1e-12), then the HEFT re-plan over the
    10,610-task DAG; host ms, CUDA-event ms, the ``tick_step`` span,
-   device-busy ms and launches.
+   device-busy ms and launches;
+10. the multi-workflow fleet and ``LotaruML``, no kernel either: 10a
+   ``online/fleet.py``'s ``fleet_tick_step`` at bench_online's fleet
+   sweep (W 4, 16, 64 at T 128 x N 16, 64 observations a workflow a
+   tick) and at W 4 x T 1,000 x N 64 (1,024 a workflow), 4 ticks of fresh
+   rows: every workflow held to its own ``tick_step`` on the card and to
+   the fleet on the CPU (1e-12), the (1, 1) mesh's fleet equal bit for
+   bit, a tick's launches at W 64 within 1.5x of W 4; host, CUDA-event
+   and busy ms, launches and cells per second beside the W per-workflow
+   ``tick_step`` calls and the CPU; 10b ``LotaruML`` at 1,000 cells x 64
+   target nodes: the full matrix, the scalar-factor matrix, a
+   4,096-observation ``observe_batch`` (two copies back) and the
+   dirty-row matrix against the CPU (1e-12) and the matrix against the
+   scalar ``predict``, with their times.
 
 The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``; the full report goes to
@@ -1600,6 +1614,346 @@ def run_online_phase(torch, smi):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the multi-workflow fleet and LotaruML
+# ---------------------------------------------------------------------------
+#: benchmarks/bench_online.py's fleet sweep (``bench_scale``,
+#: ``_fleet_point``): W workflows at T x N, observations per workflow per
+#: tick, the input size; then W 4 at phase 8c's T x N with 1,024
+#: observations per workflow (4,096 a tick, phase 9b's stream)
+FLEET_WS, FLEET_T, FLEET_N, FLEET_BATCH, FLEET_SIZE = (4, 16, 64), 128, 16, \
+    64, 64.0
+FLEET_BIG = (4, EST_TASKS, EST_NODES, EST_STREAM // 4)
+#: ticks of a fleet point (numpy seeds 1-4), the first a warm-up
+FLEET_TICKS = 4
+#: launches a fleet tick may grow by from W 4 to W 64 (the same batch per
+#: workflow): the fleet runs as one batched pass, not a loop
+FLEET_LAUNCH_GROWTH = 1.5
+#: benchmarks/bench_predict.py's scale for LotaruML: cells x target
+#: nodes, ``fit_cell``'s partitions, the observe_batch stream
+ML_CELLS, ML_NODES, ML_PARTITIONS, ML_STREAM = 1000, 64, 6, 4096
+
+
+def fleet_obs(W, T, N, B, seed):
+    """One fleet tick's (W, B, 8) rows from numpy seed ``seed``, in
+    bench_online's ``_fleet_point`` form: uniform rows, columns and
+    runtimes (5-120 s), the runtime as the row's median and 1 as its
+    spread; sizes 0.5-1.5 x FLEET_SIZE."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    obs = np.zeros((W, B, 8))
+    obs[..., 0] = rng.integers(0, T, (W, B))
+    obs[..., 1] = rng.integers(0, N, (W, B))
+    obs[..., 2] = FLEET_SIZE * rng.uniform(0.5, 1.5, (W, B))
+    obs[..., 3] = rng.uniform(5.0, 120.0, (W, B))
+    obs[..., 5] = obs[..., 3]
+    obs[..., 6] = 1.0
+    obs[..., 7] = 1.0
+    return obs
+
+
+def fleet_point(torch, W, T, N, B, bases):
+    """One fleet point: ``bases[dev]``'s state stacked W times (as
+    bench_online stacks it) on the card, on the card's (1, 1) mesh and
+    on the CPU, beside W per-workflow ``tick_step`` states on the card;
+    FLEET_TICKS ticks of fresh rows, each workflow predicting at its own
+    size.  Every tick: the mesh's fleet equals the card's bit for bit,
+    and every workflow's slice is held to its ``tick_step`` and to the
+    CPU's fleet (EST_TOL).  Then one more tick of each, profiled."""
+    import numpy as np
+    from repro_torch.core import build_state
+    from repro_torch.core.tick import tick_step
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.online.fleet import (fleet_slice, fleet_tick_step,
+                                          shard_fleet, stack_states)
+    nodes = list(bases["cuda"].target_benches)
+    one = {dev: build_state(bases[dev], nodes)[0] for dev in bases}
+    fleets = {dev: stack_states([one[dev]] * W) for dev in bases}
+    mesh = make_fleet_mesh(device="cuda:0")
+    check(mesh.shape == {"wf": 1, "task": 1}, f"mesh {mesh.shape}")
+    sharded = shard_fleet(fleets["cuda"], mesh)
+    loops = [build_state(bases["cuda"], nodes)[0] for _ in range(W)]
+    sizes = FLEET_SIZE * np.linspace(0.5, 1.5, W)
+    recs = {"fleet": [], "loop": [], "cpu": []}
+    worst = {"fleet_vs_loop": 0.0, "card_vs_cpu": 0.0}
+
+    def fleet_tick(dev, obs):
+        f, m, s = fleet_tick_step(fleets[dev], obs, sizes)
+        fleets[dev] = f
+        return m, s
+
+    def loop_tick(obs):
+        out = []
+        for w in range(W):
+            loops[w], m, s, _ = tick_step(loops[w], obs[w], sizes[w], False)
+            out.append((m, s))
+        return out
+
+    for k in range(FLEET_TICKS):
+        obs = fleet_obs(W, T, N, B, k + 1)
+        (cm, cs), host, dev_ms = timed(torch, lambda: fleet_tick("cuda", obs),
+                                       "cuda")
+        recs["fleet"].append({"host_ms": host, "device_ms": dev_ms})
+        sharded, sm, ss = fleet_tick_step(sharded, obs, sizes)
+        check(torch.equal(sm, cm) and torch.equal(ss, cs),
+              f"10a W {W} tick {k + 1}: the (1, 1) mesh's fleet differs "
+              "from the unsharded fleet in some bit")
+        (hm, hs), host, _ = timed(torch, lambda: fleet_tick("cpu", obs),
+                                  "cpu")
+        recs["cpu"].append({"host_ms": host, "device_ms": None})
+        outs, host, dev_ms = timed(torch, lambda: loop_tick(obs), "cuda")
+        recs["loop"].append({"host_ms": host, "device_ms": dev_ms})
+        worst["card_vs_cpu"] = max(worst["card_vs_cpu"],
+                                   rel_err(cm.cpu(), hm), rel_err(cs.cpu(), hs))
+        for w, (m, s) in enumerate(outs):
+            for a, b in ((cm, m), (cs, s)):
+                worst["fleet_vs_loop"] = max(
+                    worst["fleet_vs_loop"],
+                    rel_err(fleet_slice(a, fleets["cuda"], w), b.cpu()))
+    st = fleets["cuda"].state
+    worst["leaves_card_vs_cpu"] = max(
+        rel_err(a.cpu().double(), b.double()) for a, b in
+        zip(tick_leaves(st), tick_leaves(fleets["cpu"].state)))
+    bad = max(worst, key=worst.get)
+    check(worst[bad] <= EST_TOL, f"10a W {W} T {T} N {N}: {bad} "
+          f"{worst[bad]:.3e}")
+    obs = fleet_obs(W, T, N, B, FLEET_TICKS + 1)
+    prof = {"fleet": device_busy(torch, lambda: fleet_tick("cuda", obs)),
+            "loop": device_busy(torch, lambda: loop_tick(obs))}
+    out = {"W": W, "T": T, "N": N, "batch_per_workflow": B,
+           "cells": W * T * N, "rel_err": worst, "bitwise_mesh": True,
+           "ticks": recs}
+    for name, ticks in recs.items():
+        for key in ("host_ms", "device_ms"):
+            out[f"{name}_steady_{key}"] = steady(ticks, key)
+    for name, p in prof.items():
+        out[f"{name}_busy_ms"] = p["busy_ms"]
+        out[f"{name}_launches"] = p["device_launches"]
+    out["cells_per_s"] = W * T * N / (out["fleet_steady_host_ms"] / 1e3)
+    out["profile_top"] = prof["fleet"]["top"]
+    return out
+
+
+def run_fleet_phase(torch, smi):
+    """Phase 10a: the fleet on the card (bench_online's sweep, then W 4
+    at phase 8c's scale)."""
+    import copy
+    devs = ("cuda", "cpu")
+    small = {d: synthetic_estimator(FLEET_T, FLEET_N, d) for d in devs}
+    points = [fleet_point(torch, W, FLEET_T, FLEET_N, FLEET_BATCH, small)
+              for W in FLEET_WS]
+    W, T, N, B = FLEET_BIG
+    big = {d: synthetic_estimator(T, N, d) for d in devs}
+    points.append(fleet_point(torch, W, T, N, B, big))
+    del small, big
+    first, last = points[0], points[len(FLEET_WS) - 1]
+    growth = last["fleet_launches"] / first["fleet_launches"]
+    print(f"  {smi}; steady = median of ticks 2-{FLEET_TICKS}; busy and "
+          "launches from one more tick under torch.profiler", flush=True)
+    print(f"  {'W x T x N, B/wf':22s} {'host ms':>9s} {'events ms':>10s} "
+          f"{'busy ms':>8s} {'launch':>7s} {'Mcells/s':>9s} | "
+          f"{'W tick_step: host':>17s} {'events':>9s} {'busy':>8s} "
+          f"{'launch':>7s} | {'CPU ms':>9s} | {'err loop':>9s} "
+          f"{'err CPU':>9s}")
+    for p in points:
+        print(f"  {p['W']:3d} x {p['T']:4d} x {p['N']:3d}, "
+              f"{p['batch_per_workflow']:5d}  "
+              f"{p['fleet_steady_host_ms']:9.3f} "
+              f"{p['fleet_steady_device_ms']:10.3f} "
+              f"{p['fleet_busy_ms']:8.3f} {p['fleet_launches']:7d} "
+              f"{p['cells_per_s'] / 1e6:9.3f} | "
+              f"{p['loop_steady_host_ms']:17.3f} "
+              f"{p['loop_steady_device_ms']:9.3f} {p['loop_busy_ms']:8.3f} "
+              f"{p['loop_launches']:7d} | {p['cpu_steady_host_ms']:9.3f} | "
+              f"{p['rel_err']['fleet_vs_loop']:9.2e} "
+              f"{p['rel_err']['card_vs_cpu']:9.2e}", flush=True)
+    print(f"  launches a fleet tick, W {last['W']} against W {first['W']}: "
+          f"{growth:.3f}x (at most {FLEET_LAUNCH_GROWTH}x); the (1, 1) "
+          "mesh's fleet equal to the unsharded fleet bit for bit at every "
+          "tick", flush=True)
+    check(growth <= FLEET_LAUNCH_GROWTH,
+          f"10a: a fleet tick's launches grew {growth:.3f}x from W "
+          f"{first['W']} to W {last['W']}")
+    return {"points": copy.deepcopy(points), "launch_growth": growth,
+            "card": smi}
+
+
+def synthetic_ml(n_cells, n_nodes, device, seed=0):
+    """tests/test_batched_predict.py's ``_toy_ml`` at scale, built from
+    the port: ``n_cells`` cells from numpy seed ``seed`` (step tokens
+    2048 x (i + 1), random roofline terms, local runs linear in the
+    tokens with N(0, 1e-3) noise), the even ones with a throttled second
+    run (the dual-run branch), the odd ones without (the ratio branch),
+    over ``n_nodes`` target benches; ``fit_cell`` with ML_PARTITIONS
+    partitions."""
+    import numpy as np
+    from repro_torch.core import LotaruML
+    from repro_torch.core.profiler import BenchResult
+    rng = np.random.default_rng(seed)
+    local = BenchResult(node="local-cpu", cpu_events_s=450.0,
+                        matmul_gflops=90.0, mem_gbps=18.0,
+                        io_read_mbps=420.0, io_write_mbps=420.0,
+                        link_gbps=0.0)
+    benches = {}
+    for j in range(n_nodes):
+        nm = f"node{j:03d}"
+        benches[nm] = BenchResult(
+            node=nm, cpu_events_s=200.0,
+            matmul_gflops=float(rng.uniform(500, 5000)),
+            mem_gbps=float(rng.uniform(100, 900)), io_read_mbps=300.0,
+            io_write_mbps=300.0, link_gbps=float(rng.uniform(0, 60)))
+    est = LotaruML(local, benches, device=device)
+    for i in range(n_cells):
+        slope = float(rng.uniform(1e-4, 1e-3))
+        cell = {"arch": f"a{i:04d}", "shape": "s", "roofline": {
+            "step_tokens": 2048 * (i + 1),
+            "compute_s": float(rng.uniform(0.1, 2)),
+            "memory_s": float(rng.uniform(0.1, 2)),
+            "collective_s": float(rng.uniform(0.0, 1)),
+            "flops_per_device": float(rng.uniform(1e12, 5e13)),
+            "bytes_per_device": float(rng.uniform(1e10, 1e12)),
+            "coll_bytes_per_device": float(rng.uniform(1e8, 1e10))}}
+        noise = iter(rng.normal(0, 1e-3, ML_PARTITIONS))
+
+        def run(c, f, s=slope, noise=noise):
+            return s * f * c["roofline"]["step_tokens"] + 0.5 + next(noise)
+
+        def slow(c, f, s=slope):
+            return s * f * c["roofline"]["step_tokens"] * 1.25 + 0.6
+
+        est.fit_cell(cell, run, n_partitions=ML_PARTITIONS,
+                     run_local_throttled=slow if i % 2 == 0 else None)
+    return est
+
+
+def ml_stream(est, seed):
+    """ML_STREAM observations over random (cell, target node) pairs from
+    numpy seed ``seed``: tokens 0.5-1.5 x the cell's step tokens, runtimes
+    0.5-2 x the cell's local time at those tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    names, nodes = est.cell_names(), list(est.target_benches)
+    ci = rng.integers(0, len(names), ML_STREAM)
+    ni = rng.integers(0, len(nodes), ML_STREAM)
+    scale = rng.uniform(0.5, 1.5, ML_STREAM)
+    slow = rng.uniform(0.5, 2.0, ML_STREAM)
+    out = []
+    for c, n, a, b in zip(ci, ni, scale, slow):
+        fc = est.cells[names[c]]
+        tokens = float(a * fc.full_tokens)
+        local = float(np.interp(tokens, fc.tokens[:ML_PARTITIONS],
+                                fc.runtimes[:ML_PARTITIONS]))
+        out.append((names[c], nodes[n], tokens, float(b * local)))
+    return out
+
+
+def ml_run(torch, est, device, stream):
+    """Phase 10b's calls on ``device``: the full (cell x node) matrix, the
+    scalar-factor matrix, ``observe_batch`` of ``stream`` and the
+    dirty-row matrix, each timed (host ms, CUDA-event ms on the card)."""
+    nodes = list(est.target_benches)
+    t, out = {}, {}
+
+    def full():
+        est._mat_cache = None
+        return est.predict_matrix(nodes)
+
+    out["matrix"], t["matrix_ms"], t["matrix_device_ms"] = timed(
+        torch, full, device, 5)
+    out["scalar"], t["scalar_matrix_ms"], t["scalar_matrix_device_ms"] = \
+        timed(torch, lambda: est.predict_matrix_scalar(nodes), device, 5)
+    fetches = est.fetches
+    out["ys"], t["observe_ms"], t["observe_device_ms"] = timed(
+        torch, lambda: est.observe_batch(stream), device)
+    t["observe_fetches"] = est.fetches - fetches
+    out["dirty_rows"] = sorted(est._dirty_rows)
+    out["dirty"], t["dirty_matrix_ms"], t["dirty_matrix_device_ms"] = timed(
+        torch, lambda: est.predict_matrix(nodes), device)
+    return t, out
+
+
+def run_ml_phase(torch, smi):
+    """Phase 10b: LotaruML at bench_predict's scale on the card, held to
+    the CPU (EST_TOL) and to its own scalar ``predict``."""
+    import copy
+    import numpy as np
+    est = {}
+    build = {}
+    for dev in ("cuda", "cpu"):
+        est[dev], build[dev], _ = timed(
+            torch, lambda: synthetic_ml(ML_CELLS, ML_NODES, dev), dev)
+    nodes = list(est["cuda"].target_benches)
+    stream = ml_stream(est["cpu"], 1)
+    fresh = copy.deepcopy(est["cuda"])       # profiled after the checks
+    times, outs = {}, {}
+    for dev in ("cuda", "cpu"):
+        times[dev], outs[dev] = ml_run(torch, est[dev], dev, stream)
+    c, h = outs["cuda"], outs["cpu"]
+    errs = {"matrix_mean": rel_err(c["matrix"][0], h["matrix"][0]),
+            "matrix_std": rel_err(c["matrix"][1], h["matrix"][1]),
+            "scalar_matrix_mean": rel_err(c["scalar"][0], h["scalar"][0]),
+            "scalar_matrix_std": rel_err(c["scalar"][1], h["scalar"][1]),
+            "observe_ys": rel_err(c["ys"], h["ys"]),
+            "dirty_matrix_mean": rel_err(c["dirty"][0], h["dirty"][0]),
+            "dirty_matrix_std": rel_err(c["dirty"][1], h["dirty"][1]),
+            "bias_log_sum": rel_err(est["cuda"].bias.log_sum,
+                                    est["cpu"].bias.log_sum)}
+    check(c["dirty_rows"] == h["dirty_rows"],
+          "10b: the card and the CPU dirtied different rows")
+    # the matrix against the scalar predict on the card, 64 sampled pairs
+    rng = np.random.default_rng(0)
+    names = est["cuda"].cell_names()
+    mean, std = c["dirty"]
+    oracle = 0.0
+    for i, j in zip(rng.integers(0, ML_CELLS, 64), rng.integers(0, ML_NODES,
+                                                               64)):
+        m, s = est["cuda"].predict(names[i], nodes[j])
+        oracle = max(oracle, rel_err([mean[i, j], std[i, j]], [m, s]))
+    errs["matrix_vs_scalar_predict"] = oracle
+    bad = max(errs, key=errs.get)
+    check(errs[bad] <= EST_TOL, f"10b: {bad} {errs[bad]:.3e}")
+    for dev in ("cuda", "cpu"):
+        check(times[dev]["observe_fetches"] == 2,
+              f"10b: observe_batch read back {times[dev]['observe_fetches']}"
+              " times on " + dev)
+    fresh.predict_matrix(nodes)
+    prof = {"matrix": device_busy(torch, lambda: (
+        setattr(fresh, "_mat_cache", None), fresh.predict_matrix(nodes))),
+            "scalar_matrix": device_busy(
+                torch, lambda: fresh.predict_matrix_scalar(nodes)),
+            "observe": device_busy(torch, lambda: fresh.observe_batch(stream))}
+    fresh._dirty_rows = set(c["dirty_rows"])
+    prof["dirty_matrix"] = device_busy(
+        torch, lambda: fresh.predict_matrix(nodes))
+    n_dual = sum(est["cpu"].cells[n].w_compute is not None for n in names)
+    print(f"  {smi}; {ML_CELLS} cells ({n_dual} dual-run, "
+          f"{ML_CELLS - n_dual} ratio) x {ML_NODES} target nodes, built in "
+          f"{build['cuda']:.1f} ms (card) / {build['cpu']:.1f} ms (CPU); "
+          f"{len(c['dirty_rows'])} rows dirtied by {ML_STREAM} "
+          "observations (numpy seed 1)", flush=True)
+    print(f"  {'call':28s} {'host ms':>9s} {'events ms':>10s} "
+          f"{'busy ms':>8s} {'launches':>8s} {'CPU ms':>9s}")
+    tc, th = times["cuda"], times["cpu"]
+    for key, label in (("matrix", "predict_matrix, full"),
+                       ("scalar_matrix", "predict_matrix_scalar"),
+                       ("observe", f"observe_batch, {ML_STREAM} obs"),
+                       ("dirty_matrix", "predict_matrix, dirty rows")):
+        p = prof[key]
+        print(f"  {label:28s} {tc[key + '_ms']:9.3f} "
+              f"{tc[key + '_device_ms']:10.3f} {p['busy_ms']:8.3f} "
+              f"{p['device_launches']:8d} {th[key + '_ms']:9.3f}",
+              flush=True)
+    print(f"  observe_batch read back {tc['observe_fetches']} times; card "
+          f"against CPU worst {max(errs.values()):.3e} ({bad}); matrix "
+          f"against scalar predict {oracle:.3e}", flush=True)
+    return {"cells": ML_CELLS, "nodes": ML_NODES, "stream": ML_STREAM,
+            "dual_run_cells": n_dual, "build_ms": build, "times": times,
+            "profile": {k: {q: v for q, v in p.items() if q != "host_top"}
+                        for k, p in prof.items()},
+            "dirty_rows": len(c["dirty_rows"]), "rel_err": errs,
+            "card": smi}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1808,6 +2162,18 @@ def main() -> int:
           "float64, card against the CPU at 1e-12)", flush=True)
     online = run_online_phase(torch, smi)
 
+    print("== phase 10: the multi-workflow fleet and LotaruML (float64; "
+          "card against the CPU at 1e-12)", flush=True)
+    print(f"== phase 10a: the fleet, W {', '.join(map(str, FLEET_WS))} at T "
+          f"{FLEET_T} x N {FLEET_N} ({FLEET_BATCH} observations a workflow), "
+          f"then W {FLEET_BIG[0]} at T {FLEET_BIG[1]} x N {FLEET_BIG[2]} "
+          f"({FLEET_BIG[3]} a workflow); {FLEET_TICKS} ticks, numpy seeds "
+          f"1-{FLEET_TICKS}", flush=True)
+    fleet = run_fleet_phase(torch, smi)
+    print(f"== phase 10b: LotaruML, {ML_CELLS} cells x {ML_NODES} target "
+          f"nodes, a {ML_STREAM}-observation observe_batch", flush=True)
+    ml = run_ml_phase(torch, smi)
+
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
     main_row = next(r for r in rows if r["shape"] == "serve decode")
@@ -1844,7 +2210,8 @@ def main() -> int:
                          "peak_memory_gb": mpeak_gb,
                          "prefill_ms": prefill_ms, "profile": mprofile,
                          "model_rel_err": mmodel_errs},
-              "estimator": estimator, "online": online,
+              "estimator": estimator, "online": online, "fleet": fleet,
+              "ml": ml,
               "card": smi, "seconds": time.time() - t_start}
     out_dir = ROOT / "build" / "reports"
     out_dir.mkdir(parents=True, exist_ok=True)

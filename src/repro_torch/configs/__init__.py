@@ -13,14 +13,14 @@ ARCHS = ["stablelm-1.6b", "mamba2-1.3b"]
 
 #: architectures of the JAX package still to port -> ROADMAP.md item
 PENDING = {
-    "zamba2-1.2b": "Queue A item 5 (the remaining ML plane)",
-    "seamless-m4t-large-v2": "Queue A item 5 (the remaining ML plane)",
-    "stablelm-12b": "Queue A item 5 (the remaining ML plane)",
-    "starcoder2-15b": "Queue A item 5 (the remaining ML plane)",
-    "qwen2-7b": "Queue A item 5 (the remaining ML plane)",
-    "llama4-maverick-400b-a17b": "Queue A item 5 (the remaining ML plane)",
-    "qwen3-moe-30b-a3b": "Queue A item 5 (the remaining ML plane)",
-    "qwen2-vl-7b": "Queue A item 5 (the remaining ML plane)",
+    "zamba2-1.2b": "Queue A item 1 (the remaining ML plane)",
+    "seamless-m4t-large-v2": "Queue A item 1 (the remaining ML plane)",
+    "stablelm-12b": "Queue A item 1 (the remaining ML plane)",
+    "starcoder2-15b": "Queue A item 1 (the remaining ML plane)",
+    "qwen2-7b": "Queue A item 1 (the remaining ML plane)",
+    "llama4-maverick-400b-a17b": "Queue A item 1 (the remaining ML plane)",
+    "qwen3-moe-30b-a3b": "Queue A item 1 (the remaining ML plane)",
+    "qwen2-vl-7b": "Queue A item 1 (the remaining ML plane)",
 }
 
 

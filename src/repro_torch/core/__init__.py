@@ -2,8 +2,8 @@
 downsampled local execution, Bayesian linear regression with Pearson
 gating, per-node factor adjustment — the estimator path that feeds the
 scheduler, and the fused online tick over one ``EstimatorState``
-(``state``/``tick``).  Port of ``repro.core``; the accelerator-plane
-``LotaruML`` is not ported yet."""
+(``state``/``tick``), plus the accelerator-plane integration
+(``LotaruML``) that feeds the scheduler.  Port of ``repro.core``."""
 from .blr import (BatchedTaskModel, BiasModel, BLRPosterior, OnlineStats,
                   ReliabilityModel, SampleLog, TaskModel,
                   fit, fit_batch, fit_task, fit_task_batch, pearson,
@@ -17,7 +17,8 @@ from .adjust import (BenchArrays, cpu_weight, deviation, roofline_weights,
 from .baselines import BASELINES, NaiveEstimator, OnlineM, OnlineP
 from .downsample import (WorkloadPartition, downsample_workload,
                          partition_sizes, reduced_model_factor)
-from .estimator import FittedTask, LotaruEstimator, SCHEMA_VERSION
+from .estimator import (FittedCell, FittedTask, LotaruEstimator, LotaruML,
+                        SCHEMA_VERSION, young_daly_interval)
 from .nodes import NODE_TYPES, NodeType, PAPER_ALIAS, get_node, target_nodes
 from .profiler import BenchResult, profile_cluster, profile_local, profile_node
 from .state import (EstimatorState, StateMeta, StateNames, bias_view,
@@ -37,7 +38,8 @@ __all__ = [
     "roofline_weights", "runtime_factor", "runtime_factor3", "BASELINES",
     "NaiveEstimator", "OnlineM", "OnlineP", "WorkloadPartition",
     "downsample_workload", "partition_sizes", "reduced_model_factor",
-    "FittedTask", "LotaruEstimator", "NODE_TYPES", "NodeType",
+    "FittedCell", "FittedTask", "LotaruEstimator", "LotaruML",
+    "young_daly_interval", "NODE_TYPES", "NodeType",
     "PAPER_ALIAS", "get_node", "target_nodes", "BenchResult",
     "profile_cluster", "profile_local", "profile_node", "EstimatorState",
     "StateMeta", "StateNames", "bias_view", "build_state",

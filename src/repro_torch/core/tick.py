@@ -6,7 +6,10 @@ steps per simulation tick (the update stream, per-row scalar-model
 writebacks, a host-side ``BiasModel.update`` scatter and a dirty-row
 ``predict_matrix`` re-predict), stitched together by Python in
 ``LotaruEstimator.observe_batch``.  ``tick_step`` runs the whole sequence
-on the state's device and updates the state's leaves in place.
+on the state's device and updates the state's leaves in place.  The core
+(``_stacked_tick_core``) is written over W states stacked on a leading
+axis — the multi-workflow fleet (``repro_torch.online.fleet``) — and the
+single-workflow tick is its W = 1 case.
 
 Observation batches are packed as a ``(B, 8)`` array::
 
@@ -69,57 +72,105 @@ def _wave_ranks(keys: np.ndarray, valid: np.ndarray) -> np.ndarray:
     return rank
 
 
-def pack_waves(obs, n_cols: int) -> tuple[np.ndarray, int, int]:
-    """The (B, 8) observation rows with two columns appended — the
-    occurrence rank of each observation's row, and of its (row, column)
-    pair, among the batch's valid observations (-1 for invalid ones) —
-    as one float64 (B, 10) host array, and the wave counts of the moment
-    fold and of the bias scatter."""
-    obs = np.asarray(obs, np.float64).reshape(-1, 8)
-    valid = obs[:, 7] > 0
-    rows = obs[:, 0].astype(np.int64)
+def pack_waves(obs, n_cols: int, n_rows: int = 0
+               ) -> tuple[np.ndarray, int, int]:
+    """The observation rows — (B, 8), or (W, B, 8) for W stacked
+    workflows of ``n_rows`` task rows each — with two columns appended:
+    the occurrence rank of each observation's row, and of its (row,
+    column) pair, among the batch's valid observations (-1 for invalid
+    ones), workflow w's rows keyed as ``w * n_rows + row`` so that two
+    workflows never share a key.  Returns them as one float64 host array
+    of shape (..., B, 10), and the wave counts of the moment fold and of
+    the bias scatter."""
+    obs = np.asarray(obs, np.float64)
+    shape = obs.shape[:2] if obs.ndim == 3 else (1, obs.size // 8)
+    flat = obs.reshape(shape[0] * shape[1], 8)
+    valid = flat[:, 7] > 0
+    rows = (flat[:, 0].astype(np.int64)
+            + np.repeat(np.arange(shape[0]), shape[1]) * n_rows)
     rank_m = _wave_ranks(rows, valid)
-    rank_b = _wave_ranks(rows * n_cols + obs[:, 1].astype(np.int64), valid)
-    packed = np.concatenate([obs, rank_m[:, None], rank_b[:, None]], 1)
+    rank_b = _wave_ranks(rows * n_cols + flat[:, 1].astype(np.int64), valid)
+    packed = np.concatenate([flat, rank_m[:, None], rank_b[:, None]], 1)
+    if obs.ndim == 3:
+        packed = packed.reshape(shape + (10,))
     return (packed, int(rank_m.max(initial=-1)) + 1,
             int(rank_b.max(initial=-1)) + 1)
 
 
 def _sigma_r(meta, counts, log_sum, log_sq):
-    """Device twin of ``BiasModel.effective_sigma_r`` — the fixed
-    ``sigma_r``, or the pooled empirical spread of the observed
-    log-residuals (floored) once any pair has two observations."""
+    """Device twin of ``BiasModel.effective_sigma_r`` over W stacked
+    (W, T, Nb) bias grids — the fixed ``sigma_r``, or, per workflow as a
+    (W, 1, 1) tensor, the pooled empirical spread of that workflow's
+    observed log-residuals (floored) once any of its pairs has two
+    observations.  Each workflow pools its own grid only, so one
+    workflow's residuals never move another's posterior."""
     if not meta.empirical_bayes:
         return meta.sigma_r
     mask = counts >= 2
     safe_n = torch.where(mask, counts, 1.0)
-    ss = torch.where(mask, log_sq - log_sum ** 2 / safe_n, 0.0).sum()
-    dof = torch.where(mask, counts - 1.0, 0.0).sum()
+    ss = torch.where(mask, log_sq - log_sum ** 2 / safe_n, 0.0).sum(
+        (1, 2), keepdim=True)
+    dof = torch.where(mask, counts - 1.0, 0.0).sum((1, 2), keepdim=True)
     s = torch.sqrt(torch.clamp_min(ss, 0.0) / torch.clamp_min(dof, 1.0))
     pooled = torch.clamp_min(s, BiasModel.SIGMA_R_FLOOR)
-    return torch.where(mask.any(), pooled, meta.sigma_r)
+    seen = mask.flatten(1).any(1).reshape(-1, 1, 1)
+    return torch.where(seen, pooled, meta.sigma_r)
+
+
+def _flat_model(model: BatchedTaskModel) -> BatchedTaskModel:
+    """A stacked (W, T, ...) batched model as one of W * T rows (views
+    where the leaves allow; the moments are left out)."""
+    def flat(t):
+        return t.reshape((-1,) + tuple(t.shape[2:]))
+    p = model.post
+    return BatchedTaskModel(
+        correlated=flat(model.correlated),
+        post=BLRPosterior(*(flat(getattr(p, f)) for f in POSTERIOR_FIELDS)),
+        median=flat(model.median), spread=flat(model.spread))
+
+
+def _lift(state: EstimatorState) -> EstimatorState:
+    """One state as a stack of one: every leaf a (1, ...) view, so that
+    updating the stack in place updates ``state``."""
+    m = state.model
+    stats = (None if m.stats is None else
+             OnlineStats(moments=m.stats.moments[None], log=m.stats.log))
+    model = BatchedTaskModel(
+        correlated=m.correlated[None],
+        post=BLRPosterior(*(getattr(m.post, f)[None]
+                            for f in POSTERIOR_FIELDS)),
+        median=m.median[None], spread=m.spread[None], stats=stats)
+    return EstimatorState(
+        model=model, factors=state.factors[None],
+        node_cols=state.node_cols[None], bias_counts=state.bias_counts[None],
+        bias_log_sum=state.bias_log_sum[None],
+        bias_log_sq=state.bias_log_sq[None], rel_succ=state.rel_succ[None],
+        rel_fail=state.rel_fail[None], meta=state.meta)
 
 
 def _fold_predict(model, state, counts, log_sum, log_sq, size):
-    """Full (T, N) factor-scaled predictive with the bias posterior
+    """Full (W, T, N) factor-scaled predictive of W stacked states, each
+    at its own input size (``size`` is (W,)), with the bias posterior
     folded in — device twin of ``_scaled_matrix_core`` +
     ``_fold_bias_matrix`` (point-scale the mean, delta-method-widen the
     std, inert where unobserved or outside the bias universe)."""
     meta = state.meta
-    mean_t, std_t = predict_task_batch(model, size)
-    mean = mean_t[:, None] * state.factors
-    std = std_t[:, None] * state.factors
+    W, T, N = state.factors.shape
+    mean_t, std_t = predict_task_batch(
+        _flat_model(model), size.reshape(W, 1).expand(W, T).reshape(-1))
+    mean = mean_t.reshape(W, T, 1) * state.factors
+    std = std_t.reshape(W, T, 1) * state.factors
     if not meta.bias_correction:
         return mean, std
     sr = _sigma_r(meta, counts, log_sum, log_sq)
-    safe_cols = torch.clamp_min(state.node_cols, 0)
     lam = 1.0 / meta.tau0 ** 2 + counts / sr ** 2
     mu = log_sum / (sr ** 2 * lam)
     v = 1.0 / lam
-    mu_g = mu.index_select(1, safe_cols)
-    v_g = v.index_select(1, safe_cols)
-    n_g = counts.index_select(1, safe_cols)
-    active = (state.node_cols >= 0)[None, :] & (n_g > 0)
+    cols = torch.clamp_min(state.node_cols, 0)[:, None, :].expand(W, T, N)
+    mu_g = mu.gather(2, cols)
+    v_g = v.gather(2, cols)
+    n_g = counts.gather(2, cols)
+    active = (state.node_cols >= 0)[:, None, :] & (n_g > 0)
     point = torch.exp(mu_g)
     out_mean = torch.where(active, mean * point, mean)
     widened = point * torch.sqrt(std ** 2 + mean ** 2 * torch.expm1(v_g))
@@ -127,32 +178,43 @@ def _fold_predict(model, state, counts, log_sum, log_sq, size):
     return out_mean, out_std
 
 
-def _tick_core(state: EstimatorState, obs, size, host_deadjust: bool,
-               waves: tuple[int, int]):
-    """One fused tick on device tensors.  ``obs`` is the (B, 10) batch
-    of ``pack_waves`` (float64, on the state's device),
-    ``size`` a 0-d tensor there, ``waves`` the host wave counts of
-    ``pack_waves``.  Updates the state's leaves in place and returns
-    ``(state, mean, std, y_local)``: the refreshed post-tick (T, N)
-    estimate matrix and the (B,) local-equivalent runtimes that entered
-    the model (input order).  Every shape depends on (B, T, N, Nb) and
-    ``waves`` alone, and nothing is read back, so the function can be
-    captured into a CUDA graph."""
+def _stacked_tick_core(state: EstimatorState, obs, size,
+                       host_deadjust: bool, waves: tuple[int, int]):
+    """One fused tick of W stacked workflows on device tensors.  Every
+    leaf of ``state`` carries a leading (W,) axis; ``obs`` is the (W, B,
+    10) batch of ``pack_waves`` (float64, on the state's device), ``size``
+    the (W,) input sizes of the predictions, ``waves`` the host wave
+    counts of ``pack_waves``.
+
+    The W workflows run as one batched pass: a task row is keyed ``w * T
+    + row`` in the moment fold and a bias pair ``(w * T + row) * Nb +
+    col`` in the bias scatter, so each wave is one ``index_add_`` for the
+    whole fleet and stays order-exact; the two reductions over a
+    workflow's whole state — the empirical-Bayes ``sigma_r`` and the
+    decay trigger — are taken per workflow.  Updates the leaves in place
+    and returns ``(state, mean, std, y_local)``: the refreshed (W, T, N)
+    estimate matrices and the (W, B) local-equivalent runtimes that
+    entered the model (input order).  Every shape depends on (W, B, T,
+    N, Nb) and ``waves`` alone, and nothing is read back, so the function
+    can be captured into a CUDA graph."""
     meta = state.meta
     model = state.model
     dt = state.factors.dtype
     dev = state.factors.device
-    T = state.factors.shape[0]
-    n_bias = state.bias_counts.shape[1]
-    B = obs.shape[0]
+    W, T, N = state.factors.shape
+    n_bias = state.bias_counts.shape[2]
+    B = obs.shape[1]
+    obs = obs.reshape(W * B, obs.shape[2])
+    wid = torch.arange(W * B, device=dev) // B
     rows = obs[:, 0].long()
     cols = obs[:, 1].long()
+    grow = wid * T + rows                      # row in the (W * T) rows
     x, y_raw, y_host, med, spr = obs[:, 2:7].to(dt).unbind(1)
     valid = obs[:, 7] > 0
     rank_m, rank_b = obs[:, 8].long(), obs[:, 9].long()
-    bcol = state.node_cols.index_select(0, cols)
+    bcol = state.node_cols[wid, cols]
     safe_b = torch.clamp_min(bcol, 0)
-    f = torch.clamp_min(state.factors[rows, cols], 1e-12)
+    f = torch.clamp_min(state.factors[wid, rows, cols], 1e-12)
     counts = state.bias_counts
     log_sum = state.bias_log_sum
     log_sq = state.bias_log_sq
@@ -162,9 +224,11 @@ def _tick_core(state: EstimatorState, obs, size, host_deadjust: bool,
         # tick-START bias point estimates (the same values the legacy
         # path reads via ``BiasModel.point`` before updating anything)
         sr0 = _sigma_r(meta, counts, log_sum, log_sq)
-        n0 = counts[rows, safe_b]
+        if isinstance(sr0, torch.Tensor):
+            sr0 = sr0.reshape(W)[wid]
+        n0 = counts[wid, rows, safe_b]
         lam0 = 1.0 / meta.tau0 ** 2 + n0 / sr0 ** 2
-        mu0 = log_sum[rows, safe_b] / (sr0 ** 2 * lam0)
+        mu0 = log_sum[wid, rows, safe_b] / (sr0 ** 2 * lam0)
         b_pt = torch.where((bcol >= 0) & (n0 > 0), torch.exp(mu0), 1.0)
         y = y_raw / (f * torch.clamp_min(b_pt, 1e-12))
     else:
@@ -172,68 +236,87 @@ def _tick_core(state: EstimatorState, obs, size, host_deadjust: bool,
 
     # --- streamed NIG moments, in input order (one wave per occurrence) --
     moments = model.stats.moments
-    target = torch.where(valid, rows, T)       # invalid -> scratch row T
-    new_m = fold_moments(moments, target, x, y, rank_m, waves[0])
+    WT = W * T
+    target = torch.where(valid, grow, WT)      # invalid -> scratch row
+    new_m = fold_moments(moments.reshape(WT, 8), target, x, y, rank_m,
+                         waves[0])
     # the last valid observation of each row: its med/spr win
-    last = torch.full((T + 1,), -1, dtype=torch.long, device=dev)
-    last.scatter_reduce_(0, target, torch.arange(B, device=dev), "amax")
-    last = last[:T]
+    last = torch.full((WT + 1,), -1, dtype=torch.long, device=dev)
+    last.scatter_reduce_(0, target, torch.arange(W * B, device=dev), "amax")
+    last = last[:WT]
     touched = last >= 0
     pick = torch.clamp_min(last, 0)
     fields = _posterior_from_stats(new_m, meta.prior_scale, meta.a0,
                                    meta.b0)
-    p = model.post
+    old = _flat_model(model)
     post = BLRPosterior(*(
-        torch.where(touched.reshape((T,) + (1,) * (new.dim() - 1)), new,
-                    getattr(p, name))
+        torch.where(touched.reshape((WT,) + (1,) * (new.dim() - 1)), new,
+                    getattr(old.post, name))
         for name, new in zip(POSTERIOR_FIELDS, fields)))
     new_model = BatchedTaskModel(
         correlated=torch.where(touched, _gate(new_m, meta.threshold),
-                               model.correlated),
+                               old.correlated),
         post=post,
-        median=torch.where(touched, med.index_select(0, pick), model.median),
-        spread=torch.where(touched, spr.index_select(0, pick), model.spread),
-        stats=OnlineStats(moments=new_m, log=model.stats.log))
+        median=torch.where(touched, med.index_select(0, pick), old.median),
+        spread=torch.where(touched, spr.index_select(0, pick), old.spread))
 
     if meta.bias_correction:
         # --- bias residuals vs the POST-update means (one batched
         # predict), scattered in input order, one wave per occurrence ----
-        pr = BLRPosterior(*(getattr(post, name).index_select(0, rows)
+        pr = BLRPosterior(*(getattr(post, name).index_select(0, grow)
                             for name in POSTERIOR_FIELDS))
         mean_b, _ = _predict_core(pr.mu, pr.V, pr.a, pr.b, pr.x_scale,
                                   pr.y_scale, x[:, None])
-        m_post = torch.where(new_model.correlated.index_select(0, rows),
+        m_post = torch.where(new_model.correlated.index_select(0, grow),
                              torch.clamp_min(mean_b[:, 0], 0.0),
-                             new_model.median.index_select(0, rows))
+                             new_model.median.index_select(0, grow))
         scaled = f * m_post
         resid_ok = valid & (bcol >= 0) & (y_raw > 0.0) & (scaled > 1e-12)
         ratio = torch.where(resid_ok,
                             y_raw / torch.where(resid_ok, scaled, 1.0), 1.0)
         lr = torch.log(ratio)
-        stats = torch.stack([counts, log_sum, log_sq]).reshape(3, -1)
+        stats = torch.stack([counts, log_sum, log_sq]).reshape(3, W, -1)
         if meta.decay != 1.0:
             # one update is one forgetting step: decay fires iff the tick
-            # contributes any residual, exactly like ``BiasModel.update``
-            stats = torch.where(resid_ok.any(), stats * meta.decay, stats)
-        slot = T * n_bias                      # the scratch slot
+            # contributes any residual to the workflow, exactly like
+            # ``BiasModel.update``
+            fire = resid_ok.reshape(W, B).any(1).reshape(1, W, 1)
+            stats = torch.where(fire, stats * meta.decay, stats)
+        slot = WT * n_bias                     # the scratch slot
         ws = torch.zeros((3, slot + 1), dtype=dt, device=dev)
-        ws[:, :slot] = stats
-        flat = torch.where(resid_ok, rows * n_bias + safe_b, slot)
+        ws[:, :slot] = stats.reshape(3, slot)
+        flat = torch.where(resid_ok, grow * n_bias + safe_b, slot)
         contrib = torch.stack([torch.ones_like(lr), lr, lr * lr])
         for w in range(waves[1]):
             ws.index_add_(1, torch.where(rank_b == w, flat, slot), contrib)
-        new_bias = ws[:, :slot].reshape(3, T, n_bias)
+        new_bias = ws[:, :slot].reshape(3, W, T, n_bias)
         for dst, src in zip((counts, log_sum, log_sq), new_bias.unbind(0)):
             dst.copy_(src)
 
     # --- in place: the state's leaves take the new values -------------
-    moments.copy_(new_m)
+    moments.copy_(new_m.reshape(moments.shape))
+    p = model.post
     for name in POSTERIOR_FIELDS:
-        getattr(p, name).copy_(getattr(post, name))
+        dst = getattr(p, name)
+        dst.copy_(getattr(post, name).reshape(dst.shape))
     for name in ("correlated", "median", "spread"):
-        getattr(model, name).copy_(getattr(new_model, name))
+        dst = getattr(model, name)
+        dst.copy_(getattr(new_model, name).reshape(dst.shape))
     mean, std = _fold_predict(model, state, counts, log_sum, log_sq, size)
-    return state, mean, std, y
+    return state, mean, std, y.reshape(W, B)
+
+
+def _tick_core(state: EstimatorState, obs, size, host_deadjust: bool,
+               waves: tuple[int, int]):
+    """One fused tick of one workflow: ``_stacked_tick_core`` on the
+    state lifted to a stack of one.  ``obs`` is the (B, 10) batch of
+    ``pack_waves``, ``size`` a 0-d tensor on the state's device.  Updates
+    the state's leaves in place and returns ``(state, mean, std,
+    y_local)`` with a (T, N) matrix and (B,) runtimes."""
+    _, mean, std, y = _stacked_tick_core(_lift(state), obs[None],
+                                         size.reshape(1), host_deadjust,
+                                         waves)
+    return state, mean[0], std[0], y[0]
 
 
 def _size_tensor(size, like: torch.Tensor) -> torch.Tensor:
@@ -266,9 +349,11 @@ def tick_step(state: EstimatorState, obs, size, host_deadjust: bool):
 def predict_state(state: EstimatorState, size):
     """Estimate matrix of a state without absorbing anything — the
     tick-zero twin of ``tick_step``'s (mean, std) outputs."""
-    return _fold_predict(state.model, state, state.bias_counts,
-                         state.bias_log_sum, state.bias_log_sq,
-                         _size_tensor(size, state.factors))
+    s = _lift(state)
+    mean, std = _fold_predict(s.model, s, s.bias_counts, s.bias_log_sum,
+                              s.bias_log_sq,
+                              _size_tensor(size, state.factors).reshape(1))
+    return mean[0], std[0]
 
 
 def _bucket(n: int) -> int:

@@ -67,7 +67,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def attention_def(cfg: ModelConfig) -> dict:
     if cfg.qkv_bias or cfg.mrope:
         raise NotImplementedError("QKV biases and M-RoPE are not ported yet "
-                                  "(ROADMAP.md, Queue A item 5)")
+                                  "(ROADMAP.md, Queue A item 1)")
     hd = cfg.resolved_head_dim()
     pd = cfg.param_dtype
     return {"wq": ParamDef((cfg.d_model, cfg.n_heads, hd), dtype=pd),
@@ -120,7 +120,7 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 def mlp_def(cfg: ModelConfig) -> dict:
     if cfg.act != "swiglu":
         raise NotImplementedError(f"activation {cfg.act!r} is not ported yet "
-                                  "(ROADMAP.md, Queue A item 5)")
+                                  "(ROADMAP.md, Queue A item 1)")
     f, pd = cfg.d_ff, cfg.param_dtype
     return {"wg": ParamDef((cfg.d_model, f), dtype=pd),
             "wu": ParamDef((cfg.d_model, f), dtype=pd),

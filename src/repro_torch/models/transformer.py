@@ -51,7 +51,7 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue A "
-            f"item 5); repro_torch runs the families {FAMILIES}")
+            f"item 1); repro_torch runs the families {FAMILIES}")
 
 
 def lm_def(cfg: ModelConfig) -> dict:

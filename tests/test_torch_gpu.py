@@ -754,3 +754,177 @@ def test_online_executor_card_matches_cpu():
         card = run("cuda", fused)
         assert card[:2] == cpu[:2]
         _est_close(card[2], cpu[2])
+
+
+# ---------------------------------------------------------------------------
+# The multi-workflow fleet (online/fleet.py, launch/mesh.py) and LotaruML
+# ---------------------------------------------------------------------------
+def _fleet_states(device, t_counts=(5, 13, 8, 13)):
+    """Stackable states: the chipseq estimator's first rows, one a
+    workflow, with bias decay and empirical-Bayes pooling."""
+    from repro_torch.core import build_state
+    from repro_torch.core.estimator import LotaruEstimator
+    states = []
+    for t in t_counts:
+        est, nodes, size = _tick_estimator(device, bias_decay=0.9,
+                                           bias_empirical_bayes=True)
+        sub = LotaruEstimator(est.local_bench, est.target_benches,
+                              bias_decay=0.9, bias_empirical_bayes=True,
+                              device=device)
+        for name in est.task_names()[:t]:
+            sub.tasks[name] = est.tasks[name]
+        states.append(build_state(sub, nodes)[0])
+    return states, size
+
+
+def _fleet_obs(t_counts, n_nodes, size, seed, batch=16):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    obs = np.zeros((len(t_counts), batch, 8))
+    for w, t in enumerate(t_counts):
+        k = int(rng.integers(batch // 2, batch + 1))
+        obs[w, :k, 0] = rng.integers(0, t, k)
+        obs[w, :k, 1] = rng.integers(0, n_nodes, k)
+        obs[w, :k, 2] = size * rng.uniform(0.5, 1.5, k)
+        obs[w, :k, 3] = rng.uniform(5.0, 500.0, k)
+        obs[w, :k, 5:7] = [60.0, 3.0]
+        obs[w, :k, 7] = 1.0
+    return obs
+
+
+@pytest.mark.gpu
+def test_fleet_card_matches_cpu_and_per_workflow_ticks():
+    """Four workflows, four ticks: the fleet on the card against the
+    fleet on the CPU and against per-workflow ``tick_step`` on the card;
+    the (1, 1) mesh of the card is bit-exact."""
+    _need_card()
+    import numpy as np
+    from repro_torch.core.tick import tick_step
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.online.fleet import (fleet_predict, fleet_slice,
+                                          fleet_tick_step, shard_fleet,
+                                          stack_states)
+    t_counts = (5, 13, 8, 13)
+    card_states, size = _fleet_states("cuda", t_counts)
+    loops, _ = _fleet_states("cuda", t_counts)
+    cpu_states, _ = _fleet_states("cpu", t_counts)
+    card, cpu = stack_states(card_states), stack_states(cpu_states)
+    assert card.state.factors.device.type == "cuda"
+    sizes = np.array([size, 0.5 * size, size, 2.0 * size])
+    mesh = make_fleet_mesh(device="cuda:0")
+    assert mesh.shape == {"wf": 1, "task": 1}
+    sharded = shard_fleet(card, mesh)
+    N = card.state.factors.shape[2]
+    for tick in range(4):
+        obs = _fleet_obs(t_counts, N, size, tick)
+        card, cm, cs = fleet_tick_step(card, obs, sizes)
+        cpu, hm, hs = fleet_tick_step(cpu, obs, sizes)
+        sharded, sm, ss = fleet_tick_step(sharded, obs, sizes)
+        assert torch.equal(sm, cm) and torch.equal(ss, cs)
+        _est_close(cm.cpu(), hm)
+        _est_close(cs.cpu(), hs)
+        for w in range(len(t_counts)):
+            loops[w], m, s, _ = tick_step(loops[w], obs[w], sizes[w],
+                                          host_deadjust=False)
+            _est_close(fleet_slice(cm, card, w), m.cpu())
+            _est_close(fleet_slice(cs, card, w), s.cpu())
+    for a, b in zip(fleet_predict(card, sizes), fleet_predict(cpu, sizes)):
+        _est_close(a.cpu(), b)
+
+
+def _ml_estimator(device, n_cells=40, n_nodes=8, seed=0):
+    """``_toy_ml``-style cells (even cells with a throttled run)."""
+    import numpy as np
+    from repro_torch.core import LotaruML
+    from repro_torch.core.profiler import BenchResult
+    rng = np.random.default_rng(seed)
+    local = BenchResult("local-cpu", 450.0, 90.0, 18.0, 420.0, 420.0, 0.0)
+    benches = {f"n{j}": BenchResult(
+        f"n{j}", 200.0, float(rng.uniform(500, 5000)),
+        float(rng.uniform(100, 900)), 300.0, 300.0,
+        float(rng.uniform(0, 60))) for j in range(n_nodes)}
+    est = LotaruML(local, benches, bias_decay=0.9,
+                   bias_empirical_bayes=True, device=device)
+    for i in range(n_cells):
+        slope = float(rng.uniform(1e-4, 1e-3))
+        noise = rng.normal(0, 1e-3, 6)
+        cell = {"arch": f"a{i}", "shape": "s", "roofline": {
+            "step_tokens": 2048 * (i % 8 + 1),
+            "compute_s": float(rng.uniform(0.1, 2)),
+            "memory_s": float(rng.uniform(0.1, 2)),
+            "collective_s": float(rng.uniform(0.0, 1)),
+            "flops_per_device": float(rng.uniform(1e12, 5e13)),
+            "bytes_per_device": float(rng.uniform(1e10, 1e12)),
+            "coll_bytes_per_device": float(rng.uniform(1e8, 1e10))}}
+        it = iter(noise)
+        est.fit_cell(
+            cell, lambda c, f, s=slope, it=it: s * f
+            * c["roofline"]["step_tokens"] + 0.5 + next(it),
+            run_local_throttled=(lambda c, f, s=slope: s * f * c["roofline"][
+                "step_tokens"] * 1.25 + 0.6) if i % 2 == 0 else None)
+    return est
+
+
+def _ml_stream(est, S, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    names, nodes = est.cell_names(), list(est.target_benches) + ["local-cpu"]
+    return [(names[int(rng.integers(0, len(names)))],
+             nodes[int(rng.integers(0, len(nodes)))],
+             float(rng.uniform(2000.0, 16000.0)), float(rng.uniform(1.0, 9.0)))
+            for _ in range(S)]
+
+
+@pytest.mark.gpu
+def test_lotaru_ml_card_matches_cpu():
+    _need_card()
+    card, cpu = _ml_estimator("cuda"), _ml_estimator("cpu")
+    nodes = list(card.target_benches) + ["local-cpu"]
+    for a, b in zip(card.predict_matrix(nodes), cpu.predict_matrix(nodes)):
+        _est_close(a, b)
+    for a, b in zip(card.predict_matrix_scalar(nodes),
+                    cpu.predict_matrix_scalar(nodes)):
+        _est_close(a, b)
+    for tick in range(3):
+        batch = _ml_stream(card, 300, tick)
+        _est_close(card.observe_batch(batch), cpu.observe_batch(batch))
+        assert card._dirty_rows == cpu._dirty_rows
+        for a, b in zip(card.predict_matrix(nodes),
+                        cpu.predict_matrix(nodes)):
+            _est_close(a, b)
+        _est_close(card.bias.log_sum, cpu.bias.log_sum)
+    for n in card.cell_names()[:10]:
+        _est_close(card.predict(n, "n3"), cpu.predict(n, "n3"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [16, 1024])
+def test_lotaru_ml_observe_batch_waits_on_the_card_twice(S):
+    """``LotaruML.observe_batch`` syncs only in its two copies back
+    (``_fetch``), whatever the batch: everything else raises under sync
+    debug mode "error"."""
+    _need_card()
+    est = _ml_estimator("cuda")
+    nodes = list(est.target_benches)
+    est.predict_matrix(nodes)
+    est.observe_batch(_ml_stream(est, 8, 99))        # warm-up
+    fetch = est._fetch
+    calls = []
+
+    def relaxed(t):
+        calls.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return fetch(t)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    est._fetch = relaxed
+    batch = _ml_stream(est, S, 5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        est.observe_batch(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert calls == [1, 1]

@@ -31,6 +31,8 @@ def _forbidden_imports(path: Path) -> list[str]:
 #: the port's entry points outside the package: they stand alone too
 ENTRY_POINTS = [ROOT / "chip_smoke.py",
                 ROOT / "examples" / "online_reestimation_torch.py",
+                ROOT / "examples" / "quickstart_torch.py",
+                ROOT / "examples" / "heterogeneous_schedule_torch.py",
                 ROOT / "scripts" / "report_trace_torch.py"]
 
 
@@ -51,7 +53,8 @@ def test_importing_every_port_module_loads_no_jax():
         "        'repro_torch.obs.trace', 'repro_torch.obs.calibration',\n"
         "        'repro_torch.obs.profiling', 'repro_torch.obs.registry',\n"
         "        'repro_torch.obs.report', 'repro_torch.online.buffer',\n"
-        "        'repro_torch.online.executor'}\n"
+        "        'repro_torch.online.executor', 'repro_torch.online.fleet',\n"
+        "        'repro_torch.launch.mesh'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
