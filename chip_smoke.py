@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-It drives both of the port's serving paths, stablelm-1.6b (every attention
-through the flash-attention kernel) and mamba2-1.3b (every prefill of every
-layer through the SSD-scan kernel), and Lotaru's estimator path, online
-loop, multi-workflow fleet and accelerator-plane estimator.  Phases,
+It drives the port's serving paths, stablelm-1.6b (every attention
+through the flash-attention kernel), mamba2-1.3b (every prefill of every
+layer through the SSD-scan kernel), qwen2-7b, qwen2-vl-7b, stablelm-12b,
+starcoder2-15b and zamba2-1.2b (both kernels), and Lotaru's estimator path,
+online loop, multi-workflow fleet and accelerator-plane estimator.  Phases,
 in order; any failure ends the run with a non-zero exit code:
 
 1. the card's name and power limit (nvidia-smi), torch, CUDA and nvcc
@@ -16,15 +17,19 @@ in order; any failure ends the run with a non-zero exit code:
 3. the flash kernel against its plain PyTorch version on the card, case
    by case (float32 at 2e-5, bfloat16 at 2e-2, as tests/test_kernels.py),
    through each of its three paths (the tensor-core prefill, the split
-   decode, the float32 kernel) and their edges, with every attention call
-   of the stablelm path: its batches are formed by ``serve.make_requests``
-   and ``serve.batched``, as ``serve.main`` forms them;
+   decode, the float32 kernel) and their edges, at head dims 32, 64, 128
+   and 160 (stablelm-12b's; the float32 decode on a 2-stage ring) and with
+   one query offset per batch row (the M-RoPE model's mask), with every
+   attention call of the stablelm path and of each phase-11 config: their
+   batches are formed by ``serve.make_requests`` and ``serve.batched``, as
+   ``serve.main`` forms them (qwen2-vl-7b's with per-row offsets);
 3b. the SSD kernel against its plain version ``ssd_chunked``, y and final
    state, in float32 (the CUDA-core path) and with bfloat16 x/B/C (the
    chunked tensor-core path), at 1e-5 of the reference's max (see
    ``SSD_TOL``): the shapes of tests/test_kernels.py, initial states (one
    over 8 chunks at full width), every prefill batch of the mamba2 path
-   and a 4k prefill; each case prints the path it took, and its call,
+   and a 4k prefill, then the same at zamba2's N 64 (its own kernel
+   instantiation); each case prints the path it took, and its call,
    captured into a CUDA graph, must launch that path's kernels
    (``plan(...).kernels``) once each, as the driver records them;
 4. the stablelm path: ``repro_torch.launch.serve.main`` serving 8 requests
@@ -44,7 +49,8 @@ in order; any failure ends the run with a non-zero exit code:
    of back-to-back calls, so the host's overhead does not count; the time
    per call with that overhead (``host_ms``) is reported beside it.  At
    each shape the kernel is first held against its plain version (bf16
-   bar), and the launcher's path (and split count) is recorded;
+   bar), and the launcher's path (and split count) is recorded; then the
+   same four shapes at stablelm-12b's D 160 with 32 query and 8 kv heads;
 4b. the mamba2 path: ``serve.main`` serving 8 requests of 12 new tokens
    with mamba2-1.3b at full width; the SSD kernel's launch count must be
    48 x prefills, the flash kernel's 0, and the batches served those
@@ -59,7 +65,7 @@ in order; any failure ends the run with a non-zero exit code:
    kernel is first held against its plain version (``SSD_TOL``), its path
    and its device launches per call, as the driver records them, are
    recorded and held to the plan, and torch.profiler splits its device
-   time by kernel.
+   time by kernel; then zamba2's serve prefill and a 4k prefill at N 64.
 
 8. the estimator path, which has no kernel (float64 tensor code on the
    card, HEFT on the host), held to the same calls on the CPU at 1e-12
@@ -98,7 +104,25 @@ in order; any failure ends the run with a non-zero exit code:
    target nodes: the full matrix, the scalar-factor matrix, a
    4,096-observation ``observe_batch`` (two copies back) and the
    dirty-row matrix against the CPU (1e-12) and the matrix against the
-   scalar ``predict``, with their times.
+   scalar ``predict``, with their times;
+11. the other serving configs, each at full published width with random
+   weights from a seed, freed before the next: qwen2-7b, qwen2-vl-7b
+   (text-only, as the JAX ServeLoop), stablelm-12b, starcoder2-15b and
+   zamba2-1.2b.  ``serve.main`` serves 8 requests of 12 new tokens; the
+   flash launches must be n_layers x forwards (zamba2: its 6 shared-block
+   applications x forwards) and the SSD launches 0 (zamba2: 38 x
+   prefills), the batches those phase 3 checked, the peak memory within
+   the card.  A profile of decode steps, then the card against the CPU in
+   float32 at 1e-4 x max|logit|: the full width cut to 2 layers (zamba2:
+   its 2 tail layers, and one super-unit of 6 layers and the shared
+   block); qwen2-vl-7b also with 64 vision embeddings on an 8 x 8 grid,
+   their M-RoPE positions and per-row decode offsets, with the init's
+   weights (measured) and at unit score variance (held to the bar: 70
+   positions of near one-hot attention, where fp32 rounding alone reaches
+   ~1e-4 with the init's weights); zamba2 also all 38
+   layers and the prefill of 129 against 128 + one decode step on the
+   card and on the CPU, with the init's weights (measured) and at unit
+   score variance of the shared block (held to the bar).
 
 The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``; the full report goes to
@@ -147,22 +171,31 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 # Phase 3: kernel against its plain version
 # ---------------------------------------------------------------------------
-def serve_cases(batch_shapes, H, D):
-    """Every attention call of the main path: per batch (B, T, steps), the
-    prefill over the cache of T + steps positions and each decode step."""
+def serve_cases(batch_shapes, Hq, D, Hkv=None, label="", per_row=False):
+    """Every attention call of a main path: per batch (B, T, steps), the
+    prefill over the cache of T + steps positions and each decode step.
+    ``per_row``: the offset goes in as a tensor of one offset per batch row
+    (a tuple here), as the M-RoPE model passes it."""
+    Hkv = Hq if Hkv is None else Hkv
     cases = []
+
+    def off(o, B):
+        return (o,) * B if per_row else o
     for B, T, steps in batch_shapes:
         Sk = T + steps
-        cases.append((f"serve prefill B{B} T{T}", B, H, H, T, Sk, D, True, T,
-                      0, "cache"))
+        cases.append((f"serve {label}prefill B{B} T{T}", B, Hq, Hkv, T, Sk,
+                      D, True, T, off(0, B), "cache"))
         for kv in range(T + 1, Sk + 1):
-            cases.append((f"serve decode B{B} kv_len={kv}/{Sk}", B, H, H, 1,
-                          Sk, D, True, kv, kv - 1, "cache"))
+            cases.append((f"serve {label}decode B{B} kv_len={kv}/{Sk}", B,
+                          Hq, Hkv, 1, Sk, D, True, kv, off(kv - 1, B),
+                          "cache"))
     return cases
 
 
-def kernel_cases(batch_shapes, serve_heads, serve_head_dim):
-    """(name, B, Hq, Hkv, Sq, Sk, D, causal, kv_len, q_offset, layout)."""
+def kernel_cases(batch_shapes, serve_heads, serve_head_dim, more_serve=()):
+    """(name, B, Hq, Hkv, Sq, Sk, D, causal, kv_len, q_offset, layout); a
+    tuple ``q_offset`` is one offset per batch row.  ``more_serve``: the
+    serve cases of the other main paths (``serve_cases``)."""
     cases = []
     for B, Hq, Hkv, Sq, Sk, D, causal in [
             (1, 2, 2, 64, 64, 32, True),
@@ -178,7 +211,7 @@ def kernel_cases(batch_shapes, serve_heads, serve_head_dim):
                   "bhsd"))
     cases.append(("chunk q_offset=20", 2, 4, 2, 5, 64, 64, True, 25, 20,
                   "bhsd"))
-    for D in (32, 64, 128):               # every head dim x row tiling
+    for D in (32, 64, 128, 160):          # every head dim x row tiling
         for Sq in (1, 33):
             cases.append((f"instances D{D} Sq{Sq}", 2, 4, 2, Sq, 70, D, True,
                           70, 70 - Sq, "bhsd"))
@@ -204,11 +237,35 @@ def kernel_cases(batch_shapes, serve_heads, serve_head_dim):
              2999),
             ("decode GQA8 D32 bidir", 1, 16, 2, 1, 1000, 32, False, None, 0),
             ("decode GQA12 two head chunks", 1, 24, 2, 1, 500, 64, True, 500,
-             499)]:
+             499),
+            # head dim 160 (stablelm-12b): 105 KB tiles on the tensor
+            # cores; the float32 decode on its 2-stage ring
+            ("prefill D160 Sq70 GQA4", 1, 8, 2, 70, 70, 160, True, None, 0),
+            ("chunk D160 q_offset=160", 2, 8, 2, 130, 300, 160, True, 290,
+             160),
+            ("prefill D160 Sk90 kv_len=80 bidir", 1, 4, 4, 33, 90, 160,
+             False, 80, 0),
+            ("decode D160 kv_len=1", 2, 4, 2, 1, 64, 160, True, 1, 0),
+            ("decode D160 GQA4 splits", 1, 32, 8, 1, 4096, 160, True, 4096,
+             4095),
+            ("decode D160 MQA empty splits q_offset=300", 1, 8, 1, 1, 4096,
+             160, True, 3000, 300),
+            ("decode GQA7 D128 (qwen2)", 2, 28, 4, 1, 700, 128, True, 700,
+             699),
+            # one offset per batch row (the M-RoPE model's mask)
+            ("per-row decode GQA7 D128", 3, 28, 4, 1, 600, 128, True, 595,
+             (0, 200, 594)),
+            ("per-row prefill D64", 3, 8, 2, 33, 200, 64, True, 195,
+             (0, 66, 162)),
+            ("per-row decode D160 splits", 3, 8, 2, 1, 4096, 160, True, 4091,
+             (0, 1365, 4090)),
+            ("per-row chunk D160", 3, 8, 2, 70, 300, 160, True, 295,
+             (0, 100, 225))]:
         cases.append((name, B, Hq, Hkv, Sq, Sk, D, causal, kv_len, q_off,
                       "bhsd"))
     # the serve shapes: (B, S, H, D) over views of a stacked cache
-    return cases + serve_cases(batch_shapes, serve_heads, serve_head_dim)
+    return (cases + serve_cases(batch_shapes, serve_heads, serve_head_dim)
+            + list(more_serve))
 
 
 def make_inputs(torch, B, Hq, Hkv, Sq, Sk, D, dtype, layout, seed):
@@ -228,8 +285,10 @@ def make_inputs(torch, B, Hq, Hkv, Sq, Sk, D, dtype, layout, seed):
 
 def run_kernel_checks(torch, kernel, mha, attention_ref, cases):
     results = []
-    for i, (name, B, Hq, Hkv, Sq, Sk, D, causal, kv_len, q_off,
+    for i, (name, B, Hq, Hkv, Sq, Sk, D, causal, kv_len, offset,
             layout) in enumerate(cases):
+        q_off = (torch.tensor(offset, dtype=torch.int32, device="cuda")
+                 if isinstance(offset, tuple) else offset)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
             q, k, v = make_inputs(torch, B, Hq, Hkv, Sq, Sk, D, dtype, layout,
@@ -259,7 +318,7 @@ def run_kernel_checks(torch, kernel, mha, attention_ref, cases):
             path, splits = kernel.plan(
                 dtype, B, Hq, Hkv, Sq, Sk if kv_len is None else kv_len,
                 kernel.sm_count(q.device.index))
-            print(f"  {name:34s} {dname:9s} {path:12s} splits {splits:3d} "
+            print(f"  {name:42s} {dname:9s} {path:12s} splits {splits:3d} "
                   f"max_abs_err {err:.3e} tol {tol:g} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"kernel disagrees with its plain version: {name} "
@@ -273,8 +332,10 @@ def run_kernel_checks(torch, kernel, mha, attention_ref, cases):
 # ---------------------------------------------------------------------------
 # Phase 3b: the SSD kernel against its plain version
 # ---------------------------------------------------------------------------
-def ssd_cases(batch_shapes, cfg):
-    """(name, B, T, H, P, G, N, chunk, layout, state0)."""
+def ssd_cases(batch_shapes, cfg, label="", oracle=True):
+    """(name, B, T, H, P, G, N, chunk, layout, state0): with ``oracle`` the
+    shapes of tests/test_kernels.py, then ``cfg``'s full width (named with
+    ``label``): initial states, its main path's prefills, a 4k prefill."""
     s = cfg.ssm
     H, P, G, N = (s.n_ssm_heads(cfg.d_model), s.head_dim, s.n_groups,
                   s.d_state)
@@ -283,19 +344,20 @@ def ssd_cases(batch_shapes, cfg):
              for B, T, Hh, Pp, Gg, Nn, c in [      # tests/test_kernels.py
                  (1, 32, 2, 8, 1, 8, 8),
                  (2, 64, 4, 16, 2, 16, 16),
-                 (1, 50, 4, 8, 1, 8, 16)]]          # unaligned T
-    cases.append(("state0 B2 T50 H4 P16 G2 N16 chunk 16", 2, 50, 4, 16, 2,
-                  16, 16, "bthp", "random"))
-    cases.append(("state0 full width B2 T129", 2, 129, H, P, G, N, s.chunk,
-                  "conv", "random"))           # two chunks, the second of 1
-    cases.append(("state0 full width B1 T1000", 1, 1000, H, P, G, N, s.chunk,
-                  "conv", "random"))           # 8 chunks, ragged
+                 (1, 50, 4, 8, 1, 8, 16)]] if oracle else []
+    cases.append((f"state0 B2 T50 H4 P16 G2 N{N if N != 128 else 16} "
+                  "chunk 16", 2, 50, 4, 16, 2, N if N != 128 else 16, 16,
+                  "bthp", "random"))
+    cases.append((f"state0 {label}full width B2 T129", 2, 129, H, P, G, N,
+                  s.chunk, "conv", "random"))  # two chunks, the second of 1
+    cases.append((f"state0 {label}full width B1 T1000", 1, 1000, H, P, G, N,
+                  s.chunk, "conv", "random"))  # 8 chunks, ragged
     # the main path's prefills: views of the conv output, zero state0
     for B, T, _ in batch_shapes:
-        cases.append((f"serve prefill B{B} T{T}", B, T, H, P, G, N, s.chunk,
-                      "conv", "zeros"))
-    cases.append(("prefill 4k B1 T4096", 1, 4096, H, P, G, N, s.chunk,
-                  "conv", "zeros"))             # 32 chunks: the carry
+        cases.append((f"serve {label}prefill B{B} T{T}", B, T, H, P, G, N,
+                      s.chunk, "conv", "zeros"))
+    cases.append((f"{label}prefill 4k B1 T4096", 1, 4096, H, P, G, N,
+                  s.chunk, "conv", "zeros"))   # 32 chunks: the carry
     return cases
 
 
@@ -363,7 +425,7 @@ def run_ssd_checks(torch, ssd_kernel, ssd, ssd_chunked, launched_kernels,
             rel_y, rel_st = ssd_rel_errs(y, st, ref_y, ref_st)
             ok = (bool(torch.isfinite(y).all()) and rel_y <= SSD_TOL
                   and rel_st <= SSD_TOL)
-            print(f"  {name:40s} {dname:9s} {path:8s} "
+            print(f"  {name:46s} {dname:9s} {path:8s} "
                   f"{len(launched)} launches, y err {rel_y:.3e} "
                   f"state err "
                   f"{rel_st:.3e} x max (tol {SSD_TOL:g}) "
@@ -397,7 +459,8 @@ def first_layers(params, n):
 
 
 def unit_score_scale(params, cfg):
-    """The parameters with ``wq`` and ``wk`` scaled by head_dim**-0.5.
+    """The parameters with ``wq`` and ``wk`` scaled by head_dim**-0.5 (in
+    the hybrid, those of the shared attention block).
 
     The init rule (std 1/sqrt(shape[-2]), the heads dim of ``wq``) gives
     attention scores of std d_model / n_heads = 64 here, so softmax is
@@ -406,32 +469,46 @@ def unit_score_scale(params, cfg):
     std the model is well conditioned, and a card-vs-CPU gap at full depth
     measures the code, not the init."""
     s = cfg.resolved_head_dim() ** -0.5
-    attn = dict(params["blocks"]["attn"])
+    key = "shared_attn" if cfg.family == "hybrid" else "blocks"
+    attn = dict(params[key]["attn"])
     attn["wq"], attn["wk"] = attn["wq"] * s, attn["wk"] * s
-    return {**params, "blocks": {**params["blocks"], "attn": attn}}
+    return {**params, key: {**params[key], "attn": attn}}
 
 
 def model_reference_check(torch, build_model, cfg, params, B, T, steps, tol,
-                          label, cache_dtype=None):
+                          label, cache_dtype=None, extra=None,
+                          step_extra=None, check_tol=True):
     """Prefill then teacher-forced decode steps with the same weights on the
     card (kernel) and on the CPU (plain attention); logits must agree to
-    ``tol`` x max|logit|.  Greedy tokens are not compared: with random
-    weights the largest logit may change on rounding."""
+    ``tol`` x max|logit| (with ``check_tol`` False the gap is only
+    measured).  ``extra``: more prefill inputs (CPU tensors: vision
+    embeddings, positions), which add to the cached length;
+    ``step_extra(s)``: more inputs of decode step s.  Greedy tokens are not
+    compared: with random weights the largest logit may change on
+    rounding."""
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (B, T), generator=gen)
     forced = torch.randint(0, cfg.vocab, (steps, B, 1), generator=gen)
     cache_kw = {} if cache_dtype is None else {"cache_dtype": cache_dtype}
+    extra = extra or {}
+    n = T + (extra["vision_embeds"].shape[1] if "vision_embeds" in extra
+             else 0)
     logits = {}
     for dev in ("cuda", "cpu"):
         p = to_device(params, dev)
-        caches = model.init_caches(B, T + steps, device=dev, **cache_kw)
+        caches = model.init_caches(B, n + steps, device=dev, **cache_kw)
         with torch.inference_mode():
-            out, caches = model.prefill(p, {"tokens": prompt.to(dev)}, caches)
+            out, caches = model.prefill(
+                p, {"tokens": prompt.to(dev),
+                    **{k: v.to(dev) for k, v in extra.items()}}, caches)
             outs = [out.float().cpu()]
             for s in range(steps):
-                out, caches = model.decode(p, {"tokens": forced[s].to(dev)},
-                                           caches, T + s)
+                more = step_extra(s) if step_extra else {}
+                out, caches = model.decode(
+                    p, {"tokens": forced[s].to(dev),
+                        **{k: v.to(dev) for k, v in more.items()}},
+                    caches, n + s)
                 outs.append(out.float().cpu())
         logits[dev] = outs
         del p, caches
@@ -440,10 +517,12 @@ def model_reference_check(torch, build_model, cfg, params, B, T, steps, tol,
         check(bool(torch.isfinite(a).all()), f"{label}: non-finite logits")
         rel = float((a - b).abs().max() / b.abs().max())
         worst = max(worst, rel)
-        check(rel <= tol, f"{label}: card vs CPU logits differ by {rel:.3e} "
-                          f"x max|logit| (tol {tol})")
+        check(rel <= tol or not check_tol,
+              f"{label}: card vs CPU logits differ by {rel:.3e} "
+              f"x max|logit| (tol {tol})")
     print(f"  {label}: card vs CPU logits max err {worst:.3e} x max|logit| "
-          f"(tol {tol})", flush=True)
+          f"({'tol' if check_tol else 'measured only; the bar is'} {tol})",
+          flush=True)
     return worst
 
 
@@ -610,11 +689,13 @@ def bound(B, Hq, Hkv, Sq, D, causal, kv_len, q_offset, elem, flops_peak):
 
 
 def run_timings(torch, kernel, mha, attention_ref, sdpa, serve_batch, H,
-                D):
-    """bf16 at the main path's first batch (its prefill and its last decode
-    step), a 4k prefill and a 32k decode.  At each shape the kernel and SDPA
-    are first held against the plain version (bf16 bar), and the path the
-    launcher takes is recorded."""
+                D, Hkv=None, label=""):
+    """bf16 at a main path's first batch (its prefill and its last decode
+    step), a 4k prefill and a 32k decode, at ``H`` query and ``Hkv`` kv
+    heads of ``D``; shapes named with ``label``.  At each shape the kernel
+    and SDPA are first held against the plain version (bf16 bar), and the
+    path the launcher takes is recorded."""
+    Hkv = H if Hkv is None else Hkv
     B0, T0, steps0 = serve_batch
     Sk0 = T0 + steps0
     shapes = [  # name, B, Sq, Sk, kv_len, q_offset, causal
@@ -625,8 +706,9 @@ def run_timings(torch, kernel, mha, attention_ref, sdpa, serve_batch, H,
     ]
     rows = []
     for name, B, Sq, Sk, kv_len, q_off, causal in shapes:
+        name = label + name
         dtype = torch.bfloat16
-        q, k, v = make_inputs(torch, B, H, H, Sq, Sk, D, dtype, "cache", 7)
+        q, k, v = make_inputs(torch, B, H, Hkv, Sq, Sk, D, dtype, "cache", 7)
         qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
         def kern():
@@ -647,6 +729,8 @@ def run_timings(torch, kernel, mha, attention_ref, sdpa, serve_batch, H,
             kw = {"is_causal": True}
         else:
             kw = {"attn_mask": mask}
+        if Hkv != H:
+            kw["enable_gqa"] = True
 
         def lib():
             return sdpa(qc, kc, vc, **kw)
@@ -659,11 +743,11 @@ def run_timings(torch, kernel, mha, attention_ref, sdpa, serve_batch, H,
               f"kernel disagrees with its plain version at {name}: "
               f"max_abs_err {err}")
         del ref, diff
-        path, splits = kernel.plan(dtype, B, H, H, Sq, kv_len,
+        path, splits = kernel.plan(dtype, B, H, Hkv, Sq, kv_len,
                                    kernel.sm_count(q.device.index))
-        b_ms, b_by = bound(B, H, H, Sq, D, causal, kv_len, q_off, 2,
+        b_ms, b_by = bound(B, H, Hkv, Sq, D, causal, kv_len, q_off, 2,
                            BF16_FLOPS)
-        row = {"shape": name, "B": B, "H": H, "Sq": Sq, "Sk": Sk,
+        row = {"shape": name, "B": B, "H": H, "Hkv": Hkv, "Sq": Sq, "Sk": Sk,
                "kv_len": kv_len, "q_offset": q_off, "D": D, "dtype": "bfloat16",
                "path": path, "splits": splits, "max_abs_err": err,
                "ms": device_ms(torch, kern),
@@ -673,9 +757,9 @@ def run_timings(torch, kernel, mha, attention_ref, sdpa, serve_batch, H,
                "plain_host_ms": host_ms(torch, plain),
                "library_host_ms": host_ms(torch, lib),
                "bound_ms": b_ms, "bound_by": b_by}
-        print(f"  {name:14s} {path} (splits {splits}), max_abs_err "
+        print(f"  {name:27s} {path} (splits {splits}), max_abs_err "
               f"{err:.3e} (tol {tol:g})", flush=True)
-        print(f"  {name:14s} device: kernel {row['ms']:9.4f} ms  plain "
+        print(f"  {name:27s} device: kernel {row['ms']:9.4f} ms  plain "
               f"{row['plain_ms']:9.4f} ms  sdpa {row['library_ms']:9.4f} ms  "
               f"bound {b_ms:9.4f} ms ({b_by}); host per call: kernel "
               f"{row['host_ms']:9.4f} ms  plain {row['plain_host_ms']:9.4f} ms"
@@ -739,18 +823,20 @@ def check_launches(launched_kernels, fn, pl, what):
 
 
 def run_ssd_timings(torch, ssd_kernel, ssd, ssd_chunked, launched_kernels,
-                    cfg, serve_batch):
+                    cfg, serve_batch, label=""):
     """bf16 x/B/C as the model passes them (views of the conv output, zero
-    state0), at the main path's first prefill and at a 4k prefill.  At
-    each shape the kernel is first held against the plain version
-    (``SSD_TOL``), and its path and its device launches per call, as the
-    driver records them, are recorded."""
+    state0), at a main path's first prefill and at a 4k prefill, at
+    ``cfg``'s widths; shapes named with ``label``.  At each shape the
+    kernel is first held against the plain version (``SSD_TOL``), and its
+    path and its device launches per call, as a captured CUDA graph records
+    them, are recorded."""
     s = cfg.ssm
     H, P, G, N = (s.n_ssm_heads(cfg.d_model), s.head_dim, s.n_groups,
                   s.d_state)
     rows = []
-    for name, B, T in [("serve prefill", serve_batch[0], serve_batch[1]),
-                       ("prefill 4k", 1, 4096)]:
+    for name, B, T in [(label + "serve prefill", serve_batch[0],
+                        serve_batch[1]),
+                       (label + "prefill 4k", 1, 4096)]:
         x, dt, a, B_, C_, s0 = ssd_inputs(torch, B, T, H, P, G, N,
                                           torch.bfloat16, "conv", "zeros", 7)
 
@@ -786,15 +872,15 @@ def run_ssd_timings(torch, ssd_kernel, ssd, ssd_chunked, launched_kernels,
                "plain_host_ms": host_ms(torch, plain),
                "bound_ms": b_ms, "bound_by": b_by,
                "kernels_ms": {k: per_launch.get(k) for k in launched}}
-        print(f"  {name:14s} B{B} T{T}: {pl.path}, {len(launched)} launches "
+        print(f"  {name:20s} B{B} T{T}: {pl.path}, {len(launched)} launches "
               "a call (as the driver records them), "
               f"y err {rel_y:.3e}, state err {rel_st:.3e} x max "
               f"(tol {SSD_TOL:g})", flush=True)
-        print(f"  {name:14s} B{B} T{T}: device: kernel {row['ms']:9.4f} ms "
+        print(f"  {name:20s} B{B} T{T}: device: kernel {row['ms']:9.4f} ms "
               f" plain {row['plain_ms']:9.4f} ms  bound {b_ms:9.4f} ms "
               f"({b_by}); host per call: kernel {row['host_ms']:9.4f} ms  "
               f"plain {row['plain_host_ms']:9.4f} ms", flush=True)
-        print(f"  {name:14s} B{B} T{T}: device ms per launch by kernel "
+        print(f"  {name:20s} B{B} T{T}: device ms per launch by kernel "
               "(torch.profiler): " + ", ".join(
                   f"{k} {v:.4f}" if v is not None else f"{k} not recorded"
                   for k, v in row["kernels_ms"].items()), flush=True)
@@ -805,13 +891,14 @@ def run_ssd_timings(torch, ssd_kernel, ssd, ssd_chunked, launched_kernels,
 
 
 def prefill_decode_consistency(torch, build_model, cfg, params, B, T, tol,
-                               label, device="cuda"):
+                               label, device="cuda", check_tol=True):
     """The last logits of a prefill over T + 1 tokens against a prefill
-    over T tokens and one decode step, to ``tol`` x max|logit|.  With
-    T = chunk the long prefill ends in a chunk of one token, so on the card
-    the kernel's ragged edge and carried state meet the decode recurrence;
-    on the CPU (``device="cpu"``) the same check runs without the kernel
-    and shows how far fp32 rounding alone moves it."""
+    over T tokens and one decode step, to ``tol`` x max|logit| (with
+    ``check_tol`` False only measured).  With T = chunk the long prefill
+    ends in a chunk of one token, so on the card the kernel's ragged edge
+    and carried state meet the decode recurrence; on the CPU
+    (``device="cpu"``) the same check runs without the kernel and shows
+    how far fp32 rounding alone moves it."""
     model = build_model(cfg)
     params = to_device(params, device)
     gen = torch.Generator().manual_seed(5)
@@ -829,9 +916,11 @@ def prefill_decode_consistency(torch, build_model, cfg, params, B, T, tol,
           f"{label}: non-finite logits")
     rel = float((full - dec).abs().max() / full.abs().max())
     print(f"  {label}, {device}: prefill {T + 1} against prefill {T} + 1 "
-          f"decode step: {rel:.3e} x max|logit| (tol {tol})", flush=True)
-    check(rel <= tol, f"{label}, {device}: {rel:.3e} x max|logit| "
-                      f"(tol {tol})")
+          f"decode step: {rel:.3e} x max|logit| "
+          f"({'tol' if check_tol else 'measured only; the bar is'} {tol})",
+          flush=True)
+    check(rel <= tol or not check_tol,
+          f"{label}, {device}: {rel:.3e} x max|logit| (tol {tol})")
     return rel
 
 
@@ -849,6 +938,143 @@ def check_served(summary, cfg, n_requests, max_new):
     for r in summary["done"]:
         check(len(r.out) == max_new and all(0 <= t < cfg.vocab for t in r.out),
               f"request {r.rid}: tokens {r.out}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the other serving configs at full width
+# ---------------------------------------------------------------------------
+#: the serving configs of phase 11, in the order they are served
+SERVE_ARCHS = ["qwen2-7b", "qwen2-vl-7b", "stablelm-12b", "starcoder2-15b",
+               "zamba2-1.2b"]
+#: qwen2-vl-7b's vision check: a patch grid of VISION_GRID x VISION_GRID
+VISION_GRID = 8
+
+
+def vision_inputs(torch, cfg, B, T):
+    """``B`` rows of VISION_GRID**2 vision embeddings (CPU generator, seed
+    6) then ``T`` text tokens, with Qwen2-VL's (temporal, h, w) ids: the
+    grid at temporal 0, then text whose three ids all start one past the
+    grid's largest (row b's start moved 3 ids later per row, so the rows'
+    decode offsets differ).  Returns (prefill extras, step_extra)."""
+    g = VISION_GRID
+    gen = torch.Generator().manual_seed(6)
+    vis = torch.randn(B, g * g, cfg.d_model, generator=gen)
+    i = torch.arange(g * g)
+    grid = torch.stack([torch.zeros_like(i), i // g, i % g], -1)
+    starts = g + 3 * torch.arange(B)
+    text = (starts[:, None] + torch.arange(T))[..., None].expand(B, T, 3)
+    pos = torch.cat([grid[None].expand(B, g * g, 3), text], 1)
+
+    def step(s):
+        return {"positions": (starts + T + s)[:, None, None].expand(B, 1, 3)}
+    return {"vision_embeds": vis, "positions": pos.contiguous()}, step
+
+
+def serve_config(torch, serve, kernel, ssd_kernel, build_model, cfg,
+                 n_requests, max_new, batch_shapes):
+    """One config of phase 11: ``serve.main`` at full width with its
+    launch counts, a profile of its decode steps, and its card-against-CPU
+    checks; the model is freed before it returns."""
+    arch, hybrid = cfg.arch, cfg.family == "hybrid"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.LAUNCHES = ssd_kernel.LAUNCHES = 0
+    summary = serve.main(["--arch", arch, "--requests", str(n_requests),
+                          "--max-new", str(max_new)])
+    flash, ssd_n = kernel.LAUNCHES, ssd_kernel.LAUNCHES
+    loop = summary.pop("loop")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    prefills = summary["prefills"]
+    forwards = prefills + summary["decode_steps"]
+    per_forward = (cfg.n_layers // cfg.hybrid_attn_every if hybrid
+                   else cfg.n_layers)
+    ssd_want = cfg.n_layers * prefills if hybrid else 0
+    print(f"  {arch}: requests {summary['requests']}, tokens "
+          f"{summary['tokens']}, wall {summary['seconds']:.3f} s, median "
+          f"decode step {summary['median_step_ms']:.3f} ms, peak memory "
+          f"{peak_gb:.2f} GB of {card_gb:.2f}, flash launches {flash} = "
+          f"{per_forward} x {forwards} forwards, SSD launches {ssd_n} = "
+          f"{ssd_want}", flush=True)
+    check_served(summary, cfg, n_requests, max_new)
+    check(loop.batch_shapes == batch_shapes,
+          f"{arch}: served batches {loop.batch_shapes}, checked "
+          f"{batch_shapes}")
+    check(flash > 0 and flash == per_forward * forwards,
+          f"{arch}: flash kernel launched {flash} times, expected "
+          f"{per_forward} x {forwards}")
+    check(ssd_n == ssd_want, f"{arch}: SSD kernel launched {ssd_n} times, "
+                             f"expected {ssd_want}")
+    check(peak_gb < card_gb, f"{arch}: peak memory {peak_gb:.2f} GB")
+    print(f"  {arch}: profile of decode steps (torch.profiler)", flush=True)
+    prof = profile_serve(torch, loop, kernel, "flash_fwd", "flash",
+                         *batch_shapes[0][:2])
+    f32, c32 = cfg.with_(dtype=torch.float32), {"cache_dtype": torch.float32}
+    errs = {}
+    if hybrid:
+        # the 2 layers of the tail, and one super-unit (6 Mamba-2 layers and
+        # the shared block): the cuts that hold no and one attention
+        errs["2 layers"] = model_reference_check(
+            torch, build_model, f32.with_(n_layers=2),
+            first_layers(loop.params, 0), 2, 6, 2, 1e-4,
+            f"{arch} full width 2 layers (the tail) float32", **c32)
+        one_unit = {k: v for k, v in first_layers(loop.params, 1).items()
+                    if k != "tail_blocks"}
+        errs["6 layers"] = model_reference_check(
+            torch, build_model, f32.with_(n_layers=cfg.hybrid_attn_every),
+            one_unit, 2, 6, 2, 1e-4,
+            f"{arch} full width 6 layers (one super-unit) float32", **c32)
+        scaled = unit_score_scale(loop.params, cfg)
+        errs["38 layers, init weights (measured)"] = model_reference_check(
+            torch, build_model, f32, loop.params, 2, 6, 2, 1e-4,
+            f"{arch} full width 38 layers float32", check_tol=False, **c32)
+        errs["38 layers, unit score scale"] = model_reference_check(
+            torch, build_model, f32, scaled, 2, 6, 2, 1e-4,
+            f"{arch} full width 38 layers float32, unit score scale", **c32)
+        for dev in ("cuda", "cpu"):
+            errs[f"prefill 129 vs 128 + decode, init weights, {dev} "
+                 "(measured)"] = prefill_decode_consistency(
+                torch, build_model, f32, loop.params, 2, cfg.ssm.chunk, 1e-4,
+                f"{arch} full width 38 layers float32", device=dev,
+                check_tol=False)
+            errs[f"prefill 129 vs 128 + decode, unit score scale, {dev}"] = \
+                prefill_decode_consistency(
+                    torch, build_model, f32, scaled, 2, cfg.ssm.chunk, 1e-4,
+                    f"{arch} full width 38 layers float32, unit score scale",
+                    device=dev)
+        del scaled
+    else:
+        errs["2 layers"] = model_reference_check(
+            torch, build_model, f32.with_(n_layers=2),
+            first_layers(loop.params, 2), 2, 6, 2, 1e-4,
+            f"{arch} full width 2 layers float32", **c32)
+    if cfg.mrope:
+        # 70 positions of near one-hot attention: with the init's weights
+        # fp32 rounding alone moves the logits to ~1e-4 (the CPU against
+        # itself in float64, tests/test_torch_families.py), so the bar is
+        # held at unit score variance and the init's gap is measured
+        extra, step = vision_inputs(torch, cfg, 2, 6)
+        two = f32.with_(n_layers=2)
+        what = (f"{arch} full width 2 layers float32, {VISION_GRID ** 2} "
+                "vision embeddings and M-RoPE positions, per-row decode "
+                "offsets")
+        errs["2 layers, vision, init weights (measured)"] = \
+            model_reference_check(
+                torch, build_model, two, first_layers(loop.params, 2), 2, 6,
+                2, 1e-4, what, extra=extra, step_extra=step, check_tol=False,
+                **c32)
+        errs["2 layers, vision, unit score scale"] = model_reference_check(
+            torch, build_model, two,
+            unit_score_scale(first_layers(loop.params, 2), cfg), 2, 6, 2,
+            1e-4, what + ", unit score scale", extra=extra, step_extra=step,
+            **c32)
+    del loop, summary["done"]
+    torch.cuda.empty_cache()
+    return {"serve": summary, "batch_shapes": batch_shapes,
+            "peak_memory_gb": peak_gb, "card_memory_gb": card_gb,
+            "flash_launches": flash, "ssd_launches": ssd_n,
+            "forwards": forwards, "profile": prof, "model_rel_err": errs,
+            "params": cfg.param_count()}
 
 
 # ---------------------------------------------------------------------------
@@ -1982,6 +2208,10 @@ def main() -> int:
     n_requests, max_new = 8, 12
     batch_shapes = serve_batches(serve, cfg.vocab, n_requests, max_new)
     mbatch_shapes = serve_batches(serve, mcfg.vocab, n_requests, max_new)
+    scfgs = {a: get_config(a) for a in SERVE_ARCHS}
+    sbatch_shapes = {a: serve_batches(serve, c.vocab, n_requests, max_new)
+                     for a, c in scfgs.items()}
+    zcfg, lcfg = scfgs["zamba2-1.2b"], scfgs["stablelm-12b"]
 
     t_start = time.time()
     print("== phase 1: card", flush=True)
@@ -2006,15 +2236,24 @@ def main() -> int:
         print(_build.build_log(src).strip(), flush=True)
 
     print("== phase 3: flash kernel against its plain version; stablelm "
-          f"serve batches (B, T, steps) {batch_shapes}", flush=True)
+          f"serve batches (B, T, steps) {batch_shapes}; the serve batches of "
+          + ", ".join(f"{a} {sbatch_shapes[a]}" for a in SERVE_ARCHS),
+          flush=True)
+    more_serve = [c for a, sc in scfgs.items() for c in serve_cases(
+        sbatch_shapes[a], sc.n_heads, sc.resolved_head_dim(),
+        Hkv=sc.n_kv_heads, label=f"{a} ", per_row=sc.mrope)]
     checks = run_kernel_checks(torch, kernel, mha, attention_ref,
-                               kernel_cases(batch_shapes, H, D))
+                               kernel_cases(batch_shapes, H, D, more_serve))
 
     print("== phase 3b: SSD kernel against its plain version; mamba2 serve "
-          f"batches (B, T, steps) {mbatch_shapes}", flush=True)
-    ssd_checks = run_ssd_checks(torch, ssd_kernel, ssd, ssd_chunked,
-                                launched_kernels,
-                                ssd_cases(mbatch_shapes, mcfg))
+          f"batches (B, T, steps) {mbatch_shapes}, zamba2 "
+          f"{sbatch_shapes['zamba2-1.2b']} (N {zcfg.ssm.d_state})",
+          flush=True)
+    ssd_checks = run_ssd_checks(
+        torch, ssd_kernel, ssd, ssd_chunked, launched_kernels,
+        ssd_cases(mbatch_shapes, mcfg)
+        + ssd_cases(sbatch_shapes["zamba2-1.2b"], zcfg, label="zamba2 ",
+                    oracle=False))
 
     print("== phase 4: main path, stablelm-1.6b at full width", flush=True)
     torch.cuda.reset_peak_memory_stats()
@@ -2069,11 +2308,16 @@ def main() -> int:
     del loop, summary["done"]
     torch.cuda.empty_cache()
 
-    print("== phase 7: kernel timing (bf16, D 64; device time from CUDA "
-          "graph replays, host time from back-to-back calls)", flush=True)
-    rows = run_timings(torch, kernel, mha, attention_ref,
-                       torch.nn.functional.scaled_dot_product_attention,
+    print("== phase 7: kernel timing (bf16, D 64, then stablelm-12b's D 160 "
+          "with 32 query and 8 kv heads; device time from CUDA graph "
+          "replays, host time from back-to-back calls)", flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = run_timings(torch, kernel, mha, attention_ref, sdpa,
                        batch_shapes[0], H, D)
+    rows += run_timings(torch, kernel, mha, attention_ref, sdpa,
+                        sbatch_shapes["stablelm-12b"][0], lcfg.n_heads,
+                        lcfg.resolved_head_dim(), Hkv=lcfg.n_kv_heads,
+                        label="stablelm-12b ")
 
     print("== phase 4b: main path, mamba2-1.3b at full width", flush=True)
     torch.cuda.empty_cache()
@@ -2153,6 +2397,10 @@ def main() -> int:
           flush=True)
     ssd_rows = run_ssd_timings(torch, ssd_kernel, ssd, ssd_chunked,
                                launched_kernels, mcfg, mbatch_shapes[0])
+    ssd_rows += run_ssd_timings(torch, ssd_kernel, ssd, ssd_chunked,
+                                launched_kernels, zcfg,
+                                sbatch_shapes["zamba2-1.2b"][0],
+                                label="zamba2 ")
 
     print("== phase 8: the estimator path (float64; card against the CPU "
           "at 1e-12)", flush=True)
@@ -2174,13 +2422,39 @@ def main() -> int:
           f"nodes, a {ML_STREAM}-observation observe_batch", flush=True)
     ml = run_ml_phase(torch, smi)
 
+    print("== phase 11: the other serving configs at full width, "
+          f"{n_requests} requests of {max_new} new tokens each: "
+          + ", ".join(SERVE_ARCHS), flush=True)
+    configs = {}
+    for arch in SERVE_ARCHS:
+        print(f"== phase 11: {arch} ({scfgs[arch].param_count():,} "
+              "parameters, float32)", flush=True)
+        configs[arch] = serve_config(torch, serve, kernel, ssd_kernel,
+                                     build_model, scfgs[arch], n_requests,
+                                     max_new, sbatch_shapes[arch])
+    print(f"  {'config':16s} {'tok/s':>8s} {'step ms':>9s} {'busy %':>7s} "
+          f"{'peak GB':>8s} {'flash':>6s} {'SSD':>5s}", flush=True)
+    for arch, r in configs.items():
+        dec = r["profile"]["decode"]
+        print(f"  {arch:16s} {r['serve']['tokens'] / r['serve']['seconds']:8.1f}"
+              f" {r['serve']['median_step_ms']:9.3f} "
+              f"{100 * dec['device_busy_ms_per_step'] / dec['wall_ms_per_step']:7.1f}"
+              f" {r['peak_memory_gb']:8.2f} {r['flash_launches']:6d} "
+              f"{r['ssd_launches']:5d}", flush=True)
+
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
     main_row = next(r for r in rows if r["shape"] == "serve decode")
+    flash_by_path = {"stablelm-1.6b": launches,
+                     **{a: r["flash_launches"] for a, r in configs.items()}}
+    ssd_by_path = {"mamba2-1.3b": ssd_launches,
+                   "zamba2-1.2b": configs["zamba2-1.2b"]["ssd_launches"]}
     entry = {"name": "flash_attention_fwd", "route": "cuda",
              "source": KERNEL_SOURCE, "replaces": REPLACES,
              "replaces_function": "_flash_fwd_kernel",
-             "launches": launches, "max_abs_err": max(serve_errs),
+             "launches": sum(flash_by_path.values()),
+             "launches_by_path": flash_by_path,
+             "max_abs_err": max(serve_errs),
              "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
              "bound_ms": main_row["bound_ms"],
              "bound_by": main_row["bound_by"],
@@ -2193,7 +2467,8 @@ def main() -> int:
     ssd_entry = {"name": "ssd_scan_fwd", "route": "cuda",
                  "source": SSD_SOURCE, "replaces": SSD_REPLACES,
                  "replaces_function": "_ssd_kernel",
-                 "launches": ssd_launches,
+                 "launches": sum(ssd_by_path.values()),
+                 "launches_by_path": ssd_by_path,
                  "max_abs_err": max(ssd_serve_errs),
                  "ms": ssd_row["ms"], "plain_ms": ssd_row["plain_ms"],
                  "bound_ms": ssd_row["bound_ms"],
@@ -2211,7 +2486,7 @@ def main() -> int:
                          "prefill_ms": prefill_ms, "profile": mprofile,
                          "model_rel_err": mmodel_errs},
               "estimator": estimator, "online": online, "fleet": fleet,
-              "ml": ml,
+              "ml": ml, "serving_configs": configs,
               "card": smi, "seconds": time.time() - t_start}
     out_dir = ROOT / "build" / "reports"
     out_dir.mkdir(parents=True, exist_ok=True)

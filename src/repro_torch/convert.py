@@ -50,17 +50,21 @@ def params_from_jax(tree, cfg: ModelConfig, *, device=None) -> dict:
 
 def caches_from_jax(tree, cfg: ModelConfig, *, device=None,
                     cache_dtype=torch.bfloat16) -> dict:
-    """A JAX cache tree (numpy leaves) as the port's caches: dense
-    {"blocks": {"k", "v": (L, B, Tmax, Hkv, hd)}}, ssm {"blocks":
-    {"conv": (L, B, k-1, conv_ch), "state": (L, B, H, P, N)}}.  The batch
-    size (and for dense the cache length) comes from the family's own
-    leaves; the ssm state stays float32."""
+    """A JAX cache tree (numpy leaves) as the port's caches (the trees of
+    ``Model.init_caches``).  The batch size (and where there is a KV cache,
+    its length) comes from the family's own leaves: ssm from
+    ``blocks/state``, hybrid from ``blocks/ssm/state`` and
+    ``blocks/attn/k``, dense and vlm from ``blocks/k``; the ssm state stays
+    float32."""
+    blocks = tree["blocks"]
     if cfg.family == "ssm":
-        batch = np.shape(tree["blocks"]["state"])[1]
-        defs = cache_def(cfg, batch, 0, cache_dtype)
+        batch, max_len = np.shape(blocks["state"])[1], 0
+    elif cfg.family == "hybrid":
+        batch = np.shape(blocks["ssm"]["state"])[2]
+        max_len = np.shape(blocks["attn"]["k"])[2]
     else:
-        k_shape = np.shape(tree["blocks"]["k"])
-        defs = cache_def(cfg, k_shape[1], k_shape[2], cache_dtype)
+        batch, max_len = np.shape(blocks["k"])[1:3]
+    defs = cache_def(cfg, batch, max_len, cache_dtype)
     return _carry(tree, defs, resolve_device(device))
 
 

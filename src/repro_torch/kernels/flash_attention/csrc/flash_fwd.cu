@@ -7,10 +7,16 @@
 // on operands of the input type with fp32 accumulation, P rounded to v's
 // type before PV; GQA/MQA through kv head ``h / (Hq / Hkv)``; a ``kv_len``
 // mask for padded caches; rows that see no key give 0.  One runtime
-// argument is added for the model path: ``q_offset``, the absolute
+// argument is added for the model path: the query offset, the absolute
 // position of query row 0, so that the causal test is
-// ``k_pos <= q_offset + q_row`` (0 gives the TPU kernel exactly).  q, k,
-// v and o are strided (B, S, H, D) or (B, H, S, D) views, read in place.
+// ``k_pos <= q_offset + q_row`` (0 gives the TPU kernel exactly).  It is
+// one ``q_offset`` for every batch row, or, where ``q_offsets`` is not
+// null, ``q_offsets[b]`` for row b (the JAX model's M-RoPE attention masks
+// with each row's first temporal position id, which may differ by row); a
+// block reads its row's offset once.  q, k, v and o are strided
+// (B, S, H, D) or (B, H, S, D) views, read in place.  Head dims: 32, 64,
+// 128 and 160 (stablelm-12b); 160 is no power of two, and every loop
+// over D steps in 8 or 16 elements, which divide it.
 //
 // Three paths.  The wrapper (../kernel.py, ``plan``) picks one by a plain
 // rule on dtype and shape and passes it in ``path``; none is a fallback:
@@ -25,7 +31,8 @@
 //          owns MT m-tiles of 16 rows: MT = 2 (128 rows a block) for
 //          D <= 64 and Sq > 64, so that each K and V fragment read from
 //          shared memory feeds two products; else MT = 1 (64 rows), which
-//          keeps a D 128 warp's accumulators in registers;
+//          keeps a D 128 or D 160 warp's accumulators in registers (D 160:
+//          105 KB of shared memory a block, two blocks an SM);
 //        * S = Q K^T and O += P V as mma.sync.m16n8k16 with bf16 operands
 //          and fp32 accumulators; fragments come from shared memory
 //          through ldmatrix (.trans for V); Q is loaded once per block and
@@ -56,7 +63,10 @@
 //          whole 64-key tiles of ``kv_len``;
 //        * 4 warps, 16 keys each per tile, two lanes per key (each half
 //          of D); tiles stream through a 3-stage cp.async ring, so two
-//          tiles are in flight while one is used;
+//          tiles are in flight while one is used.  float32 at D 160 takes
+//          a 2-stage ring: three stages of (K, V) x 64 keys x pitch 164 x
+//          4 bytes are 251,904 bytes, past the 232,448 a block may have;
+//          two are 167,936 (``decode_stages``);
 //        * the warps' softmax states are merged in shared memory; with
 //          one split the block writes the output (no scratch, no second
 //          launch), otherwise it writes (max, sum, fp32 accumulator) to
@@ -97,6 +107,7 @@ struct Params {
   const void* v;
   void* o;
   float* scratch;                       // decode partials (splits > 1)
+  const int* q_offsets;                 // (B,) per-row offsets, or null
   long long q_sb, q_ss, q_sh;           // element strides of (b, s, h)
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -251,6 +262,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_fp32(const Params p) {
   const int q0 = blockIdx.x * bq;
   const int hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / (p.hq / p.hkv);
+  const int q_offset = p.q_offsets ? p.q_offsets[b] : p.q_offset;
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);
@@ -273,14 +285,14 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_fp32(const Params p) {
 
   // Keys this block needs at all.
   int kv_end = p.kv_len;
-  if (p.causal) kv_end = min(kv_end, p.q_offset + min(q0 + bq, p.sq));
+  if (p.causal) kv_end = min(kv_end, q_offset + min(q0 + bq, p.sq));
 
   // This warp's rows and the key limit of each.
   int lim[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int qr = q0 + g * R + r;
-    lim[r] = p.causal ? min(p.kv_len, p.q_offset + qr + 1) : p.kv_len;
+    lim[r] = p.causal ? min(p.kv_len, q_offset + qr + 1) : p.kv_len;
   }
 
   float m[R], l[R], acc[R][DPL];
@@ -438,6 +450,7 @@ cudaError_t launch_fp32_d(const Params& p, int B, int D, cudaStream_t stream) {
     case 32: return launch_fp32<T, 32, R>(p, B, stream);
     case 64: return launch_fp32<T, 64, R>(p, B, stream);
     case 128: return launch_fp32<T, 128, R>(p, B, stream);
+    case 160: return launch_fp32<T, 160, R>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -488,6 +501,7 @@ __global__ void __launch_bounds__(kPrefillWarps * 32, 2) flash_fwd_prefill_mma(c
   const int hq = blockIdx.x % p.hq, b = blockIdx.x / p.hq;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;    // last tile first
   const int hk = hq / (p.hq / p.hkv);
+  const int q_offset = p.q_offsets ? p.q_offsets[b] : p.q_offset;
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
@@ -500,13 +514,13 @@ __global__ void __launch_bounds__(kPrefillWarps * 32, 2) flash_fwd_prefill_mma(c
   // Keys the block needs, keys the warp needs, and keys that no row of the
   // warp masks.
   int kv_end = p.kv_len;
-  if (p.causal) kv_end = min(kv_end, p.q_offset + min(q0 + BQ, p.sq));
+  if (p.causal) kv_end = min(kv_end, q_offset + min(q0 + BQ, p.sq));
   const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
   const int w0 = q0 + warp * WR;
   const bool active = w0 < p.sq;
   const int warp_end =
-      p.causal ? min(p.kv_len, p.q_offset + min(w0 + WR, p.sq)) : p.kv_len;
-  const int warp_full = p.causal ? min(p.kv_len, p.q_offset + w0 + 1) : p.kv_len;
+      p.causal ? min(p.kv_len, q_offset + min(w0 + WR, p.sq)) : p.kv_len;
+  const int warp_full = p.causal ? min(p.kv_len, q_offset + w0 + 1) : p.kv_len;
   // This lane's rows: g and g + 8 of each m-tile, and their key limits.
   int lim[MT][2];
 #pragma unroll
@@ -514,7 +528,7 @@ __global__ void __launch_bounds__(kPrefillWarps * 32, 2) flash_fwd_prefill_mma(c
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = w0 + mt * 16 + g + h * 8;
-      lim[mt][h] = p.causal ? min(p.kv_len, p.q_offset + row + 1) : p.kv_len;
+      lim[mt][h] = p.causal ? min(p.kv_len, q_offset + row + 1) : p.kv_len;
     }
 
   // Q rows past Sq are zero-filled in place.
@@ -709,12 +723,13 @@ cudaError_t launch_prefill(const Params& p, int B, cudaStream_t stream) {
 cudaError_t launch_prefill_d(const Params& p, int B, int D, cudaStream_t stream) {
   // Two m-tiles a warp (128 rows a block) where the fragments fit in
   // registers and the rows fill them; one (64 rows) for short prompts and
-  // for D 128.
+  // for D 128 and 160.
   const bool wide = p.sq > 64;
   switch (D) {
     case 32: return wide ? launch_prefill<32, 2>(p, B, stream) : launch_prefill<32, 1>(p, B, stream);
     case 64: return wide ? launch_prefill<64, 2>(p, B, stream) : launch_prefill<64, 1>(p, B, stream);
     case 128: return launch_prefill<128, 1>(p, B, stream);
+    case 160: return launch_prefill<160, 1>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -725,6 +740,13 @@ constexpr int kDecWarps = 4;
 constexpr int kDecThreads = kDecWarps * 32;
 constexpr int kDecStages = 3;
 constexpr int kDecKeys = kBK / kDecWarps;    // keys per warp per tile: 16
+
+// Stages of the decode ring: kDecStages, but two for float32 at D 160,
+// where three do not fit in a block's shared memory (see the header).
+template <typename T, int D>
+__host__ __device__ constexpr int decode_stages() {
+  return sizeof(T) == 4 && D > 128 ? 2 : kDecStages;
+}
 
 // Dynamic shared memory of the decode kernel, floats first:
 //   q_s   [R][D + 8] f32        query rows; each half of D padded by 16 bytes
@@ -739,7 +761,7 @@ __host__ __device__ constexpr size_t decode_smem_floats() {
 template <typename T, int D, int R>
 __host__ __device__ constexpr size_t decode_smem_bytes() {
   return decode_smem_floats<D, R>() * sizeof(float) +
-         (size_t)kDecStages * 2 * kBK * pitch<T, D>() * sizeof(T);
+         (size_t)decode_stages<T, D>() * 2 * kBK * pitch<T, D>() * sizeof(T);
 }
 
 template <typename T, int D, int R>
@@ -750,7 +772,7 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_split(const Para
   constexpr int DH = D / 2;                   // dims of q.k per lane
   constexpr int QP = D + 8;
   constexpr int DPL = D / 32;                 // output dims per lane
-  constexpr int NST = kDecStages;
+  constexpr int NST = decode_stages<T, D>();
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int kl = lane & 15, half = lane >> 4; // two lanes per key
@@ -774,7 +796,8 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_split(const Para
 
   // This split's keys: [k_begin, k_end), whole tiles of kv_len.
   int kv_end = p.kv_len;
-  if (p.causal) kv_end = min(kv_end, p.q_offset + 1);
+  if (p.causal)
+    kv_end = min(kv_end, (p.q_offsets ? p.q_offsets[b] : p.q_offset) + 1);
   const int k_begin = split * p.split_len;
   const int k_end = min(kv_end, k_begin + p.split_len);
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
@@ -971,6 +994,7 @@ cudaError_t launch_decode_d(const Params& p, int B, int D, cudaStream_t stream) 
     case 32: return launch_decode_r<T, 32>(p, B, stream);
     case 64: return launch_decode_r<T, 64>(p, B, stream);
     case 128: return launch_decode_r<T, 128>(p, B, stream);
+    case 160: return launch_decode_r<T, 160>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -984,15 +1008,17 @@ extern "C" {
 // strides: 12 element strides, the (b, s, h) strides of q, k, v and o in
 // that order; the d stride is 1.  splits: key splits of the decode path;
 // with more than one, ``scratch`` holds B * Hq * splits * (D + 2) floats.
-// Returns a cudaError_t (0 on success).
+// q_offsets: null, or B ints on the device, each row's query offset in
+// place of ``q_offset``.  Returns a cudaError_t (0 on success).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* scratch, int path, int dtype, int B, int Hq, int Hkv,
               int Sq, int D, const long long* strides, int kv_len,
-              int q_offset, int causal, float scale, int splits,
-              void* stream) {
+              int q_offset, const int* q_offsets, int causal, float scale,
+              int splits, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.scratch = static_cast<float*>(scratch);
+  p.q_offsets = q_offsets;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];

@@ -18,12 +18,13 @@ import torch
 from .._build import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 160)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the source's paths, by the number its entry takes
 PATHS = {"prefill_mma": 0, "decode_split": 1, "fp32": 2}
 #: decode: keys per tile, stages of the cp.async ring, most query heads per
-#: block; the source's kBK, kDecStages and largest R
+#: block; the source's kBK, kDecStages and largest R (the source gives a
+#: float32 call at D 160 two stages; the split rule keeps three)
 DECODE_TILE, DECODE_STAGES, DECODE_HEADS = 64, 3, 8
 #: decode: blocks to aim for, in waves of one block per SM
 DECODE_WAVES = 2
@@ -64,7 +65,8 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
         + [ctypes.POINTER(ctypes.c_longlong)]
-        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.flash_fwd.restype = ctypes.c_int
     lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_fwd_error_string.restype = ctypes.c_char_p
@@ -114,24 +116,45 @@ def _check(q, k, v) -> None:
                              "aligned")
 
 
+def _row_offsets(q_offset, q: torch.Tensor):
+    """(scalar offset, per-row offsets or None): a (B,) integer tensor on
+    q's device goes to the kernel as contiguous int32 (no copy when it
+    already is one); its values are not read on the host."""
+    if not isinstance(q_offset, torch.Tensor):
+        if q_offset < 0:
+            raise ValueError(f"flash_attention: q_offset={q_offset} must be "
+                             ">= 0")
+        return int(q_offset), None
+    if (q_offset.dim() != 1 or q_offset.shape[0] != q.shape[0]
+            or q_offset.device != q.device
+            or q_offset.dtype not in (torch.int32, torch.int64)):
+        raise ValueError(f"flash_attention: per-row q_offset must be a "
+                         f"({q.shape[0]},) integer tensor on {q.device}, got "
+                         f"{tuple(q_offset.shape)} {q_offset.dtype} on "
+                         f"{q_offset.device}")
+    return 0, q_offset.to(torch.int32).contiguous()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: int | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int | torch.Tensor = 0) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), any strides with stride 1
     in D.  Returns (B, Hq, Sq, D) in q's dtype, laid out like q.
 
-    Key j is seen by query row i iff ``j < kv_len`` and, when causal,
-    ``j <= q_offset + i``.  ``kv_len`` and ``q_offset`` are runtime values:
-    nothing is rebuilt when they change.
+    Key j is seen by query row i of batch row b iff ``j < kv_len`` and,
+    when causal, ``j <= q_offset + i``; ``q_offset`` is an int, or a (B,)
+    integer tensor on q's device with one offset per batch row (each >= 0:
+    the host does not read it).  ``kv_len`` and ``q_offset`` are runtime
+    values: nothing is rebuilt when they change.
     """
     global LAUNCHES
     _check(q, k, v)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     kv_len = Sk if kv_len is None else min(int(kv_len), Sk)
-    if kv_len < 0 or q_offset < 0:
-        raise ValueError(f"flash_attention: kv_len={kv_len}, "
-                         f"q_offset={q_offset} must be >= 0")
+    if kv_len < 0:
+        raise ValueError(f"flash_attention: kv_len={kv_len} must be >= 0")
+    q_offset, rows = _row_offsets(q_offset, q)
     out = torch.empty_like(q)
     strides = []
     for t in (q, k, v, out):
@@ -150,8 +173,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), PATHS[path],
             DTYPES[q.dtype], B, Hq, Hkv, Sq, D,
-            (ctypes.c_longlong * 12)(*strides), kv_len, int(q_offset),
-            int(causal), 1.0 / math.sqrt(D), splits, stream)
+            (ctypes.c_longlong * 12)(*strides), kv_len, q_offset,
+            None if rows is None else rows.data_ptr(), int(causal),
+            1.0 / math.sqrt(D), splits, stream)
     if rc != 0:
         raise RuntimeError("flash_fwd launch failed: "
                            + lib.flash_fwd_error_string(rc).decode())

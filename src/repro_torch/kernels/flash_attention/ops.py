@@ -6,8 +6,9 @@ from .ref import attention_ref
 
 
 def mha(q, k, v, *, causal: bool = True, kv_len: int | None = None,
-        q_offset: int = 0):
+        q_offset=0):
     """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D).  Returns (B, Sq, Hq, D).
+    ``q_offset``: an int, or a (B,) integer tensor of per-row offsets.
 
     A CUDA tensor launches the hand-written kernel (or raises); a CPU
     tensor takes the plain version.  Nothing else picks between them.

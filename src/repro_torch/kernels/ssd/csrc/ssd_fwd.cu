@@ -53,7 +53,10 @@
 //      reads state0 itself.  Each of a, b and d recomputes its chunk's
 //      cumsum with one warp scan.
 //      Products: mma.sync.m16n8k16 bf16 x bf16 -> fp32, fragments through
-//      ldmatrix (.trans where the stored layout is k-major).  C B^T takes
+//      ldmatrix (.trans where the stored layout is k-major).  N is
+//      instantiated at 16 (N 8 and 16), 64 (zamba2's d_state) and 128
+//      (mamba2's); padding N 64 to 128 would double the state work and the
+//      shared memory of every zamba2 prefill.  C B^T takes
 //      bf16 operands as they come and is exact in its products.  The other
 //      three products have one fp32 operand, which is split into bf16
 //      terms, hi = bf16(v), then bf16 of what is left, each term
@@ -357,6 +360,7 @@ cudaError_t launch_fp32_n(const Params& p, int B, cudaStream_t stream) {
   switch (p.N) {
     case 8: return launch_fp32<P, 8>(p, B, stream);
     case 16: return launch_fp32<P, 16>(p, B, stream);
+    case 64: return launch_fp32<P, 64>(p, B, stream);
     case 128: return launch_fp32<P, 128>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -901,8 +905,9 @@ cudaError_t launch_chunked(const Params& p, int B, cudaStream_t stream) {
 
 template <int PP>
 cudaError_t launch_chunked_n(const Params& p, int B, cudaStream_t stream) {
-  return p.N <= 16 ? launch_chunked<PP, 16>(p, B, stream)
-                   : launch_chunked<PP, 128>(p, B, stream);
+  if (p.N <= 16) return launch_chunked<PP, 16>(p, B, stream);
+  if (p.N == 64) return launch_chunked<PP, 64>(p, B, stream);
+  return launch_chunked<PP, 128>(p, B, stream);
 }
 
 // A bf16 view allows 16-byte copies of its rows: unit column stride, and
@@ -933,7 +938,7 @@ int ssd_fwd(const void* x, const float* dt, const float* a, const void* b,
             const long long* strides, void* stream) {
   const int tile = path == 0 ? 16 : 4;
   if (B < 1 || T < 1 || H < 1 || G < 1 || H % G || L < 1 || L > kMaxL ||
-      (P != 8 && P != 16 && P != 64) || (N != 8 && N != 16 && N != 128) ||
+      (P != 8 && P != 16 && P != 64) || (N != 8 && N != 16 && N != 64 && N != 128) ||
       Lp < L || Lp >= L + tile || Lp % tile || Lp > kMaxL ||
       (long long)(n_chunks - 1) * L >= T || (long long)n_chunks * L < T)
     return (int)cudaErrorInvalidValue;

@@ -20,7 +20,7 @@ from .._build import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_fwd.cu"
 HEAD_DIMS = (8, 16, 64)          # P
-STATE_DIMS = (8, 16, 128)        # N
+STATE_DIMS = (8, 16, 64, 128)    # N
 MAX_CHUNK = 128                  # L = min(chunk, T)
 MAX_GRID_Y = 65535
 DTYPES = (torch.float32, torch.bfloat16)

@@ -11,7 +11,16 @@ counts a straggler step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch A --smoke --device cpu
+
+qwen2-vl-7b is served text-only, as the JAX ServeLoop serves it (M-RoPE
+positions are then the arange in all three components).
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Model factory: ModelConfig -> {init, init_caches, prefill, decode}.
 
-Counterpart of ``repro.models.model`` for the dense and ssm families; the
-others raise ``NotImplementedError``.  ``prefill``/``decode`` update the
-caches they are given in place and return them.
+Counterpart of ``repro.models.model`` for the dense, vlm, ssm and hybrid
+families; moe and encdec raise ``NotImplementedError``.
+``prefill``/``decode`` update the caches they are given in place and
+return them.
 """
 from __future__ import annotations
 
@@ -32,10 +33,16 @@ class Model:
                     cache_dtype=torch.bfloat16, device=None) -> dict:
         """Zeroed caches, updated in place by ``prefill`` and ``decode``.
 
-        dense: {"blocks": {"k", "v": (L, B, Tmax, Hkv, hd)}} in
+        dense and vlm: {"blocks": {"k", "v": (L, B, Tmax, Hkv, hd)}} in
         ``cache_dtype``; ssm: {"blocks": {"conv": (L, B, k-1, conv_ch),
         "state": (L, B, H, P, N)}}, the window in ``cache_dtype`` and the
-        state in float32, neither growing with ``max_len``."""
+        state in float32, neither growing with ``max_len``; hybrid:
+        {"blocks": {"ssm": {"conv", "state"} as (U, every, B, ...),
+        "attn": {"k", "v": (U, B, Tmax, Hkv, hd)}}, "tail": {"conv",
+        "state"} as (tail, B, ...)}: U super-units of ``every`` Mamba-2
+        layers, each with its own KV cache for its application of the one
+        shared attention block, and the tail's Mamba-2 layers (no "tail"
+        where ``n_layers`` divides by ``every``)."""
         dev = resolve_device(device)
         defs = _tf.cache_def(self.cfg, batch, max_len, cache_dtype)
         return tree_defs_init(defs, None, dev)

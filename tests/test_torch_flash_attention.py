@@ -21,6 +21,8 @@ SHAPES = [
     (2, 4, 2, 128, 128, 64, True),      # GQA
     (1, 4, 1, 96, 160, 32, False),      # MQA, unaligned, bidir
     (1, 2, 2, 1, 256, 64, False),       # decode shape
+    (1, 4, 2, 70, 70, 160, True),       # stablelm-12b's head dim, GQA
+    (2, 8, 2, 1, 100, 160, False),      # a decode row at head dim 160
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -153,3 +155,32 @@ def test_long_decode_splits_fill_two_waves(B, Hq, Hkv, kv_len):
 def test_decode_splits_stop_at_one_ring_per_split(kv_len, want):
     """One block (B 1, one head): the split count is capped by kv_len."""
     assert kernel.decode_splits(1, 1, 1, kv_len, H100_SMS) == want
+
+
+@pytest.mark.parametrize("Sq,offsets,kv_len", [
+    (1, (9, 40), 41),       # decode rows whose temporal ids differ
+    (5, (0, 20), 25),       # a chunk, each row at its own offset
+    (6, (3, 3), 30),        # equal offsets other than the cache index
+])
+@pytest.mark.parametrize("D", [32, 160])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_per_row_offsets_match_chunked_attention(Sq, offsets, kv_len, D,
+                                                 dtype):
+    """The reference masks each row from its own first position id
+    (``q_offset`` (B,)); the port takes a (B,) integer tensor there, and
+    on the CPU gives what an int per row would."""
+    jdt, tdt, tol = DTYPES[dtype]
+    B, Hq, Hkv, Sk = 2, 4, 2, 64
+    q, k, v = _inputs(7, (B, Sq, Hq, D), (B, Sk, Hkv, D))
+    ref = chunked_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        causal=True, chunk=16, q_offset=jnp.asarray(offsets, jnp.int32),
+        kv_len=kv_len)
+    t = [torch.from_numpy(x).to(tdt) for x in (q, k, v)]
+    out = mha(*t, causal=True, kv_len=kv_len,
+              q_offset=torch.tensor(offsets, dtype=torch.int32))
+    np.testing.assert_allclose(_np(out), _np(ref), atol=tol, rtol=tol)
+    for b, off in enumerate(offsets):
+        row = mha(*(x[b:b + 1] for x in t), causal=True, kv_len=kv_len,
+                  q_offset=off)
+        assert torch.equal(row, out[b:b + 1])

@@ -59,6 +59,16 @@ def _need_card():
     (2, 8, 1, 1, 4096, 128, True, 3000, 2999),  # MQA, D 128, splits
     (1, 16, 2, 1, 1000, 32, False, None, 0),    # GQA 8, D 32, bidir
     (1, 24, 2, 1, 500, 64, True, 500, 499),     # GQA 12: two head chunks
+    # head dim 160 (stablelm-12b) on every path, the float32 split decode
+    # on its 2-stage ring; qwen2's 7 query heads per kv head
+    (1, 8, 2, 70, 70, 160, True, None, 0),      # prefill, ragged tile
+    (2, 8, 2, 130, 300, 160, True, 290, 160),   # 3 q tiles at an offset
+    (1, 4, 4, 33, 90, 160, False, 80, 0),       # bidir, kv_len < Sk
+    (2, 32, 8, 1, 30, 160, True, 30, 29),       # stablelm-12b decode
+    (1, 32, 8, 1, 4096, 160, True, 4096, 4095), # splits merged
+    (1, 8, 1, 1, 4096, 160, True, 3000, 300),   # MQA, empty splits
+    (2, 28, 4, 1, 700, 128, True, 700, 699),    # qwen2: GQA 7
+    (1, 28, 4, 40, 40, 128, True, None, 0),     # qwen2 prefill
 ])
 def test_kernel_matches_plain_version(dtype, B, Hq, Hkv, Sq, Sk, D, causal,
                                       kv_len, q_offset):
@@ -202,6 +212,11 @@ def _ssd_close(out, ref):
     (1, 4096, 8, 64, 1, 128, 128, False),  # serve widths, 32 chunks
     (2, 1000, 8, 64, 1, 128, 128, True),   # 8 chunks, ragged, state0
     (1, 300, 8, 64, 4, 128, 128, True),    # G 4 across 3 chunks
+    # zamba2's N 64, through its own instantiation on both paths
+    (2, 13, 8, 64, 1, 64, 128, True),      # a zamba2 serve prompt
+    (2, 300, 8, 64, 1, 64, 128, True),     # 3 chunks, ragged, state0
+    (1, 4096, 8, 64, 1, 64, 128, False),   # 32 chunks
+    (2, 50, 4, 16, 2, 64, 16, True),       # P 16, G 2
 ])
 def test_ssd_kernel_matches_plain_version(dtype, B, T, H, P, G, N, chunk,
                                           state):
@@ -355,6 +370,147 @@ def test_full_width_mamba2_serve_goes_through_the_ssd_kernel():
     done = loop.run_batch(reqs)
     assert ssd_mod.kernel.LAUNCHES - before == cfg.n_layers
     assert kernel.LAUNCHES == flash_before
+    for r in done:
+        assert len(r.out) == 4 and all(0 <= t < cfg.vocab for t in r.out)
+
+
+# ---------------------------------------------------------------------------
+# Per-row offsets (flash) and the other serving configs
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Sk,D", [(1, 600, 128), (1, 4096, 160),
+                                     (33, 200, 64), (70, 300, 160)])
+def test_per_row_offsets_on_every_path(dtype, Sq, Sk, D):
+    """A (B,) offset tensor: each batch row masked from its own offset, as
+    the plain version and the same row called with an int give it."""
+    _need_card()
+    B, Hq, Hkv = 3, 8, 2
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn(B, Hq, Sq, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Hkv, Sk, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, Sk, D, generator=g, device="cuda").to(dtype)
+    offsets = [0, Sk // 3, Sk - Sq]
+    rows = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    kv_len = Sk - 5
+    out = kernel.flash_attention(q, k, v, causal=True, kv_len=kv_len,
+                                 q_offset=rows)
+    ref = attention_ref(q, k, v, causal=True, kv_len=kv_len, q_offset=rows)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    for b, off in enumerate(offsets):
+        one = kernel.flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                     causal=True, kv_len=kv_len, q_offset=off)
+        assert torch.equal(one, out[b:b + 1])
+
+
+def _card_and_cpu_logits(cfg, batch, steps, cache_dtype, step_batch=None):
+    """Prefill then teacher-forced decode steps of a model built from a
+    seeded CPU init, on the card and on the CPU."""
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    B, n = batch["tokens"].shape[0], batch["tokens"].shape[1]
+    n += batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0
+    forced = torch.randint(0, cfg.vocab, (steps, B, 1), generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = torch.utils._pytree.tree_map(lambda t: t.to(dev), params)
+        caches = model.init_caches(B, n + steps, cache_dtype=cache_dtype,
+                                   device=dev)
+        with torch.inference_mode():
+            lg, caches = model.prefill(
+                p, {k: v.to(dev) for k, v in batch.items()}, caches)
+            outs = [lg.float().cpu()]
+            for s in range(steps):
+                extra = step_batch(s) if step_batch else {}
+                lg, caches = model.decode(
+                    p, {"tokens": forced[s].to(dev),
+                        **{k: v.to(dev) for k, v in extra.items()}},
+                    caches, n + s)
+                outs.append(lg.float().cpu())
+        out[dev] = outs
+    return out
+
+
+def _assert_card_matches_cpu(out, tol):
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max() / b.abs().max()) <= tol
+
+
+def _small(arch):
+    """The smoke config at width 128 with heads the flash kernel takes
+    (32, or stablelm-12b's 160); zamba2 with N 64 and P 16."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config(arch).with_(d_model=128, dtype=torch.float32,
+                                   head_dim=160 if arch == "stablelm-12b"
+                                   else 32)
+    if cfg.ssm is not None:
+        cfg = cfg.with_(ssm=dataclasses.replace(cfg.ssm, d_state=64,
+                                                head_dim=16))
+    return cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "stablelm-12b",
+                                  "starcoder2-15b", "qwen2-7b"])
+def test_smoke_model_card_matches_cpu(arch):
+    """The smoke models, widened to heads the kernel takes, in float32
+    (float32 caches) on the card, through both kernels, against the CPU's
+    plain versions: 1e-4 x max|logit|."""
+    _need_card()
+    cfg = _small(arch)
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (2, 19), generator=gen)
+    before = ssd_mod.kernel.LAUNCHES
+    out = _card_and_cpu_logits(cfg, {"tokens": toks}, 3, torch.float32)
+    _assert_card_matches_cpu(out, 1e-4)
+    if arch == "zamba2-1.2b":
+        assert ssd_mod.kernel.LAUNCHES - before == cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_qwen2_vl_vision_and_positions_card_match_cpu():
+    """qwen2-vl's smoke model with 16 vision embeddings on a 4 x 4 grid and
+    per-row decode offsets (the kernel's per-row path) against the CPU."""
+    _need_card()
+    cfg = _small("qwen2-vl-7b")
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (2, 5), generator=gen)
+    vis = torch.randn(2, 16, cfg.d_model, generator=gen)
+    i = torch.arange(16)
+    grid = torch.stack([torch.zeros(16, dtype=torch.long), i // 4, i % 4], -1)
+    text = (4 + torch.arange(5))[:, None].expand(5, 3)
+    pos = torch.cat([grid, text])[None].expand(2, 21, 3).clone()
+    pos[1, 16:] += 3                       # row 1's text starts 3 ids later
+    start = torch.tensor([9, 12])
+
+    def step(s):
+        return {"positions": (start + s)[:, None, None].expand(2, 1, 3)}
+    out = _card_and_cpu_logits(cfg, {"tokens": toks, "vision_embeds": vis,
+                                     "positions": pos}, 3, torch.float32,
+                               step_batch=step)
+    _assert_card_matches_cpu(out, 1e-4)
+
+
+@pytest.mark.gpu
+def test_full_width_zamba2_serve_goes_through_both_kernels():
+    _need_card()
+    cfg = get_config("zamba2-1.2b")
+    loop = ServeLoop(cfg)
+    gen = torch.Generator().manual_seed(0)
+    reqs = [Request(rid=i, prompt=torch.randint(0, cfg.vocab, (n,),
+                                                generator=gen).numpy(),
+                    max_new=4) for i, n in enumerate((5, 12))]
+    ssd_before, flash_before = ssd_mod.kernel.LAUNCHES, kernel.LAUNCHES
+    done = loop.run_batch(reqs)
+    assert ssd_mod.kernel.LAUNCHES - ssd_before == cfg.n_layers
+    units = cfg.n_layers // cfg.hybrid_attn_every
+    assert kernel.LAUNCHES - flash_before == units * (1 + 4)
     for r in done:
         assert len(r.out) == 4 and all(0 <= t < cfg.vocab for t in r.out)
 

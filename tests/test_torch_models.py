@@ -141,12 +141,18 @@ def test_full_config_matches_jax_and_counts_params():
 
 
 def test_unported_archs_raise():
-    assert list_archs() == ["stablelm-1.6b", "mamba2-1.3b"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("zamba2-1.2b")
-    for family in ("hybrid", "moe"):
+    assert list_archs() == ["stablelm-1.6b", "mamba2-1.3b", "qwen2-7b",
+                            "qwen2-vl-7b", "stablelm-12b", "starcoder2-15b",
+                            "zamba2-1.2b"]
+    for arch, module in (("qwen3-moe-30b-a3b", "moe"),
+                         ("llama4-maverick-400b-a17b", "moe"),
+                         ("seamless-m4t-large-v2", "encdec")):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md, Queue A item 1 .models/{module}"):
+            get_config(arch)
+    for family in ("moe", "encdec"):
         with pytest.raises(NotImplementedError, match="family"):
-            build_model(smoke_config("mamba2-1.3b").with_(family=family))
+            build_model(smoke_config("stablelm-1.6b").with_(family=family))
 
 
 def _full_depth_f32_gap(d_model, score_scale):

@@ -217,3 +217,44 @@ def test_chunked_path_arithmetic_needs_the_split(terms, meets_bar):
                     / np.abs(np.asarray(ref)).max())
               for out, ref in ((y.numpy(), ref_y), (state.numpy(), ref_state)))
     assert (err <= TOL) == meets_bar, err
+
+
+@pytest.mark.parametrize("T,chunk,state", [(20, 16, False), (50, 16, True),
+                                           (129, 128, True)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_chunked_at_state_64_matches_jax_model_twin(T, chunk, state,
+                                                        dtype):
+    """zamba2-1.2b's state dim, N 64, against the JAX model's ssd_chunked
+    (and, from a zero state, the JAX naive oracle)."""
+    jdt, tdt = DTYPES[dtype]
+    B, H, P, G, N = 2, 4, 16, 1, 64
+    inp = _inputs(7, B, T, H, P, G, N, state=state)
+    s0 = inp.get("state0")
+    ref_y, ref_state = jax_ssd_chunked(
+        *_jax(inp, jdt), chunk, state0=None if s0 is None else jnp.asarray(s0))
+    y, st = ssd_chunked(*_torch(inp, tdt), chunk,
+                        state0=None if s0 is None else torch.from_numpy(s0))
+    assert 64 in kernel.STATE_DIMS
+    _close(y.numpy(), ref_y)
+    _close(st.numpy(), ref_state)
+    if s0 is None:
+        _close(y.numpy(), jax_ssd_ref(*_jax(inp, jdt)))
+
+
+@pytest.mark.parametrize("terms", [(3, 2, 3), (2, 2, 2)],
+                         ids=["kernel", "hi+lo"])
+def test_chunked_path_arithmetic_at_state_64(terms):
+    """The same emulation at zamba2-1.2b's widths (L 128, P 64, N 64) over
+    4 chunks: the kernel's bf16-term splits hold y and the final state to
+    the JAX model's ssd_chunked within 1e-5 of max."""
+    B, T, H, P, G, N, chunk = 1, 512, 2, 64, 1, 64, 128
+    inp = _inputs(8, B, T, H, P, G, N, state=True)
+    ref_y, ref_state = jax_ssd_chunked(*_jax(inp, jnp.bfloat16), chunk,
+                                       state0=jnp.asarray(inp["state0"]))
+    x, dt, a, B_, C_ = _torch(inp, torch.bfloat16)
+    y, state = _emulate_chunked(x, dt, a, B_, C_, chunk,
+                                torch.from_numpy(inp["state0"]), terms)
+    err = max(float(np.abs(np.asarray(out) - np.asarray(ref)).max()
+                    / np.abs(np.asarray(ref)).max())
+              for out, ref in ((y.numpy(), ref_y), (state.numpy(), ref_state)))
+    assert err <= TOL, err
