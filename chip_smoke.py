@@ -6,8 +6,10 @@
 It drives the port's serving paths, stablelm-1.6b (every attention
 through the flash-attention kernel), mamba2-1.3b (every prefill of every
 layer through the SSD-scan kernel), qwen2-7b, qwen2-vl-7b, stablelm-12b,
-starcoder2-15b and zamba2-1.2b (both kernels), and Lotaru's estimator path,
-online loop, multi-workflow fleet and accelerator-plane estimator.  Phases,
+starcoder2-15b and zamba2-1.2b (both kernels), qwen3-moe-30b-a3b,
+llama4-maverick-400b-a17b and seamless-m4t-large-v2 (flash), the int8 KV
+cache, and Lotaru's estimator path, online loop, multi-workflow fleet and
+accelerator-plane estimator.  Phases,
 in order; any failure ends the run with a non-zero exit code:
 
 1. the card's name and power limit (nvidia-smi), torch, CUDA and nvcc
@@ -20,9 +22,12 @@ in order; any failure ends the run with a non-zero exit code:
    decode, the float32 kernel) and their edges, at head dims 32, 64, 128
    and 160 (stablelm-12b's; the float32 decode on a 2-stage ring) and with
    one query offset per batch row (the M-RoPE model's mask), with every
-   attention call of the stablelm path and of each phase-11 config: their
-   batches are formed by ``serve.make_requests`` and ``serve.batched``, as
-   ``serve.main`` forms them (qwen2-vl-7b's with per-row offsets);
+   attention call of the stablelm path and of each phase-11 and phase-12
+   config: their batches are formed by ``serve.make_requests`` and
+   ``serve.batched``, as ``serve.main`` forms them (qwen2-vl-7b's with
+   per-row offsets), and seamless's encoder, self, cross and decode calls;
+   GQA 8 and GQA 5 at D 128 on each path, non-causal D 64 H 16 at Sq 256 /
+   Sk 256, Sq 13 / Sk 256 and Sq 1 / Sk 4,096;
 3b. the SSD kernel against its plain version ``ssd_chunked``, y and final
    state, in float32 (the CUDA-core path) and with bfloat16 x/B/C (the
    chunked tensor-core path), at 1e-5 of the reference's max (see
@@ -122,7 +127,35 @@ in order; any failure ends the run with a non-zero exit code:
    ~1e-4 with the init's weights); zamba2 also all 38
    layers and the prefill of 129 against 128 + one decode step on the
    card and on the CPU, with the init's weights (measured) and at unit
-   score variance of the shared block (held to the bar).
+   score variance of the shared block (held to the bar);
+12. the MoE configs, the encoder-decoder and the int8 KV cache, each model
+   freed before the next.  12a qwen3-moe-30b-a3b, all 48 layers at full
+   width with bf16 weights (61.1 GB), and 12b llama4-maverick-400b-a17b
+   cut to one unit (one dense and one MoE layer of 128 experts and the
+   shared expert, 18.55 B parameters, bf16), each served by ``ServeLoop``
+   and ``serve_queue`` (8 requests of 12 new tokens) with phase 11's checks
+   (flash n_layers x forwards, the batches phase 3 checked, peak memory,
+   a profile of decode steps) and the (token, k) assignments each
+   prefill's routers dropped past the capacity; the card against the CPU:
+   qwen3-moe at 2 layers in float32 activations (1e-4), llama4's unit in
+   bf16 at the bf16 bar (3e-2) at unit score variance, the init's gap
+   measured beside it, after reading the host's free memory (the CPU copy
+   is 37 GB).  12c seamless-m4t-large-v2 whole (24 + 24 layers, float32
+   weights) through ``make_prefill_step`` / ``make_decode_step`` on
+   ``concrete_batch(cfg, "prefill", 4, 256)``, 12 decode steps (flash 72
+   launches a prefill, 48 a step), a profile of decode steps, the card
+   against the CPU at 2 + 2 layers in float32 and the prefill of 257
+   against 256 + one decode step on the card and on the CPU, each with
+   the init's weights (measured: near one-hot attentions, where fp32
+   rounding alone passes 1e-4) and at unit score variance (held at
+   1e-4).  12d ``kv_quant`` at qwen2-7b's
+   decode_32k cache (B 8, 32,768 positions, 4 kv heads of 128): codes and
+   scales of the card equal to the CPU's, attention over the int8 cache
+   within 0.05 of the float cache's (tests/test_kv_quant.py's bar), the
+   footprint against bf16.  12e phase 7's timings at D 128 GQA 8 and GQA 5
+   (serve shapes, 4k prefill, 32k decode) and at seamless's D 64 H 16
+   (encoder, self and cross calls of 12c, a non-causal 4k encoder prefill
+   and a cross decode over 4k).
 
 The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``; the full report goes to
@@ -159,6 +192,14 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def host_available_bytes() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise SmokeFailure("no MemAvailable in /proc/meminfo")
 
 
 def nvidia_smi_line() -> str:
@@ -260,7 +301,27 @@ def kernel_cases(batch_shapes, serve_heads, serve_head_dim, more_serve=()):
             ("per-row decode D160 splits", 3, 8, 2, 1, 4096, 160, True, 4091,
              (0, 1365, 4090)),
             ("per-row chunk D160", 3, 8, 2, 70, 300, 160, True, 295,
-             (0, 100, 225))]:
+             (0, 100, 225)),
+            # qwen3-moe's GQA 8 and llama4's GQA 5 at D 128 (5 query heads
+            # fill a decode block of 8 rows in part)
+            ("prefill D128 GQA8", 1, 32, 4, 70, 70, 128, True, None, 0),
+            ("chunk D128 GQA8 q_offset=100", 2, 32, 4, 40, 200, 128, True,
+             140, 100),
+            ("decode D128 GQA8 splits", 2, 32, 4, 1, 4096, 128, True, 4096,
+             4095),
+            ("prefill D128 GQA5", 1, 40, 8, 70, 70, 128, True, None, 0),
+            ("chunk D128 GQA5 q_offset=100", 2, 40, 8, 40, 200, 128, True,
+             140, 100),
+            ("decode D128 GQA5 splits", 2, 40, 8, 1, 4096, 128, True, 4096,
+             4095),
+            ("decode D128 GQA5 kv_len=1", 2, 40, 8, 1, 64, 128, True, 1, 0),
+            # seamless: non-causal D 64 H 16, Sq = Sk, Sq < Sk, Sq 1
+            ("bidir D64 H16 Sq256 Sk256", 1, 16, 16, 256, 256, 64, False,
+             None, 0),
+            ("cross D64 H16 Sq13 Sk256", 2, 16, 16, 13, 256, 64, False, None,
+             0),
+            ("cross decode D64 H16 Sk4096", 2, 16, 16, 1, 4096, 64, False,
+             None, 0)]:
         cases.append((name, B, Hq, Hkv, Sq, Sk, D, causal, kv_len, q_off,
                       "bhsd"))
     # the serve shapes: (B, S, H, D) over views of a stacked cache
@@ -459,8 +520,11 @@ def first_layers(params, n):
 
 
 def unit_score_scale(params, cfg):
-    """The parameters with ``wq`` and ``wk`` scaled by head_dim**-0.5 (in
-    the hybrid, those of the shared attention block).
+    """The parameters with every ``wq`` and ``wk`` scaled by
+    head_dim**-0.5 (in the hybrid, those of the shared attention block; in
+    a MoE unit, each layer's; in the encoder-decoder, the encoder's and
+    the decoder's self- and cross-attention).  A new tree: ``params`` is
+    left as it is.
 
     The init rule (std 1/sqrt(shape[-2]), the heads dim of ``wq``) gives
     attention scores of std d_model / n_heads = 64 here, so softmax is
@@ -469,10 +533,12 @@ def unit_score_scale(params, cfg):
     std the model is well conditioned, and a card-vs-CPU gap at full depth
     measures the code, not the init."""
     s = cfg.resolved_head_dim() ** -0.5
-    key = "shared_attn" if cfg.family == "hybrid" else "blocks"
-    attn = dict(params[key]["attn"])
-    attn["wq"], attn["wk"] = attn["wq"] * s, attn["wk"] * s
-    return {**params, key: {**params[key], "attn": attn}}
+
+    def scale(tree):
+        return {k: (scale(v) if isinstance(v, dict)
+                    else v * s if k in ("wq", "wk") else v)
+                for k, v in tree.items()}
+    return scale(params)
 
 
 def model_reference_check(torch, build_model, cfg, params, B, T, steps, tol,
@@ -688,22 +754,27 @@ def bound(B, Hq, Hkv, Sq, D, causal, kv_len, q_offset, elem, flops_peak):
                                        else "bytes")
 
 
-def run_timings(torch, kernel, mha, attention_ref, sdpa, serve_batch, H,
-                D, Hkv=None, label=""):
-    """bf16 at a main path's first batch (its prefill and its last decode
-    step), a 4k prefill and a 32k decode, at ``H`` query and ``Hkv`` kv
-    heads of ``D``; shapes named with ``label``.  At each shape the kernel
-    and SDPA are first held against the plain version (bf16 bar), and the
-    path the launcher takes is recorded."""
-    Hkv = H if Hkv is None else Hkv
+def decoder_shapes(serve_batch):
+    """(name, B, Sq, Sk, kv_len, q_offset, causal) of a decoder's timings:
+    a main path's first batch (its prefill and its last decode step), a
+    4k prefill and a 32k decode."""
     B0, T0, steps0 = serve_batch
     Sk0 = T0 + steps0
-    shapes = [  # name, B, Sq, Sk, kv_len, q_offset, causal
-        ("serve prefill", B0, T0, Sk0, T0, 0, True),
-        ("serve decode", B0, 1, Sk0, Sk0, Sk0 - 1, True),
-        ("prefill 4k", 1, 4096, 4096, 4096, 0, True),
-        ("decode 32k", 8, 1, 32768, 32768, 32767, True),
-    ]
+    return [("serve prefill", B0, T0, Sk0, T0, 0, True),
+            ("serve decode", B0, 1, Sk0, Sk0, Sk0 - 1, True),
+            ("prefill 4k", 1, 4096, 4096, 4096, 0, True),
+            ("decode 32k", 8, 1, 32768, 32768, 32767, True)]
+
+
+def run_timings(torch, kernel, mha, attention_ref, sdpa, serve_batch, H,
+                D, Hkv=None, label="", shapes=None):
+    """bf16 at ``shapes`` (default ``decoder_shapes(serve_batch)``), at
+    ``H`` query and ``Hkv`` kv heads of ``D``; shapes named with
+    ``label``.  At each shape the kernel and SDPA are first held against
+    the plain version (bf16 bar), and the path the launcher takes is
+    recorded."""
+    Hkv = H if Hkv is None else Hkv
+    shapes = decoder_shapes(serve_batch) if shapes is None else shapes
     rows = []
     for name, B, Sq, Sk, kv_len, q_off, causal in shapes:
         name = label + name
@@ -891,25 +962,29 @@ def run_ssd_timings(torch, ssd_kernel, ssd, ssd_chunked, launched_kernels,
 
 
 def prefill_decode_consistency(torch, build_model, cfg, params, B, T, tol,
-                               label, device="cuda", check_tol=True):
+                               label, device="cuda", check_tol=True,
+                               extra=None):
     """The last logits of a prefill over T + 1 tokens against a prefill
     over T tokens and one decode step, to ``tol`` x max|logit| (with
     ``check_tol`` False only measured).  With T = chunk the long prefill
     ends in a chunk of one token, so on the card the kernel's ragged edge
     and carried state meet the decode recurrence; on the CPU
     (``device="cpu"``) the same check runs without the kernel and shows
-    how far fp32 rounding alone moves it."""
+    how far fp32 rounding alone moves it.  ``extra``: more prefill inputs
+    (the encoder-decoder's source frames), the same for both prefills."""
     model = build_model(cfg)
     params = to_device(params, device)
+    extra = {k: v.to(device) for k, v in (extra or {}).items()}
     gen = torch.Generator().manual_seed(5)
     toks = torch.randint(0, cfg.vocab, (B, T + 1), generator=gen).to(device)
     with torch.inference_mode():
-        full, _ = model.prefill(params, {"tokens": toks},
+        full, _ = model.prefill(params, {"tokens": toks, **extra},
                                 model.init_caches(B, T + 1, device=device,
                                                   cache_dtype=cfg.dtype))
         caches = model.init_caches(B, T + 1, device=device,
                                    cache_dtype=cfg.dtype)
-        _, caches = model.prefill(params, {"tokens": toks[:, :T]}, caches)
+        _, caches = model.prefill(params, {"tokens": toks[:, :T], **extra},
+                                  caches)
         dec, _ = model.decode(params, {"tokens": toks[:, T:]}, caches, T)
     full, dec = full[:, -1].float(), dec[:, -1].float()
     check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
@@ -970,18 +1045,71 @@ def vision_inputs(torch, cfg, B, T):
     return {"vision_embeds": vis, "positions": pos.contiguous()}, step
 
 
+def count_drops(moe, loop):
+    """Wrap ``moe.route`` and ``loop.prefill`` so that each prefill records,
+    per MoE layer, the (token, k) assignments its router dropped past the
+    capacity (a device tensor each: nothing is read until ``read``).
+    Returns (read, restore): ``read()`` gives one list of per-layer counts
+    per prefill."""
+    route, prefill = moe.route, loop.prefill
+    counts, inside = [], [False]
+
+    def counting_route(params, xg, cfg):
+        out = route(params, xg, cfg)
+        if inside[0]:
+            counts[-1].append((~out[3]).sum())
+        return out
+
+    def counting_prefill(*args):
+        inside[0] = True
+        counts.append([])
+        try:
+            return prefill(*args)
+        finally:
+            inside[0] = False
+
+    def restore():
+        moe.route, loop.prefill = route, prefill
+    moe.route, loop.prefill = counting_route, counting_prefill
+    return (lambda: [[int(c) for c in layers] for layers in counts]), restore
+
+
 def serve_config(torch, serve, kernel, ssd_kernel, build_model, cfg,
-                 n_requests, max_new, batch_shapes):
-    """One config of phase 11: ``serve.main`` at full width with its
-    launch counts, a profile of its decode steps, and its card-against-CPU
-    checks; the model is freed before it returns."""
+                 n_requests, max_new, batch_shapes, cut=False):
+    """One config of phase 11 or 12: served at full width with its launch
+    counts, a profile of its decode steps, and its card-against-CPU
+    checks; the model is freed before it returns.  A published config
+    goes through ``serve.main``; a ``cut`` one (phase 12's MoE configs:
+    bf16 weights, fewer layers) through ``ServeLoop`` and ``serve_queue``,
+    the two calls ``main`` makes, and prints the assignments each
+    prefill's routers dropped."""
     arch, hybrid = cfg.arch, cfg.family == "hybrid"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    kernel.LAUNCHES = ssd_kernel.LAUNCHES = 0
-    summary = serve.main(["--arch", arch, "--requests", str(n_requests),
-                          "--max-new", str(max_new)])
-    flash, ssd_n = kernel.LAUNCHES, ssd_kernel.LAUNCHES
+    drops = None
+    if cut:
+        from repro_torch.models import moe
+        t0 = time.perf_counter()
+        loop = serve.ServeLoop(cfg)
+        torch.cuda.synchronize()
+        print(f"  {arch}: {cfg.param_count():,} parameters in "
+              f"{str(cfg.param_dtype).split('.')[1]} drawn on the card in "
+              f"{time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+        read_drops, restore = count_drops(moe, loop)
+        kernel.LAUNCHES = ssd_kernel.LAUNCHES = 0
+        try:
+            summary = serve.serve_queue(loop, serve.make_requests(
+                cfg.vocab, n_requests, max_new))
+        finally:
+            flash, ssd_n = kernel.LAUNCHES, ssd_kernel.LAUNCHES
+            restore()
+        drops = read_drops()
+    else:
+        kernel.LAUNCHES = ssd_kernel.LAUNCHES = 0
+        summary = serve.main(["--arch", arch, "--requests", str(n_requests),
+                              "--max-new", str(max_new)])
+        flash, ssd_n = kernel.LAUNCHES, ssd_kernel.LAUNCHES
     loop = summary.pop("loop")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
@@ -1006,6 +1134,17 @@ def serve_config(torch, serve, kernel, ssd_kernel, build_model, cfg,
     check(ssd_n == ssd_want, f"{arch}: SSD kernel launched {ssd_n} times, "
                              f"expected {ssd_want}")
     check(peak_gb < card_gb, f"{arch}: peak memory {peak_gb:.2f} GB")
+    if drops is not None:
+        m = cfg.moe
+        for (B, T, _), layers in zip(batch_shapes, drops):
+            check(len(layers) == cfg.n_layers // m.every,
+                  f"{arch}: {len(layers)} routers ran in a prefill")
+            print(f"  {arch}: prefill B{B} T{T}: the routers dropped "
+                  f"{sum(layers)} of {B * T * m.top_k * len(layers)} (s, k) "
+                  f"assignments over {len(layers)} MoE layers (capacity "
+                  f"{moe._capacity(B * T, cfg)} per expert; most in a layer "
+                  f"{max(layers)}, layers with a drop "
+                  f"{sum(c > 0 for c in layers)})", flush=True)
     print(f"  {arch}: profile of decode steps (torch.profiler)", flush=True)
     prof = profile_serve(torch, loop, kernel, "flash_fwd", "flash",
                          *batch_shapes[0][:2])
@@ -1043,6 +1182,22 @@ def serve_config(torch, serve, kernel, ssd_kernel, build_model, cfg,
                     f"{arch} full width 38 layers float32, unit score scale",
                     device=dev)
         del scaled
+    elif cfg.family == "moe" and cfg.moe.every > 1:
+        # one unit in bf16 (the CPU copy holds every expert): held at the
+        # bf16 bar at unit score variance, the init's gap measured beside
+        need = cfg.param_count() * cfg.param_dtype.itemsize
+        free = host_available_bytes()
+        print(f"  {arch}: host memory available {free / 1e9:.1f} GB, the "
+              f"CPU copy {need / 1e9:.1f} GB", flush=True)
+        check(free > 1.3 * need, f"{arch}: {free / 1e9:.1f} GB of host "
+                                 f"memory for a {need / 1e9:.1f} GB copy")
+        what = f"{arch} full width one unit ({cfg.n_layers} layers) bfloat16"
+        errs["one unit bf16, init weights (measured)"] = \
+            model_reference_check(torch, build_model, cfg, loop.params, 2, 6,
+                                  2, 3e-2, what, check_tol=False)
+        errs["one unit bf16, unit score scale"] = model_reference_check(
+            torch, build_model, cfg, unit_score_scale(loop.params, cfg), 2,
+            6, 2, 3e-2, what + ", unit score scale")
     else:
         errs["2 layers"] = model_reference_check(
             torch, build_model, f32.with_(n_layers=2),
@@ -1074,7 +1229,270 @@ def serve_config(torch, serve, kernel, ssd_kernel, build_model, cfg,
             "peak_memory_gb": peak_gb, "card_memory_gb": card_gb,
             "flash_launches": flash, "ssd_launches": ssd_n,
             "forwards": forwards, "profile": prof, "model_rel_err": errs,
-            "params": cfg.param_count()}
+            "params": cfg.param_count(), "dropped_per_prefill": drops}
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the MoE configs, the encoder-decoder and the int8 KV cache
+# ---------------------------------------------------------------------------
+#: phase 12's MoE configs, served in this order
+MOE_ARCHS = ["qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b"]
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+#: 12c: batch, source frames = target prefix, decode steps
+ENC_B, ENC_T, ENC_STEPS = 4, 256, 12
+#: 12d: qwen2-7b's decode_32k cache (B, positions, kv heads, head dim) and
+#: its query heads
+KVQ_SHAPE, KVQ_HEADS = (8, 32768, 4, 128), 28
+KVQ_TOL = 0.05       # tests/test_kv_quant.py's bar
+
+
+def moe_cuts(torch, get_config):
+    """Phase 12's MoE configs: the JAX package's, with bf16 weights
+    (qwen3-moe: 61.1 GB instead of 122) and llama4 cut to one unit of one
+    dense and one MoE layer (18.55 B parameters, 37.1 GB)."""
+    return {"qwen3-moe-30b-a3b": get_config("qwen3-moe-30b-a3b").with_(
+                param_dtype=torch.bfloat16),
+            "llama4-maverick-400b-a17b": get_config(
+                "llama4-maverick-400b-a17b").with_(
+                param_dtype=torch.bfloat16, n_layers=2)}
+
+
+def encdec_cases(cfg, B, T, steps):
+    """Every attention call of 12c's path (distinct shapes once): the
+    bidirectional encoder, the decoder's causal self-attention over its
+    cache of T + steps, the cross-attention over the T-position cross
+    cache (non-causal, no kv_len), then each decode step's self-attention
+    and the cross decode."""
+    H, D = cfg.n_heads, cfg.resolved_head_dim()
+    Sk = T + steps
+    cases = [(f"seamless encoder B{B} T{T} bidir", B, H, H, T, T, D, False,
+              None, 0, "cache"),
+             (f"seamless self prefill B{B} T{T}", B, H, H, T, Sk, D, True, T,
+              0, "cache"),
+             (f"seamless cross prefill B{B} T{T} Sk{T}", B, H, H, T, T, D,
+              False, None, 0, "cache"),
+             (f"seamless cross decode B{B} Sk{T}", B, H, H, 1, T, D, False,
+              None, 0, "cache")]
+    for kv in range(T + 1, Sk + 1):
+        cases.append((f"seamless self decode B{B} kv_len={kv}/{Sk}", B, H, H,
+                      1, Sk, D, True, kv, kv - 1, "cache"))
+    return cases
+
+
+def first_encdec_layers(params, n):
+    """The encoder-decoder's parameters with only the first ``n`` encoder
+    and ``n`` decoder layers."""
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[:n]
+    return {**params, "enc_blocks": cut(params["enc_blocks"]),
+            "dec_blocks": cut(params["dec_blocks"])}
+
+
+def serve_encdec(torch, kernel, shapes, steps_mod, build_model, cfg):
+    """12c: the whole encoder-decoder at full width through
+    ``make_prefill_step`` / ``make_decode_step`` fed by ``concrete_batch``
+    (ENC_T source frames and an ENC_T-token target prefix), ENC_STEPS
+    greedy decode steps; flash launches per prefill and per step; a
+    profile of decode steps; the card against the CPU at 2 + 2 layers in
+    float32; a prefill of T + 1 against T and one decode step on the
+    card.  The model is freed before it returns."""
+    B, T, steps = ENC_B, ENC_T, ENC_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(0)
+    prefill = steps_mod.make_prefill_step(model)
+    decode = steps_mod.make_decode_step(model)
+    per_prefill = cfg.enc_layers + 2 * cfg.dec_layers
+    per_step = 2 * cfg.dec_layers
+    batch = shapes.concrete_batch(cfg, "prefill", B, T)
+    times, launches, toks = [], [], []
+    with torch.inference_mode():
+        caches = model.init_caches(B, T + steps, cross_len=T)
+        torch.cuda.synchronize()
+        kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, batch, caches)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches.append(kernel.LAUNCHES)
+        check(logits.shape == (B, 1, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"{cfg.arch}: prefill logits {tuple(logits.shape)}")
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        for s in range(steps):
+            n0 = kernel.LAUNCHES
+            t0 = time.perf_counter()
+            tok, logits, caches = decode(params, {"tokens": tok[:, None]},
+                                         caches, T + s)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches.append(kernel.LAUNCHES - n0)
+            check(bool(torch.isfinite(logits).all()),
+                  f"{cfg.arch}: decode step {s}: non-finite logits")
+            toks.append(tok.tolist())
+    flash = kernel.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    step_ms = sorted(times)[len(times) // 2]
+    print(f"  {cfg.arch}: prefill B{B} (source {T}, target {T}) "
+          f"{prefill_ms:.3f} ms, {steps} decode steps, median "
+          f"{step_ms:.3f} ms ({B * steps / (sum(times) / 1e3):.1f} tok/s), "
+          f"peak memory {peak_gb:.2f} GB of {card_gb:.2f}, flash launches "
+          f"{launches[0]} per prefill = {cfg.enc_layers} encoder + "
+          f"{cfg.dec_layers} self + {cfg.dec_layers} cross, "
+          f"{sorted(set(launches[1:]))} per step", flush=True)
+    check(launches[0] == per_prefill,
+          f"{cfg.arch}: {launches[0]} flash launches in the prefill, "
+          f"expected {per_prefill}")
+    check(all(n == per_step for n in launches[1:]),
+          f"{cfg.arch}: flash launches per step {launches[1:]}, expected "
+          f"{per_step}")
+    check(all(0 <= t < cfg.vocab for row in toks for t in row),
+          f"{cfg.arch}: tokens out of range")
+    check(peak_gb < card_gb, f"{cfg.arch}: peak memory {peak_gb:.2f} GB")
+
+    print(f"  {cfg.arch}: profile of decode steps (torch.profiler)",
+          flush=True)
+    state = {}
+    with torch.inference_mode():
+        state["caches"] = model.init_caches(B, T + PROFILE_STEPS,
+                                            cross_len=T)
+        logits, state["caches"] = prefill(params, batch, state["caches"])
+        state["tok"] = torch.argmax(logits[:, -1], dim=-1)
+
+        def run_decode(s):
+            state["tok"], _, state["caches"] = decode(
+                params, {"tokens": state["tok"][:, None]}, state["caches"],
+                T + s)
+        prof = {"batch": B, "prompt": T,
+                "decode": profile_steps(torch, run_decode, PROFILE_STEPS,
+                                        "flash_fwd", "flash",
+                                        lambda: kernel.LAUNCHES)}
+    del state
+
+    errs = {}
+    f32 = cfg.with_(dtype=torch.float32)
+    src = shapes.concrete_batch(cfg, "prefill", 2, 6,
+                                device="cpu")["src_embeds"]
+    # six near one-hot attentions (score std ~64): with the init's weights
+    # fp32 rounding alone moves the logits past the bar (the CPU against
+    # itself in float64, tests/test_torch_encdec.py), so the bar is held
+    # at unit score variance and the init's gap is measured
+    two = f32.with_(enc_layers=2, dec_layers=2, n_layers=4)
+    what = (f"{cfg.arch} full width 2 encoder + 2 decoder layers float32 (a "
+            "source of 6 frames, the cross cache padded to 8)")
+    errs["2 + 2 layers, init weights (measured)"] = model_reference_check(
+        torch, build_model, two, first_encdec_layers(params, 2), 2, 6, 2,
+        1e-4, what, cache_dtype=torch.float32, extra={"src_embeds": src},
+        check_tol=False)
+    errs["2 + 2 layers, unit score scale"] = model_reference_check(
+        torch, build_model, two,
+        unit_score_scale(first_encdec_layers(params, 2), cfg), 2, 6, 2, 1e-4,
+        what + ", unit score scale", cache_dtype=torch.float32,
+        extra={"src_embeds": src})
+    src = shapes.concrete_batch(cfg, "prefill", 2, T,
+                                device="cpu")["src_embeds"]
+    what = (f"{cfg.arch} full width {cfg.enc_layers} + {cfg.dec_layers} "
+            f"layers float32, source {T}")
+    scaled = unit_score_scale(params, cfg)
+    # on the CPU too, without the kernel: how far fp32 rounding alone
+    # moves the init's near one-hot model
+    for dev in ("cuda", "cpu"):
+        errs[f"prefill {T + 1} vs {T} + decode, init weights, {dev} "
+             "(measured)"] = prefill_decode_consistency(
+            torch, build_model, f32, params, 2, T, 1e-4, what, device=dev,
+            check_tol=False, extra={"src_embeds": src})
+        errs[f"prefill {T + 1} vs {T} + decode, unit score scale, {dev}"] = \
+            prefill_decode_consistency(torch, build_model, f32, scaled, 2, T,
+                                       1e-4, what + ", unit score scale",
+                                       device=dev, extra={"src_embeds": src})
+    del scaled
+    del params, caches, model
+    torch.cuda.empty_cache()
+    return {"batch": B, "source": T, "target": T, "steps": steps,
+            "prefill_ms": prefill_ms, "step_ms": times,
+            "median_step_ms": step_ms,
+            "tok_per_s": B * steps / (sum(times) / 1e3),
+            "flash_per_prefill": launches[0], "flash_per_step": launches[1:],
+            "flash_launches": flash, "peak_memory_gb": peak_gb,
+            "card_memory_gb": card_gb, "profile": prof,
+            "model_rel_err": errs, "params": cfg.param_count()}
+
+
+def kv_quant_on_card(torch, kernel, kvq, mha):
+    """12d: ``models/kv_quant.py`` at qwen2-7b's decode_32k cache: the
+    codes and scales the card writes against the CPU's (equal), attention
+    over the int8 cache against the float cache's (bf16 and float32, at
+    KVQ_TOL), the footprint against a bf16 cache, device times."""
+    B, T, H, D = KVQ_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(8)
+    k = torch.randn(B, T, H, D, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(B, T, H, D, generator=g, device="cuda").to(torch.bfloat16)
+    cache = kvq.append_quant_cache(kvq.init_quant_cache(B, T, H, D), k, v, 0)
+    cpu = kvq.append_quant_cache(kvq.init_quant_cache(B, T, H, D,
+                                                      device="cpu"),
+                                 k.cpu(), v.cpu(), 0)
+    differ = {n: int((cache[n].cpu() != cpu[n]).sum()) for n in cache}
+    print(f"  codes and scales, card against CPU: entries that differ "
+          f"{differ} (of {k.numel():,} codes and {k.numel() // D:,} scales "
+          "each)", flush=True)
+    check(not any(differ.values()), f"kv_quant: the card's codes or scales "
+                                    f"differ from the CPU's: {differ}")
+    del cpu
+    out = {"shape": [B, T, H, D], "query_heads": KVQ_HEADS,
+           "differ": differ}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q = torch.randn(B, 1, KVQ_HEADS, D, generator=g, device="cuda").to(
+            dtype)
+        kf, vf = k.to(dtype), v.to(dtype)
+
+        def quant():
+            return kvq.attention_over_quant_cache(q, cache, kv_len=T,
+                                                  causal=True, q_offset=T - 1)
+
+        def plain_cache():
+            return mha(q, kf, vf, causal=True, kv_len=T, q_offset=T - 1)
+        n0 = kernel.LAUNCHES
+        got = quant()
+        check(kernel.LAUNCHES - n0 == 1,
+              "attention_over_quant_cache did not launch the flash kernel")
+        err = float((got.float() - plain_cache().float()).abs().max())
+        row = {"max_abs_err": err, "ms": device_ms(torch, quant),
+               "float_cache_ms": device_ms(torch, plain_cache)}
+        print(f"  attention over the int8 cache, {dname} queries: max_abs_err"
+              f" {err:.3e} against the float cache (tol {KVQ_TOL}); device "
+              f"{row['ms']:.4f} ms (dequantize + flash) against "
+              f"{row['float_cache_ms']:.4f} ms over the {dname} cache",
+              flush=True)
+        check(err < KVQ_TOL, f"kv_quant attention {dname}: {err}")
+        out[dname] = row
+        del q, kf, vf, got
+    q8 = sum(t.numel() * t.element_size() for t in cache.values())
+    bf16 = 2 * k.numel() * 2
+    out.update(int8_bytes=q8, bf16_bytes=bf16, ratio=q8 / bf16)
+    print(f"  footprint: int8 codes + fp32 scales {q8 / 1e6:.1f} MB against "
+          f"a bf16 cache's {bf16 / 1e6:.1f} MB ({q8 / bf16:.4f})", flush=True)
+    check(q8 < 0.6 * bf16, f"kv_quant footprint {q8} of {bf16}")
+    del k, v, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_timing_shapes(B, T, steps):
+    """(name, B, Sq, Sk, kv_len, q_offset, causal) of 12e's D 64 H 16
+    timings: 12c's encoder (and cross) prefill, its self prefill, its last
+    self decode step and its cross decode, then the bidirectional encoder
+    prefill at 4k and a cross decode over 4k (B 8)."""
+    Sk = T + steps
+    return [("encoder prefill", B, T, T, T, 0, False),
+            ("self prefill", B, T, Sk, T, 0, True),
+            ("self decode", B, 1, Sk, Sk, Sk - 1, True),
+            ("cross decode", B, 1, T, T, 0, False),
+            ("encoder prefill 4k", 1, 4096, 4096, 4096, 0, False),
+            ("cross decode 4k", 8, 1, 4096, 4096, 0, False)]
 
 
 # ---------------------------------------------------------------------------
@@ -2199,8 +2617,10 @@ def main() -> int:
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.ssd import ssd, ssd_chunked
     from repro_torch.kernels._launches import launched_kernels
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, shapes
+    from repro_torch.launch import steps as steps_mod
     from repro_torch.models import build_model
+    from repro_torch.models import kv_quant as kvq
 
     cfg = get_config("stablelm-1.6b")
     mcfg = get_config("mamba2-1.3b")
@@ -2212,6 +2632,10 @@ def main() -> int:
     sbatch_shapes = {a: serve_batches(serve, c.vocab, n_requests, max_new)
                      for a, c in scfgs.items()}
     zcfg, lcfg = scfgs["zamba2-1.2b"], scfgs["stablelm-12b"]
+    mcfgs = moe_cuts(torch, get_config)
+    mbatches = {a: serve_batches(serve, c.vocab, n_requests, max_new)
+                for a, c in mcfgs.items()}
+    ecfg = get_config(ENCDEC_ARCH)
 
     t_start = time.time()
     print("== phase 1: card", flush=True)
@@ -2237,11 +2661,16 @@ def main() -> int:
 
     print("== phase 3: flash kernel against its plain version; stablelm "
           f"serve batches (B, T, steps) {batch_shapes}; the serve batches of "
-          + ", ".join(f"{a} {sbatch_shapes[a]}" for a in SERVE_ARCHS),
-          flush=True)
-    more_serve = [c for a, sc in scfgs.items() for c in serve_cases(
-        sbatch_shapes[a], sc.n_heads, sc.resolved_head_dim(),
-        Hkv=sc.n_kv_heads, label=f"{a} ", per_row=sc.mrope)]
+          + ", ".join(f"{a} {b}" for a, b in {**sbatch_shapes,
+                                               **mbatches}.items())
+          + f"; {ENCDEC_ARCH}'s prefill (B {ENC_B}, source and target "
+          f"{ENC_T}) and {ENC_STEPS} decode steps", flush=True)
+    more_serve = [c for a, sc in {**scfgs, **mcfgs}.items()
+                  for c in serve_cases(
+                      {**sbatch_shapes, **mbatches}[a], sc.n_heads,
+                      sc.resolved_head_dim(), Hkv=sc.n_kv_heads,
+                      label=f"{a} ", per_row=sc.mrope)]
+    more_serve += encdec_cases(ecfg, ENC_B, ENC_T, ENC_STEPS)
     checks = run_kernel_checks(torch, kernel, mha, attention_ref,
                                kernel_cases(batch_shapes, H, D, more_serve))
 
@@ -2442,11 +2871,62 @@ def main() -> int:
               f" {r['peak_memory_gb']:8.2f} {r['flash_launches']:6d} "
               f"{r['ssd_launches']:5d}", flush=True)
 
+    print("== phase 12: the MoE configs, the encoder-decoder and the int8 "
+          "KV cache", flush=True)
+    configs12 = {}
+    for arch, mc in mcfgs.items():
+        print(f"== phase 12{'ab'[MOE_ARCHS.index(arch)]}: {arch} "
+              f"({mc.n_layers} layers, {mc.param_count():,} of "
+              f"{get_config(arch).param_count():,} parameters, bf16 "
+              "weights)", flush=True)
+        configs12[arch] = serve_config(torch, serve, kernel, ssd_kernel,
+                                       build_model, mc, n_requests, max_new,
+                                       mbatches[arch], cut=True)
+    print(f"== phase 12c: {ENCDEC_ARCH} ({ecfg.param_count():,} parameters, "
+          f"float32 weights), make_prefill_step / make_decode_step on "
+          f"concrete_batch(cfg, 'prefill', {ENC_B}, {ENC_T})", flush=True)
+    encdec_run = serve_encdec(torch, kernel, shapes, steps_mod, build_model,
+                              ecfg)
+    print(f"== phase 12d: kv_quant on the card at qwen2-7b's decode_32k "
+          f"cache {KVQ_SHAPE}", flush=True)
+    kv_quant_run = kv_quant_on_card(torch, kernel, kvq, mha)
+    print("== phase 12e: kernel timing at the new shapes (bf16; D 128 GQA 8 "
+          "and GQA 5, D 64 H 16 non-causal)", flush=True)
+    qcfg, l4cfg = mcfgs["qwen3-moe-30b-a3b"], mcfgs["llama4-maverick-400b-a17b"]
+    rows12 = run_timings(torch, kernel, mha, attention_ref, sdpa,
+                         mbatches["qwen3-moe-30b-a3b"][0], qcfg.n_heads,
+                         qcfg.resolved_head_dim(), Hkv=qcfg.n_kv_heads,
+                         label="qwen3-moe ")
+    rows12 += run_timings(torch, kernel, mha, attention_ref, sdpa,
+                          mbatches["llama4-maverick-400b-a17b"][0],
+                          l4cfg.n_heads, l4cfg.resolved_head_dim(),
+                          Hkv=l4cfg.n_kv_heads, label="llama4 ")
+    rows12 += run_timings(torch, kernel, mha, attention_ref, sdpa, None,
+                          ecfg.n_heads, ecfg.resolved_head_dim(),
+                          label="seamless ",
+                          shapes=encdec_timing_shapes(ENC_B, ENC_T,
+                                                      ENC_STEPS))
+    rows += rows12
+    print(f"  {'config':26s} {'tok/s':>8s} {'step ms':>9s} {'busy %':>7s} "
+          f"{'kernels':>8s} {'peak GB':>8s} {'flash':>6s}", flush=True)
+    for arch, r in {**configs12, ENCDEC_ARCH: encdec_run}.items():
+        dec = r["profile"]["decode"]
+        tok_s = (r["serve"]["tokens"] / r["serve"]["seconds"] if "serve" in r
+                 else r["tok_per_s"])
+        step = (r["serve"]["median_step_ms"] if "serve" in r
+                else r["median_step_ms"])
+        print(f"  {arch:26s} {tok_s:8.1f} {step:9.3f} "
+              f"{100 * dec['device_busy_ms_per_step'] / dec['wall_ms_per_step']:7.1f}"
+              f" {dec['kernels_per_step']:8.0f} {r['peak_memory_gb']:8.2f} "
+              f"{r['flash_launches']:6d}", flush=True)
+
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
     main_row = next(r for r in rows if r["shape"] == "serve decode")
     flash_by_path = {"stablelm-1.6b": launches,
-                     **{a: r["flash_launches"] for a, r in configs.items()}}
+                     **{a: r["flash_launches"] for a, r in configs.items()},
+                     **{a: r["flash_launches"] for a, r in configs12.items()},
+                     ENCDEC_ARCH: encdec_run["flash_launches"]}
     ssd_by_path = {"mamba2-1.3b": ssd_launches,
                    "zamba2-1.2b": configs["zamba2-1.2b"]["ssd_launches"]}
     entry = {"name": "flash_attention_fwd", "route": "cuda",
@@ -2487,6 +2967,8 @@ def main() -> int:
                          "model_rel_err": mmodel_errs},
               "estimator": estimator, "online": online, "fleet": fleet,
               "ml": ml, "serving_configs": configs,
+              "phase12": {"moe": configs12, "encdec": encdec_run,
+                          "kv_quant": kv_quant_run, "timings": rows12},
               "card": smi, "seconds": time.time() - t_start}
     out_dir = ROOT / "build" / "reports"
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -1,31 +1,21 @@
-"""Architecture registry of the port.
+"""Architecture registry of the port: the JAX package's ten.
 
 ``get_config(arch)`` returns the full published config; ``smoke_config``
-a reduced same-family config for CPU tests.  Only the architectures whose
-model path is ported are listed; the others raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them.
+a reduced same-family config for CPU tests.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCHS = ["stablelm-1.6b", "mamba2-1.3b", "qwen2-7b", "qwen2-vl-7b",
-         "stablelm-12b", "starcoder2-15b", "zamba2-1.2b"]
-
-#: architectures of the JAX package still to port -> ROADMAP.md item
-PENDING = {
-    "qwen3-moe-30b-a3b": "Queue A item 1 (models/moe.py)",
-    "llama4-maverick-400b-a17b": "Queue A item 1 (models/moe.py)",
-    "seamless-m4t-large-v2": "Queue A item 1 (models/encdec.py)",
-}
+         "stablelm-12b", "starcoder2-15b", "zamba2-1.2b",
+         "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b",
+         "seamless-m4t-large-v2"]
 
 
 def _module(arch: str):
     if arch not in ARCHS:
-        item = PENDING.get(arch, "no item: the JAX package has no such arch")
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet; see ROADMAP.md, "
-            f"{item}")
+        raise ValueError(f"unknown arch {arch!r}; the archs are {ARCHS}")
     return importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
 

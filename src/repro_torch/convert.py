@@ -23,8 +23,8 @@ from repro_torch import resolve_device
 from repro_torch.core.blr import (POSTERIOR_FIELDS, BatchedTaskModel,
                                   BLRPosterior, OnlineStats, SampleLog,
                                   TaskModel, _default_dtype, _to_device)
+from repro_torch.models import build_model
 from repro_torch.models.common import ModelConfig, is_def
-from repro_torch.models.transformer import cache_def, lm_def
 
 
 def _carry(tree, defs, device, path: str = ""):
@@ -44,8 +44,10 @@ def _carry(tree, defs, device, path: str = ""):
 
 def params_from_jax(tree, cfg: ModelConfig, *, device=None) -> dict:
     """The JAX model's parameter tree (numpy leaves) as the port's params,
-    in ``cfg.param_dtype`` on ``device`` (default: the CUDA card)."""
-    return _carry(tree, lm_def(cfg), resolve_device(device))
+    in ``cfg.param_dtype`` on ``device`` (default: the CUDA card).  The
+    names and shapes are the port model's own definition tree (``lm_def``,
+    or ``encdec_def`` for encdec)."""
+    return _carry(tree, build_model(cfg).param_defs, resolve_device(device))
 
 
 def caches_from_jax(tree, cfg: ModelConfig, *, device=None,
@@ -54,17 +56,24 @@ def caches_from_jax(tree, cfg: ModelConfig, *, device=None,
     ``Model.init_caches``).  The batch size (and where there is a KV cache,
     its length) comes from the family's own leaves: ssm from
     ``blocks/state``, hybrid from ``blocks/ssm/state`` and
-    ``blocks/attn/k``, dense and vlm from ``blocks/k``; the ssm state stays
-    float32."""
-    blocks = tree["blocks"]
-    if cfg.family == "ssm":
-        batch, max_len = np.shape(blocks["state"])[1], 0
+    ``blocks/attn/k``, moe from ``blocks/moe_layer/k``, encdec from
+    ``self/k`` and ``cross/k`` (the cross length), dense and vlm from
+    ``blocks/k``; the ssm state stays float32."""
+    cross_len = 0
+    if cfg.family == "encdec":
+        batch, max_len = np.shape(tree["self"]["k"])[1:3]
+        cross_len = np.shape(tree["cross"]["k"])[2]
+    elif cfg.family == "ssm":
+        batch, max_len = np.shape(tree["blocks"]["state"])[1], 0
     elif cfg.family == "hybrid":
-        batch = np.shape(blocks["ssm"]["state"])[2]
-        max_len = np.shape(blocks["attn"]["k"])[2]
+        batch = np.shape(tree["blocks"]["ssm"]["state"])[2]
+        max_len = np.shape(tree["blocks"]["attn"]["k"])[2]
+    elif cfg.family == "moe":
+        batch, max_len = np.shape(tree["blocks"]["moe_layer"]["k"])[1:3]
     else:
-        batch, max_len = np.shape(blocks["k"])[1:3]
-    defs = cache_def(cfg, batch, max_len, cache_dtype)
+        batch, max_len = np.shape(tree["blocks"]["k"])[1:3]
+    defs = build_model(cfg).cache_defs(batch, max_len, cross_len,
+                                       cache_dtype)
     return _carry(tree, defs, resolve_device(device))
 
 

@@ -16,11 +16,22 @@ counts a straggler step.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch A --smoke --device cpu
 
 qwen2-vl-7b is served text-only, as the JAX ServeLoop serves it (M-RoPE
-positions are then the arange in all three components).
+positions are then the arange in all three components).  The two MoE
+configs at full width draw float32 weights here (qwen3-moe-30b-a3b 122 GB,
+llama4-maverick-400b-a17b 1.6 TB), which no one card holds: on the card,
+``ServeLoop(get_config(arch).with_(param_dtype=torch.bfloat16))`` (and
+for llama4 ``n_layers=2``) with ``serve_queue``, as chip_smoke.py's phase
+12 serves them.  seamless-m4t-large-v2 cannot be served here, as the JAX
+ServeLoop cannot: its batches hold tokens only, and the encoder-decoder's
+prefill needs the source frames ("src_embeds", a ``KeyError``); it runs
+through ``steps.make_prefill_step`` / ``make_decode_step`` fed by
+``shapes.concrete_batch``.
 """
 from __future__ import annotations
 
@@ -86,7 +97,7 @@ class ServeLoop:
         n_steps = max(r.max_new for r in requests)
         self.batch_shapes.append((B, T, n_steps))
         caches = self.model.init_caches(B, max_len=T + n_steps,
-                                        device=self.device)
+                                        cross_len=T, device=self.device)
         logits, caches = self.prefill(self.params, batch, caches)
         self.prefills += 1
         tok = torch.argmax(logits[:, -1], dim=-1)
@@ -122,24 +133,11 @@ def batched(queue: list[Request], max_batch: int = MAX_BATCH):
     return [queue[i:i + max_batch] for i in range(0, len(queue), max_batch)]
 
 
-def main(argv=None) -> dict:
-    """Serve ``--requests`` random prompts of 4-16 tokens; returns a summary
+def serve_queue(loop: ServeLoop, queue: list[Request]) -> dict:
+    """Serve ``queue`` in ``batched`` order; returns a summary
     (``requests``, ``tokens``, ``seconds``, ``median_step_ms``,
     ``prefills``, ``decode_steps``, the finished requests ``done`` and the
     ``loop``)."""
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-1.6b")
-    ap.add_argument("--smoke", action="store_true",
-                    help="use the reduced config (CPU-friendly)")
-    ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--max-new", type=int, default=12)
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card)")
-    args = ap.parse_args(argv)
-
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    loop = ServeLoop(cfg, device=args.device)
-    queue = make_requests(cfg.vocab, args.requests, args.max_new)
     t0 = time.time()
     done = []
     for batch in batched(queue, loop.max_batch):
@@ -152,6 +150,25 @@ def main(argv=None) -> dict:
     return {"requests": len(done), "tokens": toks, "seconds": dt,
             "median_step_ms": med_ms, "prefills": loop.prefills,
             "decode_steps": len(loop.step_times), "done": done, "loop": loop}
+
+
+def main(argv=None) -> dict:
+    """Serve ``--requests`` random prompts of 4-16 tokens; returns
+    ``serve_queue``'s summary."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-friendly)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    loop = ServeLoop(cfg, device=args.device)
+    return serve_queue(loop, make_requests(cfg.vocab, args.requests,
+                                           args.max_new))
 
 
 if __name__ == "__main__":

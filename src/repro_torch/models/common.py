@@ -9,6 +9,7 @@ identity.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any
 
@@ -87,8 +88,15 @@ class ModelConfig:
         """Analytic parameter count, counted as the JAX package's
         ``_param_count`` counts it (for ssm: the conv bias, ``dt_bias`` and
         the norms are left out; hybrid: the ssm count plus one shared
-        attention block and its MLP; vlm: as dense)."""
+        attention block and its MLP; vlm: as dense; moe: every expert, the
+        shared one and the router of each MoE layer; encdec: the norms are
+        left out)."""
         return _param_count(self)
+
+    def active_param_count(self) -> int:
+        """As ``param_count``, with only the ``top_k`` routed experts (and
+        the shared one) of each MoE layer counted."""
+        return _param_count(self, active_only=True)
 
 
 def _attn_params(cfg: ModelConfig) -> int:
@@ -101,12 +109,16 @@ def _attn_params(cfg: ModelConfig) -> int:
     return attn
 
 
-def _mlp_params(cfg: ModelConfig) -> int:
-    return (3 if cfg.act == "swiglu" else 2) * cfg.d_model * cfg.d_ff
+def _mlp_params(d_model: int, d_ff: int, act: str) -> int:
+    return (3 if act == "swiglu" else 2) * d_model * d_ff
 
 
-def _param_count(cfg: ModelConfig) -> int:
+def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     emb = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    mlp = _mlp_params(cfg.d_model, cfg.d_ff, cfg.act)
+    if cfg.family == "encdec":
+        return (emb + cfg.enc_layers * (_attn_params(cfg) + mlp)
+                + cfg.dec_layers * (2 * _attn_params(cfg) + mlp))
     if cfg.family == "ssm":
         s = cfg.ssm
         di = s.d_inner(cfg.d_model)
@@ -118,12 +130,20 @@ def _param_count(cfg: ModelConfig) -> int:
                + di * cfg.d_model)                               # out_proj
         return emb + cfg.n_layers * per
     if cfg.family == "hybrid":
-        return (_param_count(cfg.with_(family="ssm"))
-                + _attn_params(cfg) + _mlp_params(cfg))
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(f"param_count of family {cfg.family!r}"
-                                  " is not ported yet")
-    return emb + cfg.n_layers * (_attn_params(cfg) + _mlp_params(cfg))
+        return (_param_count(cfg.with_(family="ssm"), active_only)
+                + _attn_params(cfg) + mlp)
+    # dense / vlm / moe
+    total = emb
+    for layer in range(cfg.n_layers):
+        total += _attn_params(cfg)
+        m = cfg.moe
+        if m is not None and layer % m.every == m.every - 1:
+            n = (m.top_k if active_only else m.n_experts) + m.shared_expert
+            total += (n * _mlp_params(cfg.d_model, m.d_ff_expert, cfg.act)
+                      + cfg.d_model * m.n_experts)              # router
+        else:
+            total += mlp
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -138,20 +158,46 @@ class ParamDef:
     dtype: Any = torch.float32
 
 
+#: float32 bytes drawn at a time for a leaf narrower than float32
+PIECE_BYTES = 1 << 30
+
+
 def init_leaf(gen: torch.Generator, d: ParamDef, device) -> torch.Tensor:
     """The JAX package's rule: N(0, 1) * scale / sqrt(fan_in) with
     ``fan_in = shape[-2]`` (for ``wq`` of shape (d, H, hd) that is the
-    heads dim).  Same distribution, other random bits."""
+    heads dim).  Same distribution, other random bits.
+
+    A leaf narrower than float32 whose float32 draw would pass
+    ``PIECE_BYTES`` is drawn in pieces along its leading axes, each scaled
+    and cast into the leaf: qwen3-moe's bf16 expert leaves are 19.3 GB
+    each, 38.7 GB as one float32 draw."""
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=d.dtype, device=device)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else max(d.shape[-1], 1)
     std = d.scale / (fan_in ** 0.5)
-    # Scaled in place: one copy of the leaf at a time, which is what lets
-    # starcoder2-15b's 24 GB stacked MLP leaves be drawn on one card.
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=device)
-    return x.mul_(std).to(d.dtype)
+    numel = math.prod(d.shape)
+    if d.dtype.itemsize >= 4 or 4 * numel <= PIECE_BYTES:
+        # Scaled in place: one copy of the leaf at a time, which is what
+        # lets starcoder2-15b's 24 GB stacked MLP leaves be drawn on one
+        # card.
+        x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return x.mul_(std).to(d.dtype)
+    # the fewest leading axes whose every index holds a piece that fits
+    lead = next(k for k in range(len(d.shape) + 1)
+                if 4 * math.prod(d.shape[k:]) <= PIECE_BYTES)
+    inner = d.shape[lead:]
+    out = torch.empty(d.shape, dtype=d.dtype, device=device)
+    rows = out.view(-1, *inner)
+    step = PIECE_BYTES // (4 * math.prod(inner))
+    for i in range(0, rows.shape[0], step):
+        n = min(step, rows.shape[0] - i)
+        piece = torch.randn((n, *inner), generator=gen, dtype=torch.float32,
+                            device=device)
+        rows[i:i + n] = piece.mul_(std)
+    return out
 
 
 def is_def(x) -> bool:

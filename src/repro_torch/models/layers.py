@@ -1,4 +1,4 @@
-"""Core layers: norms, RoPE / M-RoPE, attention with a KV cache, MLPs.
+"""Core layers: norms, RoPE / M-RoPE, self- and cross-attention, MLPs.
 
 Counterpart of ``repro.models.layers``.  Attention goes through
 ``repro_torch.kernels.flash_attention.mha``: the hand-written kernel on a
@@ -125,9 +125,9 @@ def attention_out(params: dict, o: torch.Tensor, cfg: ModelConfig):
 
 
 def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                   causal: bool, positions: torch.Tensor, cache: dict,
-                   cache_index: int):
-    """Self-attention over a KV cache.
+                   causal: bool, positions: torch.Tensor,
+                   cache: dict | None = None, cache_index: int = 0):
+    """Self-attention, over a KV cache or (``cache`` None) over ``x`` alone.
 
     ``cache``: {"k": (B, Tmax, Hkv, D), "v": ...}; ``cache_index``: tokens
     already in the cache.  The new K/V are written at that offset and
@@ -136,7 +136,9 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     mask starts at each row's first position, as the JAX package's does:
     ``cache_index`` for the (B, T) positions, which are ``cache_index +
     arange(T)``, and under M-RoPE the row's first temporal id (a per-row
-    offset).  Returns (out, cache); the cache tensors are updated in place.
+    offset).  Without a cache (the encoder) the T keys are all there is
+    and the mask starts at 0.  Returns (out, cache); the cache tensors are
+    updated in place.
     """
     q, k, v = attention_qkv(params, x, cfg)
     if cfg.mrope:
@@ -147,6 +149,9 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         q_offset = cache_index
+    if cache is None:
+        out = mha(q, k, v, causal=causal)
+        return attention_out(params, out, cfg), None
     T, t_max = x.shape[1], cache["k"].shape[1]
     if cache_index + T > t_max:
         raise ValueError(f"cache of {t_max} positions cannot take {T} tokens "
@@ -160,11 +165,34 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return attention_out(params, out, cfg), cache
 
 
+def cross_attention_def(cfg: ModelConfig) -> dict:
+    return attention_def(cfg.with_(qkv_bias=False))
+
+
+def cross_attention(params: dict, x: torch.Tensor, kv_src, cfg: ModelConfig,
+                    kv_cache: dict | None = None):
+    """Decoder cross-attention, non-causal and without RoPE.  ``kv_src``:
+    the encoder output (B, Ts, d), projected to K/V when ``kv_cache`` is
+    None; with ``kv_cache`` ({"k", "v"} precomputed) it is not read.  As in
+    the JAX package there is no ``kv_len``: every position of the cross
+    cache is attended, zero-padded ones too.  Returns (out, kv_cache)."""
+    dt = cfg.dtype
+    q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(dt))
+    if kv_cache is None:
+        kv_cache = {
+            "k": torch.einsum("btd,dhk->bthk", kv_src, params["wk"].to(dt)),
+            "v": torch.einsum("btd,dhk->bthk", kv_src, params["wv"].to(dt))}
+    out = mha(q, kv_cache["k"].to(dt), kv_cache["v"].to(dt), causal=False)
+    return attention_out(params, out, cfg), kv_cache
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
-def mlp_def(cfg: ModelConfig) -> dict:
-    f, pd = cfg.d_ff, cfg.param_dtype
+def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    """The MLP's weights, ``d_ff`` wide (default ``cfg.d_ff``; the MoE
+    shared expert's is ``d_ff_expert``)."""
+    f, pd = d_ff or cfg.d_ff, cfg.param_dtype
     if cfg.act == "swiglu":
         return {"wg": ParamDef((cfg.d_model, f), dtype=pd),
                 "wu": ParamDef((cfg.d_model, f), dtype=pd),

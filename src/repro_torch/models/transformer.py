@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly: the dense, vlm, ssm and hybrid families.
+"""Decoder-only LM assembly: the dense, vlm, moe, ssm and hybrid families.
 
 Counterpart of ``repro.models.transformer``.  Block parameters and caches
 keep the JAX package's stacked layout (a leading scan-units dim); the trunk
@@ -7,10 +7,13 @@ A scan unit is one layer, except in the zamba2 hybrid: a super-unit of
 ``hybrid_attn_every`` Mamba-2 layers (their leaves carry two stacked dims,
 (units, every, ...)) followed by one application of a single weight-tied
 shared attention block; the ``n_layers % hybrid_attn_every`` layers left
-over form a tail of Mamba-2 layers without attention.  The vlm family is
-the dense trunk with precomputed vision embeddings prepended and M-RoPE
-positions.  The moe and encdec families, ``lm_loss`` and ``chunked_xent``
-are not ported yet (ROADMAP.md, Queue A).
+over form a tail of Mamba-2 layers without attention.  In the moe family a
+unit is ``moe.every`` layers: ``every - 1`` dense layers ("dense_{j}")
+and then one whose MLP is the MoE ("moe_layer"), so llama4's interleave
+keeps the stacked leaves homogeneous.  The vlm family is the dense trunk
+with precomputed vision embeddings prepended and M-RoPE positions.  The
+encdec family is ``encdec.py``; ``lm_loss`` and ``chunked_xent`` are not
+ported yet (ROADMAP.md, Queue A).
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ from .common import ModelConfig, ParamDef, tree_map_defs
 from .layers import (apply_mlp, apply_norm, attention_def, layernorm_def,
                      mlp_def, rmsnorm_def, self_attention)
 from .mamba2 import apply_mamba2, decode_mamba2, mamba2_def
+from .moe import apply_moe, moe_def
 
-FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def norm_def(cfg: ModelConfig) -> dict:
@@ -49,21 +53,31 @@ def _dense_layer_def(cfg: ModelConfig) -> dict:
             "ln2": norm_def(cfg), "mlp": mlp_def(cfg)}
 
 
+def _moe_layer_def(cfg: ModelConfig) -> dict:
+    return {"ln1": norm_def(cfg), "attn": attention_def(cfg),
+            "ln2": norm_def(cfg), "moe": moe_def(cfg)}
+
+
 def _ssm_layer_def(cfg: ModelConfig) -> dict:
     return {"ln": norm_def(cfg), "mamba": mamba2_def(cfg)}
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue A "
-            f"item 1); repro_torch runs the families {FAMILIES}")
+        raise ValueError(f"family {cfg.family!r} is not a decoder-only LM; "
+                         f"transformer.py builds {FAMILIES} (encdec: "
+                         "encdec.py)")
 
 
 def scan_unit_def(cfg: ModelConfig) -> dict:
     _check_family(cfg)
     if cfg.family in ("dense", "vlm"):
         return _dense_layer_def(cfg)
+    if cfg.family == "moe":
+        unit = {"moe_layer": _moe_layer_def(cfg)}
+        for j in range(cfg.moe.every - 1):
+            unit[f"dense_{j}"] = _dense_layer_def(cfg)
+        return unit
     if cfg.family == "ssm":
         return _ssm_layer_def(cfg)
     return {"ssm_layers": stack_defs(_ssm_layer_def(cfg),
@@ -71,6 +85,11 @@ def scan_unit_def(cfg: ModelConfig) -> dict:
 
 
 def n_scan_units(cfg: ModelConfig) -> int:
+    if cfg.family == "moe":
+        if cfg.n_layers % cfg.moe.every:
+            raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of "
+                             f"moe.every={cfg.moe.every}")
+        return cfg.n_layers // cfg.moe.every
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.hybrid_attn_every
     return cfg.n_layers
@@ -121,7 +140,9 @@ def _ssm_cache_def(cfg: ModelConfig, batch: int, cache_dtype) -> dict:
 
 def cache_def(cfg: ModelConfig, batch: int, max_len: int,
               cache_dtype=torch.bfloat16) -> dict:
-    """dense, vlm: {"blocks": {"k", "v": (L, B, Tmax, Hkv, hd)}}; ssm:
+    """dense, vlm: {"blocks": {"k", "v": (L, B, Tmax, Hkv, hd)}}; moe:
+    {"blocks": {"moe_layer", "dense_{j}": {"k", "v": (U, B, Tmax, Hkv,
+    hd)}}} with U = n_scan_units, one KV cache per layer of a unit; ssm:
     {"blocks": {"conv": (L, B, k-1, conv_ch), "state": (L, B, H, P, N)}},
     which do not grow with ``max_len``; hybrid: {"blocks": {"ssm": the ssm
     leaves as (U, every, B, ...), "attn": {"k", "v": (U, B, Tmax, Hkv,
@@ -136,6 +157,11 @@ def cache_def(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.family in ("dense", "vlm"):
         return {"blocks": stack_defs(_kv_def(cfg, batch, max_len,
                                              cache_dtype), cfg.n_layers)}
+    if cfg.family == "moe":
+        unit = {"moe_layer": _kv_def(cfg, batch, max_len, cache_dtype)}
+        for j in range(cfg.moe.every - 1):
+            unit[f"dense_{j}"] = _kv_def(cfg, batch, max_len, cache_dtype)
+        return {"blocks": stack_defs(unit, n_scan_units(cfg))}
     unit = {"ssm": stack_defs(_ssm_cache_def(cfg, batch, cache_dtype),
                               cfg.hybrid_attn_every),
             "attn": _kv_def(cfg, batch, max_len, cache_dtype)}
@@ -182,6 +208,28 @@ def _apply_dense_layer(p, h, cfg, positions, cache, cache_index):
     return h, cache
 
 
+def _apply_moe_layer(p, h, cfg, positions, cache, cache_index):
+    """Attention, then the MoE in place of the MLP.  Returns (h, aux)."""
+    a, _ = self_attention(p["attn"], apply_norm(p["ln1"], h, cfg.norm),
+                          cfg, causal=True, positions=positions,
+                          cache=cache, cache_index=cache_index)
+    h = h + a
+    mo, aux = apply_moe(p["moe"], apply_norm(p["ln2"], h, cfg.norm), cfg)
+    return h + mo, aux
+
+
+def _apply_moe_unit(p, h, cfg, positions, cache, cache_index):
+    """The unit's ``every - 1`` dense layers, then its MoE layer (the JAX
+    package's ``_apply_unit`` order)."""
+    for j in range(cfg.moe.every - 1):
+        key = f"dense_{j}"
+        h, _ = _apply_dense_layer(p[key], h, cfg, positions, cache[key],
+                                  cache_index)
+    h, _ = _apply_moe_layer(p["moe_layer"], h, cfg, positions,
+                            cache["moe_layer"], cache_index)
+    return h
+
+
 def _apply_ssm_layer(p, h, cfg, cache, cache_index, decode: bool = False):
     x = apply_norm(p["ln"], h, cfg.norm)
     if decode:
@@ -223,6 +271,8 @@ def trunk(params, cfg: ModelConfig, batch: dict, caches: dict,
         elif cfg.family == "hybrid":
             h = _apply_hybrid_unit(p, h, cfg, params["shared_attn"],
                                    positions, cache, cache_index, decode)
+        elif cfg.family == "moe":
+            h = _apply_moe_unit(p, h, cfg, positions, cache, cache_index)
         else:
             h, _ = _apply_dense_layer(p, h, cfg, positions, cache,
                                       cache_index)

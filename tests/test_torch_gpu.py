@@ -69,6 +69,19 @@ def _need_card():
     (1, 8, 1, 1, 4096, 160, True, 3000, 300),   # MQA, empty splits
     (2, 28, 4, 1, 700, 128, True, 700, 699),    # qwen2: GQA 7
     (1, 28, 4, 40, 40, 128, True, None, 0),     # qwen2 prefill
+    # qwen3-moe's GQA 8 and llama4's GQA 5 at D 128 on every path (GQA 5
+    # fills 5 of a decode block's 8 rows)
+    (1, 32, 4, 70, 70, 128, True, None, 0),     # GQA 8 prefill
+    (2, 32, 4, 40, 200, 128, True, 140, 100),   # GQA 8 chunk
+    (2, 32, 4, 1, 4096, 128, True, 4096, 4095), # GQA 8 split decode
+    (1, 40, 8, 70, 70, 128, True, None, 0),     # GQA 5 prefill
+    (2, 40, 8, 40, 200, 128, True, 140, 100),   # GQA 5 chunk
+    (2, 40, 8, 1, 4096, 128, True, 4096, 4095), # GQA 5 split decode
+    (2, 40, 8, 1, 64, 128, True, 1, 0),         # GQA 5 kv_len 1
+    # seamless: non-causal D 64 H 16, Sq = Sk, Sq < Sk (cross), Sq 1
+    (1, 16, 16, 256, 256, 64, False, None, 0),
+    (2, 16, 16, 13, 256, 64, False, None, 0),
+    (2, 16, 16, 1, 4096, 64, False, None, 0),
 ])
 def test_kernel_matches_plain_version(dtype, B, Hq, Hkv, Sq, Sk, D, causal,
                                       kv_len, q_offset):
@@ -457,7 +470,9 @@ def _small(arch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "stablelm-12b",
-                                  "starcoder2-15b", "qwen2-7b"])
+                                  "starcoder2-15b", "qwen2-7b",
+                                  "qwen3-moe-30b-a3b",
+                                  "llama4-maverick-400b-a17b"])
 def test_smoke_model_card_matches_cpu(arch):
     """The smoke models, widened to heads the kernel takes, in float32
     (float32 caches) on the card, through both kernels, against the CPU's
@@ -471,6 +486,53 @@ def test_smoke_model_card_matches_cpu(arch):
     _assert_card_matches_cpu(out, 1e-4)
     if arch == "zamba2-1.2b":
         assert ssd_mod.kernel.LAUNCHES - before == cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_seamless_smoke_card_matches_cpu():
+    """The encoder-decoder at width 128 (heads of 32) in float32: source
+    frames of 9, a target prefix of 7, the cross cache padded to 10;
+    through the kernel on the card (2 encoder + 2 self + 2 cross launches a
+    prefill), against the CPU: 1e-4 x max|logit|."""
+    _need_card()
+    from repro_torch.launch.shapes import concrete_batch
+    cfg = _small("seamless-m4t-large-v2")
+    batch = {"src_embeds": concrete_batch(cfg, "prefill", 2, 9,
+                                          device="cpu")["src_embeds"],
+             "tokens": torch.randint(0, cfg.vocab, (2, 7),
+                                     generator=torch.Generator().manual_seed(
+                                         3))}
+    before = kernel.LAUNCHES
+    out = _card_and_cpu_logits(cfg, batch, 3, torch.float32)
+    _assert_card_matches_cpu(out, 1e-4)
+    per_prefill = cfg.enc_layers + 2 * cfg.dec_layers
+    assert kernel.LAUNCHES - before == per_prefill + 3 * 2 * cfg.dec_layers
+
+
+@pytest.mark.gpu
+def test_kv_quant_card_matches_cpu():
+    """Codes and scales written on the card equal the CPU's; attention over
+    the int8 cache runs the kernel and stays within 0.05 of the float
+    cache's."""
+    _need_card()
+    from repro_torch.models import kv_quant as kvq
+    g = torch.Generator(device="cuda").manual_seed(4)
+    k = torch.randn(2, 300, 4, 128, generator=g, device="cuda").bfloat16()
+    v = torch.randn(2, 300, 4, 128, generator=g, device="cuda").bfloat16()
+    cache = kvq.append_quant_cache(kvq.init_quant_cache(2, 320, 4, 128),
+                                   k, v, 0)
+    cpu = kvq.append_quant_cache(kvq.init_quant_cache(2, 320, 4, 128,
+                                                      device="cpu"),
+                                 k.cpu(), v.cpu(), 0)
+    for name in cache:
+        assert torch.equal(cache[name].cpu(), cpu[name]), name
+    q = torch.randn(2, 1, 28, 128, generator=g, device="cuda").bfloat16()
+    before = kernel.LAUNCHES
+    out = kvq.attention_over_quant_cache(q, cache, kv_len=300, causal=True,
+                                         q_offset=299)
+    assert kernel.LAUNCHES == before + 1
+    ref = mha(q, k, v, causal=True, kv_len=300, q_offset=299)
+    assert float((out.float() - ref.float()).abs().max()) < 0.05
 
 
 @pytest.mark.gpu

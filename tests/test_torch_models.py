@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.configs import list_archs as jax_list_archs
 from repro.configs import smoke_config as jax_smoke_config
 from repro.models import AxisRules
 from repro.models import build_model as jax_build_model
@@ -140,19 +141,57 @@ def test_full_config_matches_jax_and_counts_params():
     assert cfg.dtype == torch.bfloat16 and cfg.param_dtype == torch.float32
 
 
-def test_unported_archs_raise():
-    assert list_archs() == ["stablelm-1.6b", "mamba2-1.3b", "qwen2-7b",
-                            "qwen2-vl-7b", "stablelm-12b", "starcoder2-15b",
-                            "zamba2-1.2b"]
-    for arch, module in (("qwen3-moe-30b-a3b", "moe"),
-                         ("llama4-maverick-400b-a17b", "moe"),
-                         ("seamless-m4t-large-v2", "encdec")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md, Queue A item 1 .models/{module}"):
-            get_config(arch)
-    for family in ("moe", "encdec"):
-        with pytest.raises(NotImplementedError, match="family"):
-            build_model(smoke_config("stablelm-1.6b").with_(family=family))
+#: every field of ModelConfig that a config file sets (dtypes are the
+#: frameworks' own and are compared by name)
+CONFIG_FIELDS = ("arch", "family", "n_layers", "d_model", "n_heads",
+                 "n_kv_heads", "d_ff", "vocab", "head_dim", "qkv_bias",
+                 "norm", "act", "rope_theta", "mrope", "tie_embeddings",
+                 "hybrid_attn_every", "enc_layers", "dec_layers",
+                 "attn_chunk", "xent_chunk", "remat", "moe_groups",
+                 "kernel_mode", "seq_shard")
+
+
+def test_port_serves_the_jax_packages_ten_archs():
+    """``list_archs()`` holds the JAX package's ten architectures, and each
+    full and smoke config matches the JAX package's field for field (the
+    MoE and SSM sub-configs too; dtypes by name)."""
+    from repro.configs import get_config as jax_get_config
+    from repro.configs import smoke_config as jax_smoke
+    assert sorted(list_archs()) == sorted(jax_list_archs())
+    assert len(list_archs()) == 10
+    for arch in list_archs():
+        for port, ref in ((get_config(arch), jax_get_config(arch)),
+                          (smoke_config(arch), jax_smoke(arch))):
+            for f in CONFIG_FIELDS:
+                assert getattr(port, f) == getattr(ref, f), (arch, f)
+            for sub in ("moe", "ssm"):
+                a, b = getattr(port, sub), getattr(ref, sub)
+                assert (a is None) == (b is None), (arch, sub)
+                if a is not None:
+                    assert vars(a) == vars(b), (arch, sub)
+            for f in ("dtype", "param_dtype"):
+                assert (str(getattr(port, f)).split(".")[-1]
+                        == jnp.dtype(getattr(ref, f)).name), (arch, f)
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", sorted(jax_list_archs()))
+def test_param_counts_match_jax(arch):
+    """``param_count`` and ``active_param_count`` of the full config (and
+    of llama4 cut to one unit, as chip_smoke.py runs it) equal the JAX
+    package's."""
+    from repro.configs import get_config as jax_get_config
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
+    if cfg.moe is not None:
+        assert cfg.active_param_count() < cfg.param_count()
+        cut = {"n_layers": cfg.moe.every}
+        assert (cfg.with_(**cut).param_count()
+                == jcfg.with_(**cut).param_count())
+    else:
+        assert cfg.active_param_count() == cfg.param_count()
 
 
 def _full_depth_f32_gap(d_model, score_scale):

@@ -40,7 +40,9 @@ def test_serve_straggler_envelope_counts():
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "mamba2-1.3b",
-                                  "zamba2-1.2b", "qwen2-7b"])
+                                  "zamba2-1.2b", "qwen2-7b",
+                                  "qwen3-moe-30b-a3b",
+                                  "llama4-maverick-400b-a17b"])
 def test_greedy_tokens_match_jax_serve_loop(arch):
     """Same carried-across weights, float32 activations, ragged prompts
     (left-padded with token 0, which the SSM runs into its state as the
