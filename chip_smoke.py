@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-It drives the port's serving paths, stablelm-1.6b (every attention
-through the flash-attention kernel), mamba2-1.3b (every prefill of every
+It drives the port's serving paths and its training path, stablelm-1.6b
+(every attention through the flash-attention kernel; trained at full
+width through its backward kernel too), mamba2-1.3b (every prefill of every
 layer through the SSD-scan kernel), qwen2-7b, qwen2-vl-7b, stablelm-12b,
 starcoder2-15b and zamba2-1.2b (both kernels), qwen3-moe-30b-a3b,
 llama4-maverick-400b-a17b and seamless-m4t-large-v2 (flash), the int8 KV
@@ -14,8 +15,9 @@ in order; any failure ends the run with a non-zero exit code:
 
 1. the card's name and power limit (nvidia-smi), torch, CUDA and nvcc
    versions;
-2. the build of both kernels from ``src/`` into ``build/kernels/``, one
-   nvcc per source, started together, with nvcc's ``-Xptxas -v`` reports;
+2. the build of the kernels from ``src/`` into ``build/kernels/`` (the
+   flash forward and backward, the SSD scan), one nvcc per source,
+   started together, with nvcc's ``-Xptxas -v`` reports;
 3. the flash kernel against its plain PyTorch version on the card, case
    by case (float32 at 2e-5, bfloat16 at 2e-2, as tests/test_kernels.py),
    through each of its three paths (the tensor-core prefill, the split
@@ -155,7 +157,35 @@ in order; any failure ends the run with a non-zero exit code:
    footprint against bf16.  12e phase 7's timings at D 128 GQA 8 and GQA 5
    (serve shapes, 4k prefill, 32k decode) and at seamless's D 64 H 16
    (encoder, self and cross calls of 12c, a non-causal 4k encoder prefill
-   and a cross decode over 4k).
+   and a cross decode over 4k);
+13. training, every attention's forward through the flash kernel with its
+   log-sum-exp and its backward through the backward kernel
+   (``flash_bwd.cu``, built in phase 2).  13a the backward against its
+   plain version ``attention_bwd_ref`` on the kernel's own output and lse
+   (float32 at 2e-5, bf16 at 2e-2, each of each gradient's max; the lse
+   against ``lse_ref``): causal and non-causal self-attention, cross
+   attention with Sq < Sk and Sq > Sk, GQA 1/4/7/8, D 32/64/128/160,
+   ragged lengths, and a second run equal bit for bit; 13b its device time
+   (CUDA-graph replays) at stablelm-1.6b's and qwen2-7b's training
+   attention (B 4, T 4,096, causal, bf16) beside its plain version's,
+   SDPA's backward (a yardstick the port never calls), the bound and the
+   forward with and without lse; 13c one train step at 2 layers of
+   stablelm-1.6b, qwen2-7b, qwen2-vl-7b (vision embeddings),
+   qwen3-moe-30b-a3b (the aux loss) and seamless-m4t-large-v2 (2 + 2
+   layers: encoder and cross-attention) at full width in float32
+   activations on the card against the CPU: loss, every gradient leaf
+   and every parameter after the AdamW step within 1e-4 x max at unit
+   score variance, the init's gap measured beside it; 13d ``train`` 6
+   steps straight against ``train_with_restarts`` failing at step 4
+   (2 layers of stablelm-1.6b, checkpoints every 2 steps under
+   ``build/ckpt_restart``, removed after) at 1e-4 on the last loss, and
+   tests/test_training_convergence.py's small LM at its thresholds; 13e
+   ``launch.train.train`` of stablelm-1.6b at full width, 4 steps of 8 x
+   4,096 tokens in 2 microbatches: flash forward launches 2 x 24 x 2 a
+   step (full remat) and backward 24 x 2, median step, tokens/s, peak
+   memory and the busy share of one more step under torch.profiler.  The
+   SSD scan has no backward kernel yet: ssm and hybrid configs raise when
+   asked to train on the card.
 
 The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``; the full report goes to
@@ -2598,6 +2628,489 @@ def run_ml_phase(torch, smi):
             "card": smi}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training (the flash backward kernel, a train step against the
+# CPU, restarts, stablelm-1.6b at full width)
+# ---------------------------------------------------------------------------
+BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu"
+#: what the backward replaces: the gradient of the TPU kernel's function,
+#: which the JAX package takes by XLA's autodiff of chunked_attention
+BWD_GRADIENT_OF = "src/repro/models/layers.py:94"
+#: 13a: (name, B, Hq, Hkv, Sq, Sk, D, causal): causal and non-causal
+#: self-attention, cross-attention with Sq < Sk and Sq > Sk, GQA 1/4/7/8,
+#: D 32/64/128/160, lengths that are no multiple of the 64-row tiles
+BWD_CASES = [
+    ("causal D64", 2, 8, 8, 256, 256, 64, True),
+    ("causal ragged T300 D32", 1, 4, 4, 300, 300, 32, True),
+    ("causal GQA4 D128", 2, 16, 4, 200, 200, 128, True),
+    ("causal GQA7 D128 (qwen2)", 1, 28, 4, 130, 130, 128, True),
+    ("causal GQA8 D128 (qwen3-moe)", 1, 32, 4, 97, 97, 128, True),
+    ("causal GQA4 D160 (stablelm-12b)", 1, 32, 8, 150, 150, 160, True),
+    ("encoder non-causal H16 D64", 2, 16, 16, 256, 256, 64, False),
+    ("cross Sq77 Sk256 H16 D64", 2, 16, 16, 77, 256, 64, False),
+    ("cross Sq300 Sk65 GQA8 D32", 1, 8, 1, 300, 65, 32, False),
+    ("stablelm train B1 T1024", 1, 32, 32, 1024, 1024, 64, True),
+]
+#: 13b: (name, B, Hq, Hkv, T, D): the training attention of stablelm-1.6b
+#: (13e's microbatch) and of qwen2-7b, causal bf16
+BWD_TIMED = [("stablelm-1.6b train", 4, 32, 32, 4096, 64),
+             ("qwen2-7b train", 4, 28, 4, 4096, 128)]
+#: 13c: the configs trained one step at 2 layers on the card and the CPU
+TRAIN_ARCHS = ["stablelm-1.6b", "qwen2-7b", "qwen2-vl-7b",
+               "qwen3-moe-30b-a3b", "seamless-m4t-large-v2"]
+TRAIN_B, TRAIN_T = 2, 16
+TRAIN_TOL = 1e-4
+#: 13e: stablelm-1.6b at full width: steps, sequence (train_4k's), global
+#: batch, microbatches
+FULL_STEPS, FULL_SEQ, FULL_BATCH, FULL_MICRO = 4, 4096, 8, 2
+
+
+def bwd_bound(B, Hq, Hkv, S, D, elem):
+    """Least time for a causal backward at these shapes: 2.5 x the
+    forward's operations (4 D per valid (q, k) pair) at the bf16 peak,
+    against q, o, dO, k, v and lse read once and dq, dk, dv written once
+    at the HBM rate."""
+    flops = 2.5 * 4 * D * B * Hq * S * (S + 1) / 2
+    nbytes = (elem * (4 * B * Hq * S * D + 4 * B * Hkv * S * D)
+              + 4 * B * Hq * S)
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def grad_rel(out, ref) -> float:
+    """max |out - ref| over max |ref| (fp32)."""
+    ref = ref.float()
+    return float((out.float() - ref).abs().max()
+                 / ref.abs().max().clamp(min=1e-30))
+
+
+def bwd_inputs(torch, B, Hq, Hkv, Sq, Sk, D, dtype, seed):
+    """q, k, v and dO as (B, H, S, D) views of (B, S, H, D) storage, the
+    layout ``mha`` passes down."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(S, H):
+        return torch.randn(B, S, H, D, generator=g, device="cuda").to(
+            dtype).transpose(1, 2)
+    return rnd(Sq, Hq), rnd(Sk, Hkv), rnd(Sk, Hkv), rnd(Sq, Hq)
+
+
+def run_bwd_checks(torch, kernel, attention_bwd_ref, lse_ref):
+    """13a: each case in float32 (the CUDA-core path) and bf16 (the
+    tensor-core path): the
+    forward's lse against ``lse_ref``, dq, dk, dv against
+    ``attention_bwd_ref`` on the same inputs (the kernel's output and
+    lse), each within the forward's bar relative to the gradient's max,
+    and a second run equal bit for bit."""
+    results = []
+    for i, (name, B, Hq, Hkv, Sq, Sk, D, causal) in enumerate(BWD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            path = kernel.bwd_plan(dtype)
+            dname = str(dtype).split(".")[1]
+            tol = TOL[dname]
+            q, k, v, do = bwd_inputs(torch, B, Hq, Hkv, Sq, Sk, D, dtype, i)
+            out, lse = kernel.flash_attention(q, k, v, causal=causal,
+                                              return_lse=True)
+            ref_lse = lse_ref(q, k, causal=causal)
+            lse_err = float((lse - ref_lse).abs().max())
+            check(lse_err <= tol * (1 + float(ref_lse.abs().max())),
+                  f"{name} {dname}: lse off by {lse_err}")
+            grads = kernel.flash_attention_bwd(q, k, v, out, do, lse,
+                                               causal=causal)
+            refs = attention_bwd_ref(q, k, v, out, do, lse, causal=causal)
+            again = kernel.flash_attention_bwd(q, k, v, out, do, lse,
+                                               causal=causal)
+            torch.cuda.synchronize()
+            errs = {f"d{n}": grad_rel(g, r)
+                    for n, g, r in zip("qkv", grads, refs)}
+            abs_err = max(float((g.float() - r.float()).abs().max())
+                          for g, r in zip(grads, refs))
+            same = all(torch.equal(g, h) for g, h in zip(grads, again))
+            ok = max(errs.values()) <= tol and same
+            print(f"  {name:32s} {dname:9s} {path:9s} lse {lse_err:.2e} "
+                  + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                  + f" (x max, tol {tol:g}) rerun "
+                  f"{'equal' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            check(ok, f"flash_bwd disagrees with its plain version or with "
+                      f"itself: {name} {dname} {path} {errs} rerun equal "
+                      f"{same}")
+            results.append({"case": name, "dtype": dname, "path": path,
+                            "rel_err": errs,
+                            "max_abs_err": abs_err, "lse_err": lse_err,
+                            "rerun_equal": same})
+            del q, k, v, do, out, lse, grads, refs, again
+    return results
+
+
+def run_bwd_timings(torch, kernel, attention_bwd_ref, lse_ref, sdpa):
+    """13b: at each of BWD_TIMED's shapes (bf16, causal): the forward's
+    lse held to ``lse_ref`` (the backward's plain version takes the
+    kernel's lse, so a wrong lse would shift both alike) and the kernel to
+    its plain version, then device ms of the backward (CUDA-graph
+    replays), of its plain version and of SDPA's backward
+    (``torch.autograd.grad`` through ``scaled_dot_product_attention``,
+    a yardstick the port never calls; both with ``host_ms``, CUDA events
+    around back-to-back calls: a CUDA graph cannot take autograd, nor the
+    plain version's tens of GB of temporaries), the forward with and
+    without lse, the bound."""
+    rows = []
+    for name, B, Hq, Hkv, T, D in BWD_TIMED:
+        q, k, v, do = bwd_inputs(torch, B, Hq, Hkv, T, T, D, torch.bfloat16,
+                                 11)
+        out, lse = kernel.flash_attention(q, k, v, causal=True,
+                                          return_lse=True)
+        ref_lse = lse_ref(q, k, causal=True)
+        lse_err = float((lse - ref_lse).abs().max())
+        check(lse_err <= TOL["bfloat16"] * (1 + float(ref_lse.abs().max())),
+              f"flash forward's lse off by {lse_err} at {name}")
+        del ref_lse
+        torch.cuda.empty_cache()
+
+        def kern():
+            return kernel.flash_attention_bwd(q, k, v, out, do, lse,
+                                              causal=True)
+
+        def plain():
+            return attention_bwd_ref(q, k, v, out, do, lse, causal=True)
+        refs = plain()
+        grads = kern()
+        errs = {f"d{n}": grad_rel(g, r) for n, g, r in zip("qkv", grads, refs)}
+        abs_err = max(float((g.float() - r.float()).abs().max())
+                      for g, r in zip(grads, refs))
+        check(max(errs.values()) <= TOL["bfloat16"],
+              f"flash_bwd disagrees with its plain version at {name}: {errs}")
+        # SDPA on contiguous (B, H, S, D) leaves; its gradient checked too
+        qc, kc, vc = (t.contiguous().requires_grad_(True) for t in (q, k, v))
+        lib_out = sdpa(qc, kc, vc, is_causal=True, enable_gqa=Hq != Hkv)
+
+        def lib():
+            return torch.autograd.grad(lib_out, (qc, kc, vc), do,
+                                       retain_graph=True)
+        lib_errs = [grad_rel(g, r) for g, r in zip(lib(), refs)]
+        check(max(lib_errs) < 5e-2,
+              f"SDPA's backward disagrees at {name}: {lib_errs}")
+        del refs, grads
+        torch.cuda.empty_cache()
+        b_ms, b_by = bwd_bound(B, Hq, Hkv, T, D, 2)
+        row = {"shape": name, "B": B, "H": Hq, "Hkv": Hkv, "T": T, "D": D,
+               "dtype": "bfloat16", "causal": True, "rel_err": errs,
+               "max_abs_err": abs_err, "lse_err": lse_err,
+               "path": kernel.bwd_plan(torch.bfloat16),
+               "ms": device_ms(torch, kern, calls=3, replays=2),
+               "host_ms": host_ms(torch, kern, budget_ms=100.0),
+               "plain_ms": host_ms(torch, plain, budget_ms=100.0),
+               "library_ms": host_ms(torch, lib),
+               "fwd_ms": device_ms(torch, lambda: kernel.flash_attention(
+                   q, k, v, causal=True)),
+               "fwd_lse_ms": device_ms(torch, lambda: kernel.flash_attention(
+                   q, k, v, causal=True, return_lse=True)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        print(f"  {name:22s} B{B} T{T} H{Hq}/{Hkv} D{D}: lse {lse_err:.2e}; "
+              "dq/dk/dv "
+              + " ".join(f"{e:.2e}" for e in errs.values())
+              + f" (tol 2e-2); device: kernel {row['ms']:9.4f} ms  plain "
+              f"{row['plain_ms']:9.4f} ms  sdpa bwd {row['library_ms']:9.4f} "
+              f"ms  bound {b_ms:9.4f} ms ({b_by}); host {row['host_ms']:9.4f}"
+              f" ms; forward {row['fwd_ms']:.4f} ms, with lse "
+              f"{row['fwd_lse_ms']:.4f} ms", flush=True)
+        rows.append(row)
+        del q, k, v, do, out, lse, qc, kc, vc, lib_out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def copy_to(tree, device):
+    """A copy of a tree of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: copy_to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def two_layers(cfg):
+    """The config cut to 2 layers (the encoder-decoder: 2 + 2)."""
+    if cfg.family == "encdec":
+        return cfg.with_(n_layers=4, enc_layers=2, dec_layers=2)
+    return cfg.with_(n_layers=2)
+
+
+def train_reference_check(torch, build_model, apply_updates, state_defs,
+                          tree_defs_init, SyntheticLMData, AdamWConfig,
+                          leaves, unflatten, cfg, label):
+    """13c: loss and gradients of one batch on the card (both kernels of
+    the path) and on the CPU (plain versions), within TRAIN_TOL x each
+    leaf's max at unit score variance (with the init's weights the gap is
+    measured and printed beside it); then one AdamW step from the same
+    (zero) state and the card's gradients, on the card and on the CPU:
+    every parameter after the step within TRAIN_TOL x the leaf's max.
+    The step from the CPU's gradients is measured beside it: Adam's first
+    step is ~lr x sign(g), so an element whose gradient is 0 up to the
+    two devices' rounding can land 2 lr apart.  The CPU's results are
+    compared on the card; the CPU copy of the weights is updated in place
+    by the last step (the init's weights go first)."""
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    base = to_device(model.init(0, device="cuda"), "cpu")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=100)
+
+    def loss_and_grads(p, dev):
+        batch = SyntheticLMData(cfg, seq=TRAIN_T, global_batch=TRAIN_B,
+                                seed=3, device=dev).batch(0)
+        flat = leaves(p)
+        for t in flat:
+            t.requires_grad_(True)
+        loss, _ = model.loss(p, batch)
+        grads = torch.autograd.grad(loss, flat)
+        for t in flat:
+            t.requires_grad_(False)
+        return float(loss.detach()), list(grads)
+
+    def step(p, grads, dev):
+        """One AdamW step of ``p`` (updated in place) on ``dev``; its
+        leaves after it, on the card."""
+        state = tree_defs_init(state_defs(model.param_defs, opt), None, dev)
+        apply_updates(p, unflatten(p, [g.to(dev) for g in grads]), state,
+                      opt)
+        return [t.to("cuda") for t in leaves(p)]
+
+    def worst(a, b):
+        return max(grad_rel(x, y.to("cuda")) for x, y in zip(a, b))
+
+    out = {}
+    for weights in ("init", "unit"):
+        params = unit_score_scale(base, cfg) if weights == "unit" else base
+        loss_cpu, g_cpu = loss_and_grads(params, "cpu")
+        loss_card, g_card = loss_and_grads(to_device(params, "cuda"),
+                                           "cuda")
+        check(all(bool(torch.isfinite(g).all()) for g in g_card),
+              f"{label}: non-finite gradients on the card")
+        loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        grad_err = worst(g_card, g_cpu)
+        row = {"loss": loss_card, "loss_rel_err": loss_err,
+               "grad_rel_err": grad_err}
+        if weights == "unit":
+            card = step(copy_to(params, "cuda"), g_card, "cuda")
+            own_err = worst(card, step(copy_to(params, "cuda"), g_cpu,
+                                       "cuda"))
+            param_err = worst(card, step(params, g_card, "cpu"))
+            row.update(param_rel_err=param_err,
+                       param_rel_err_own_grads=own_err)
+            print(f"  {label}: loss {loss_card:.5f}; card vs CPU loss "
+                  f"{loss_err:.3e}, gradients {grad_err:.3e}, parameters "
+                  f"after the step {param_err:.3e} x max (tol {TRAIN_TOL}, "
+                  "unit score variance); from each device's own gradients "
+                  f"{own_err:.3e} (measured only)", flush=True)
+            check(max(loss_err, grad_err, param_err) <= TRAIN_TOL,
+                  f"{label}: card vs CPU loss {loss_err:.3e}, gradients "
+                  f"{grad_err:.3e}, parameters after the step "
+                  f"{param_err:.3e} (tol {TRAIN_TOL})")
+            del card
+        else:
+            print(f"  {label}: with the init's weights loss {loss_err:.3e}, "
+                  f"gradients {grad_err:.3e} x max (measured only)",
+                  flush=True)
+        out[weights] = row
+        del g_cpu, g_card, params
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  {label}: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def restart_check(torch, train_mod, cfg, workdir):
+    """13d: ``train`` 6 steps straight against ``train_with_restarts``
+    failing at step 4 (resumed from the step-3 checkpoint), its
+    checkpoints every 2 steps under ``workdir`` (removed after: a
+    checkpoint of 2 full-width stablelm layers with its AdamW state is
+    ~6 GB; the straight run writes none); the last losses within 1e-4,
+    tests/test_checkpoint.py's bar."""
+    import shutil
+    shutil.rmtree(workdir, ignore_errors=True)
+    free_gb = shutil.disk_usage(ROOT).free / 1e9
+    print(f"  disk free under the checkout: {free_gb:.1f} GB", flush=True)
+    kw = dict(steps=6, seq=16, global_batch=2, seed=5, device="cuda")
+    t0 = time.perf_counter()
+    straight = train_mod.train(cfg, **kw)
+    restarted = train_mod.train_with_restarts(
+        cfg, ckpt_dir=workdir, ckpt_every=2, failures=[4], **kw)
+    shutil.rmtree(workdir)
+    seconds = time.perf_counter() - t0
+    gap = abs(straight.losses[-1] - restarted.losses[-1])
+    print(f"  restart at step 4: losses straight {straight.losses}, "
+          f"restarted {restarted.losses} ({restarted.restarts} restart); "
+          f"last-loss gap {gap:.3e} (tol 1e-4); {seconds:.1f} s with the "
+          "checkpoints", flush=True)
+    check(restarted.restarts == 1 and restarted.final_step == 5
+          and restarted.steps_run == 2,
+          f"the restarted run did not resume at step 4: {restarted}")
+    check(gap <= 1e-4, f"restart changed the last loss by {gap:.3e}")
+    return {"straight": straight.losses, "restarted": restarted.losses,
+            "gap": gap, "seconds": seconds, "disk_free_gb": free_gb}
+
+
+def small_lm_learns(torch, build_model, make_train_step, AdamWConfig,
+                    state_defs, tree_defs_init, SyntheticLMData, ModelConfig):
+    """13d: tests/test_training_convergence.py's small LM on the card
+    (bf16 activations: the tensor-core forward and the backward kernel),
+    40 steps, held to that test's thresholds."""
+    import math
+    cfg = ModelConfig(arch="conv-test", family="dense", n_layers=2,
+                      d_model=128, n_heads=4, n_kv_heads=4, d_ff=512,
+                      vocab=2048, head_dim=32, norm="rmsnorm", act="swiglu",
+                      attn_chunk=64, xent_chunk=64, remat="full")
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=2e-3, warmup_steps=5, total_steps=100,
+                      schedule="constant")
+    params = model.init(0, device="cuda")
+    state = tree_defs_init(state_defs(model.param_defs, opt),
+                           torch.Generator(device="cuda").manual_seed(1),
+                           "cuda")
+    data = SyntheticLMData(cfg, seq=64, global_batch=8, seed=0,
+                           device="cuda")
+    step = make_train_step(model, opt)
+    losses = []
+    for i in range(40):
+        params, state, m = step(params, state, data.batch(i))
+        losses.append(float(m["loss"]))
+    first, last, uniform = losses[0], losses[-1], math.log(cfg.vocab)
+    print(f"  small LM: loss {first:.4f} -> {last:.4f} over 40 steps "
+          f"(uniform {uniform:.4f}; thresholds: first > uniform - 1, last < "
+          f"first - 1.5, last < uniform - 1)", flush=True)
+    check(first > uniform - 1.0 and last < first - 1.5
+          and last < uniform - 1.0,
+          f"the small LM did not learn on the card: {first} -> {last}")
+    return {"losses": losses, "uniform": uniform}
+
+
+def full_width_training(torch, kernel, train_mod, make_train_step,
+                        AdamWConfig, state_defs, tree_defs_init,
+                        SyntheticLMData, cfg):
+    """13e: ``train`` of stablelm-1.6b at full width, FULL_STEPS steps of
+    FULL_BATCH x FULL_SEQ tokens in FULL_MICRO microbatches (no
+    checkpoint: its state would be ~26 GB); the flash launches of the run
+    (forward twice a layer a microbatch under full remat, backward once),
+    median step, tokens/s, peak memory, then one more step under
+    torch.profiler for the device-busy share."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    rep = train_mod.train(cfg, steps=FULL_STEPS, seq=FULL_SEQ,
+                          global_batch=FULL_BATCH, microbatches=FULL_MICRO,
+                          seed=0, device="cuda")
+    wall = time.perf_counter() - t0
+    fwd, bwd = kernel.LAUNCHES, kernel.BWD_LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    passes = FULL_STEPS * FULL_MICRO
+    step_ms = 1e3 * sorted(rep.step_times)[len(rep.step_times) // 2]
+    tok_s = FULL_BATCH * FULL_SEQ / (step_ms / 1e3)
+    print(f"  losses {[round(x, 4) for x in rep.losses]}; step times "
+          f"{[round(1e3 * t, 1) for t in rep.step_times]} ms, median "
+          f"{step_ms:.1f} ms, {tok_s:.0f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GB; flash forward launches {fwd} = {passes} "
+          f"passes x {cfg.n_layers} layers x 2 (remat), backward {bwd} = "
+          f"{passes} x {cfg.n_layers}; {wall:.1f} s in all", flush=True)
+    check(all(x == x and abs(x) < 1e4 for x in rep.losses),
+          f"non-finite losses at full width: {rep.losses}")
+    check(fwd == passes * cfg.n_layers * 2,
+          f"flash forward launched {fwd} times, expected "
+          f"{passes} x {cfg.n_layers} x 2")
+    check(bwd == passes * cfg.n_layers,
+          f"flash backward launched {bwd} times, expected "
+          f"{passes} x {cfg.n_layers}")
+    check(peak_gb < torch.cuda.get_device_properties(0).total_memory / 1e9,
+          "peak memory past the card")
+    # one more step, profiled, from the trained parameters and a fresh state
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=FULL_STEPS)
+    state = tree_defs_init(state_defs(model.param_defs, opt), None, "cuda")
+    batch = SyntheticLMData(cfg, seq=FULL_SEQ, global_batch=FULL_BATCH,
+                            seed=0, device="cuda").batch(FULL_STEPS)
+    step = make_train_step(model, opt, microbatches=FULL_MICRO)
+    params, losses = rep.params, rep.losses
+    del rep
+
+    def one(_):
+        step(params, state, batch)
+
+    def launches():
+        return kernel.LAUNCHES + kernel.BWD_LAUNCHES
+    print("  one more step under torch.profiler:", flush=True)
+    prof = profile_steps(torch, one, 1, "flash_", "flash", launches)
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "tokens_per_s": tok_s,
+            "peak_memory_gb": peak_gb, "flash_fwd_launches": fwd,
+            "flash_bwd_launches": bwd, "seconds": wall, "profile": prof,
+            "busy_share": prof["device_busy_ms_per_step"]
+            / prof["wall_ms_per_step"]}
+
+
+def run_training_phase(torch, kernel, get_config, build_model):
+    """Phase 13: 13a the backward against its plain version, 13b its
+    timings, 13c a train step card vs CPU for TRAIN_ARCHS, 13d restarts
+    and the small LM, 13e stablelm-1.6b at full width.  The SSD scan has
+    no backward kernel, so ssm and hybrid configs do not train on the
+    card (they raise); none is here."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     lse_ref)
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.common import ModelConfig, tree_defs_init
+    from repro_torch.optim import AdamWConfig, apply_updates, state_defs
+    from repro_torch.optim.adamw import leaves, unflatten
+
+    t0 = time.perf_counter()
+    print("== phase 13a: flash backward kernel against its plain version "
+          "(float32 at 2e-5, bf16 at 2e-2, of each gradient's max; reruns "
+          "bit for bit)", flush=True)
+    checks = run_bwd_checks(torch, kernel, attention_bwd_ref, lse_ref)
+    print(f"== phase 13b ({time.perf_counter() - t0:.1f} s): flash "
+          "backward timing (bf16, causal; device time from CUDA graph "
+          "replays)", flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = run_bwd_timings(torch, kernel, attention_bwd_ref, lse_ref, sdpa)
+    print(f"== phase 13c ({time.perf_counter() - t0:.1f} s): one train "
+          f"step at 2 layers, card against CPU "
+          f"(B {TRAIN_B}, T {TRAIN_T}, float32 activations): "
+          + ", ".join(TRAIN_ARCHS), flush=True)
+    steps_check = {}
+    for arch in TRAIN_ARCHS:
+        cfg = two_layers(get_config(arch)).with_(dtype=torch.float32)
+        steps_check[arch] = train_reference_check(
+            torch, build_model, apply_updates, state_defs, tree_defs_init,
+            SyntheticLMData, AdamWConfig, leaves, unflatten, cfg,
+            f"{arch} ({cfg.param_count():,} parameters)")
+    print(f"== phase 13d ({time.perf_counter() - t0:.1f} s): restarts "
+          "(stablelm-1.6b, 2 layers at full width, checkpoints every 2 "
+          "steps) and the small LM on the card", flush=True)
+    restart = restart_check(torch, train_mod,
+                            two_layers(get_config("stablelm-1.6b")),
+                            ROOT / "build" / "ckpt_restart")
+    learns = small_lm_learns(torch, build_model, steps_mod.make_train_step,
+                             AdamWConfig, state_defs, tree_defs_init,
+                             SyntheticLMData, ModelConfig)
+    cfg = get_config("stablelm-1.6b")
+    print(f"== phase 13e ({time.perf_counter() - t0:.1f} s): stablelm-1.6b "
+          f"at full width ({cfg.param_count():,}"
+          f" parameters), {FULL_STEPS} steps of {FULL_BATCH} x {FULL_SEQ} "
+          f"tokens in {FULL_MICRO} microbatches", flush=True)
+    full = full_width_training(torch, kernel, train_mod,
+                               steps_mod.make_train_step, AdamWConfig,
+                               state_defs, tree_defs_init, SyntheticLMData,
+                               cfg)
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"bwd_checks": checks, "bwd_timings": rows,
+            "train_step": steps_check, "restart": restart,
+            "small_lm": learns, "full_width": full,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2650,7 +3163,7 @@ def main() -> int:
     print("== phase 2: build (one nvcc per source, started together)",
           flush=True)
     t0 = time.time()
-    sources = [kernel.SOURCE, ssd_kernel.SOURCE]
+    sources = [kernel.SOURCE, kernel.BWD_SOURCE, ssd_kernel.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_build.build, sources))
     print(f"built {', '.join(str(p.relative_to(ROOT)) for p in libs)} in "
@@ -2920,13 +3433,18 @@ def main() -> int:
               f" {dec['kernels_per_step']:8.0f} {r['peak_memory_gb']:8.2f} "
               f"{r['flash_launches']:6d}", flush=True)
 
+    print("== phase 13: training, the flash backward kernel", flush=True)
+    training = run_training_phase(torch, kernel, get_config, build_model)
+
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
     main_row = next(r for r in rows if r["shape"] == "serve decode")
     flash_by_path = {"stablelm-1.6b": launches,
                      **{a: r["flash_launches"] for a, r in configs.items()},
                      **{a: r["flash_launches"] for a, r in configs12.items()},
-                     ENCDEC_ARCH: encdec_run["flash_launches"]}
+                     ENCDEC_ARCH: encdec_run["flash_launches"],
+                     "stablelm-1.6b training (13e)":
+                         training["full_width"]["flash_fwd_launches"]}
     ssd_by_path = {"mamba2-1.3b": ssd_launches,
                    "zamba2-1.2b": configs["zamba2-1.2b"]["ssd_launches"]}
     entry = {"name": "flash_attention_fwd", "route": "cuda",
@@ -2956,7 +3474,26 @@ def main() -> int:
                  "library_ms": None, "library": ssd_row["library"],
                  "host_ms": ssd_row["host_ms"],
                  "timed_shape": "serve prefill", "shapes": ssd_rows}
-    kernels_line = {"kernels": [entry, ssd_entry]}
+    full = training["full_width"]
+    bwd_row = training["bwd_timings"][0]
+    bwd_entry = {"name": "flash_attention_bwd", "route": "cuda",
+                 "source": BWD_SOURCE, "replaces": REPLACES,
+                 "replaces_function": "the gradient of _flash_fwd_kernel",
+                 "gradient_of": BWD_GRADIENT_OF,
+                 "launches": full["flash_bwd_launches"],
+                 "launches_by_path": {"stablelm-1.6b training (13e)":
+                                      full["flash_bwd_launches"]},
+                 "max_abs_err": bwd_row["max_abs_err"],
+                 "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
+                 "bound_ms": bwd_row["bound_ms"],
+                 "bound_by": bwd_row["bound_by"],
+                 "library_ms": bwd_row["library_ms"],
+                 "library": "torch.autograd.grad through "
+                            "scaled_dot_product_attention",
+                 "host_ms": bwd_row["host_ms"],
+                 "timed_shape": bwd_row["shape"],
+                 "shapes": training["bwd_timings"]}
+    kernels_line = {"kernels": [entry, ssd_entry, bwd_entry]}
     report = {**kernels_line, "checks": checks, "ssd_checks": ssd_checks,
               "serve": summary, "batch_shapes": batch_shapes,
               "peak_memory_gb": peak_gb, "decode_profile": profile,
@@ -2969,6 +3506,7 @@ def main() -> int:
               "ml": ml, "serving_configs": configs,
               "phase12": {"moe": configs12, "encdec": encdec_run,
                           "kv_quant": kv_quant_run, "timings": rows12},
+              "training": training,
               "card": smi, "seconds": time.time() - t_start}
     out_dir = ROOT / "build" / "reports"
     out_dir.mkdir(parents=True, exist_ok=True)

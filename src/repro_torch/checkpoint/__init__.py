@@ -1,0 +1,4 @@
+"""The port's checkpoint store."""
+from .store import AsyncCheckpointer, latest_step, restore, save
+
+__all__ = ["AsyncCheckpointer", "latest_step", "restore", "save"]

@@ -9,6 +9,10 @@ port's definition tree must be present in the JAX tree, and nothing else.
 The input is numpy only (``jax.tree.map(np.asarray, params)``), so the
 port still imports no JAX.
 
+The AdamW state crosses the same way (``opt_state_from_jax``): m and v,
+or the int8 codes and scales, the master copy and the step, checked
+against the port's ``state_defs``.
+
 The estimator's state crosses the same way: a posterior's six fields, a
 ``TaskModel`` and a ``BatchedTaskModel`` (with its (T, 8) moments and the
 raw-sample log), each given as numpy arrays, become the port's on
@@ -25,6 +29,7 @@ from repro_torch.core.blr import (POSTERIOR_FIELDS, BatchedTaskModel,
                                   TaskModel, _default_dtype, _to_device)
 from repro_torch.models import build_model
 from repro_torch.models.common import ModelConfig, is_def
+from repro_torch.optim import AdamWConfig, state_defs
 
 
 def _carry(tree, defs, device, path: str = ""):
@@ -48,6 +53,17 @@ def params_from_jax(tree, cfg: ModelConfig, *, device=None) -> dict:
     names and shapes are the port model's own definition tree (``lm_def``,
     or ``encdec_def`` for encdec)."""
     return _carry(tree, build_model(cfg).param_defs, resolve_device(device))
+
+
+def opt_state_from_jax(tree, cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+                       device=None) -> dict:
+    """The JAX package's AdamW state (numpy leaves: {"mv": per parameter
+    {"m", "v"[, "master"]} or {"m_q", "m_s", "v_q", "v_s"}, "step"}) as the
+    port's, each leaf in the dtype of the port's ``state_defs`` (codes
+    int8, scales fp32, step int32) on ``device`` (default: the CUDA
+    card)."""
+    defs = state_defs(build_model(cfg).param_defs, opt_cfg)
+    return _carry(tree, defs, resolve_device(device))
 
 
 def caches_from_jax(tree, cfg: ModelConfig, *, device=None,

@@ -1,13 +1,71 @@
-"""Deterministic synthetic workflow DAGs.
+"""Deterministic synthetic data: the LM token pipeline and workflow DAGs.
 
-``synthetic_dag`` is a WfCommons-style layered workflow generator (seeded;
-width/depth/fan-out/data-size distributions) that scales past 10k tasks —
-the stress harness for data-aware HEFT.  Same seed and parameters give a
-bit-identical DAG.
+``SyntheticLMData`` gives the batches of ``repro.data.SyntheticLMData``
+value for value: a batch is a pure function of (seed, step, host), drawn
+from the same numpy stream, so a restored run at step N sees what an
+uninterrupted run would have, and the port trains on the JAX package's
+tokens.  ``synthetic_dag`` is a WfCommons-style layered workflow generator
+(seeded; width/depth/fan-out/data-size distributions) that scales past 10k
+tasks — the stress harness for data-aware HEFT.  Same seed and parameters
+give a bit-identical DAG.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any
+
 import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.common import ModelConfig
+
+
+@dataclass(frozen=True)
+class SyntheticLMData:
+    """Batches of ``global_batch // host_count`` rows of ``seq`` tokens on
+    ``device`` (default: the CUDA card): "tokens" and next-token "labels"
+    (int32); vlm adds "vision_embeds" (B, max(2, seq // 8), d_model) bf16
+    and arange "positions" (B, seq + that, 3); encdec adds "src_embeds"
+    (B, seq, d_model) fp32."""
+    cfg: ModelConfig
+    seq: int
+    global_batch: int
+    seed: int = 0
+    device: Any = None
+
+    def batch(self, step: int, host_index: int = 0,
+              host_count: int = 1) -> dict:
+        dev = resolve_device(self.device)
+        b = self.global_batch // host_count
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, host_index]))
+        tokens = rng.integers(0, self.cfg.vocab, (b, self.seq),
+                              dtype=np.int32)
+        # next-token labels over a repeating-pattern stream: learnable signal
+        pattern = (np.arange(self.seq, dtype=np.int32)[None, :]
+                   + rng.integers(0, 97, (b, 1), dtype=np.int32)) % 97
+        tokens = (tokens % 7) * 97 // 7 + pattern % 7  # mixture, in-vocab
+        tokens = tokens.astype(np.int32) % self.cfg.vocab
+        labels = np.roll(tokens, -1, axis=1)
+        out = {"tokens": torch.from_numpy(tokens).to(dev),
+               "labels": torch.from_numpy(labels).to(dev)}
+        if self.cfg.family == "vlm":
+            nv = max(2, self.seq // 8)
+            # rounded once from float64, as jnp.asarray rounds it
+            out["vision_embeds"] = torch.from_numpy(
+                rng.normal(0, 0.1, (b, nv, self.cfg.d_model))).to(
+                torch.bfloat16).to(dev)
+            T = self.seq + nv
+            pos = np.broadcast_to(np.arange(T, dtype=np.int32)[None, :, None],
+                                  (b, T, 3))
+            out["positions"] = torch.from_numpy(pos.copy()).to(dev)
+        if self.cfg.family == "encdec":
+            out["src_embeds"] = torch.from_numpy(
+                rng.normal(0, 0.1, (b, self.seq, self.cfg.d_model)).astype(
+                    np.float32)).to(dev)
+        return out
+
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-from .kernel import flash_attention
+from .kernel import flash_attention, flash_attention_bwd
 from .ops import mha
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref, lse_ref
 
-__all__ = ["flash_attention", "mha", "attention_ref"]
+__all__ = ["flash_attention", "flash_attention_bwd", "mha",
+           "attention_bwd_ref", "attention_ref", "lse_ref"]

@@ -16,7 +16,11 @@
 // block reads its row's offset once.  q, k, v and o are strided
 // (B, S, H, D) or (B, H, S, D) views, read in place.  Head dims: 32, 64,
 // 128 and 160 (stablelm-12b); 160 is no power of two, and every loop
-// over D steps in 8 or 16 elements, which divide it.
+// over D steps in 8 or 16 elements, which divide it.  For training, the
+// two prefill paths also write each query row's log-sum-exp of its scaled
+// scores (``lse``, fp32, -inf where the row sees no key) when the caller
+// passes one; the backward (flash_bwd.cu) recomputes P from it.  Serving
+// passes null and nothing else changes.
 //
 // Three paths.  The wrapper (../kernel.py, ``plan``) picks one by a plain
 // rule on dtype and shape and passes it in ``path``; none is a fallback:
@@ -100,6 +104,7 @@ namespace {
 
 constexpr float kNegInf = -1.0e30f;     // as NEG_INF in the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -108,6 +113,7 @@ struct Params {
   void* o;
   float* scratch;                       // decode partials (splits > 1)
   const int* q_offsets;                 // (B,) per-row offsets, or null
+  float* lse;                           // (B, Hq, Sq) row log-sum-exp, or null
   long long q_sb, q_ss, q_sh;           // element strides of (b, s, h)
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -414,6 +420,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_fp32(const Params p) {
         for (int i = 0; i < DPL; ++i) o[i] += acc_s[(w * R + r) * D + lane * DPL + i] * c;
       }
       l[r] = lsum;
+      m[r] = mx;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) acc[r][i] = o[i];
     }
@@ -423,6 +430,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_fp32(const Params p) {
   for (int r = 0; r < R; ++r) {
     const int qr = q0 + g * R + r;
     if (qr >= p.sq) continue;
+    if (p.lse && lane == 0)             // natural-log units; -inf: no key
+      p.lse[((long long)b * p.hq + hq) * p.sq + qr] =
+          l[r] == 0.f ? -CUDART_INF_F : m[r] + logf(l[r]);
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
     T* orow = O + b * p.o_sb + qr * p.o_ss + hq * p.o_sh + lane * DPL;
 #pragma unroll
@@ -695,6 +705,9 @@ __global__ void __launch_bounds__(kPrefillWarps * 32, 2) flash_fwd_prefill_mma(c
       const float inv = 1.f / (sum == 0.f ? 1.f : sum);
       const int row = w0 + mt * 16 + g + h * 8;
       if (row >= p.sq) continue;
+      if (p.lse && tig == 0)            // m is in log2 units of the scaled score
+        p.lse[((long long)b * p.hq + hq) * p.sq + row] =
+            sum == 0.f ? -CUDART_INF_F : (m[mt][h] + log2f(sum)) * kLn2;
 #pragma unroll
       for (int n = 0; n < ND; ++n)
         *reinterpret_cast<__nv_bfloat162*>(O + (long long)row * p.o_ss + n * 8 + tig * 2) =
@@ -1009,16 +1022,20 @@ extern "C" {
 // that order; the d stride is 1.  splits: key splits of the decode path;
 // with more than one, ``scratch`` holds B * Hq * splits * (D + 2) floats.
 // q_offsets: null, or B ints on the device, each row's query offset in
-// place of ``q_offset``.  Returns a cudaError_t (0 on success).
+// place of ``q_offset``.  lse: null, or B * Hq * Sq floats that take each
+// query row's log-sum-exp of its scaled scores (natural log; -inf for a
+// row that sees no key), which the backward (flash_bwd.cu) reads; only the
+// two prefill paths write it.  Returns a cudaError_t (0 on success).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* scratch, int path, int dtype, int B, int Hq, int Hkv,
               int Sq, int D, const long long* strides, int kv_len,
               int q_offset, const int* q_offsets, int causal, float scale,
-              int splits, void* stream) {
+              int splits, float* lse, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.scratch = static_cast<float*>(scratch);
   p.q_offsets = q_offsets;
+  p.lse = lse;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
@@ -1035,7 +1052,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)launch_prefill_d(p, B, D, st);
   }
   if (path == 1) {
-    if (Sq != 1 || splits < 1 || (splits > 1 && scratch == nullptr))
+    if (Sq != 1 || splits < 1 || (splits > 1 && scratch == nullptr) || lse)
       return (int)cudaErrorInvalidValue;
     p.splits = splits;
     const int per = (kv_len + splits - 1) / splits;

@@ -8,8 +8,9 @@ cross-attention over its cross cache (non-causal, no RoPE), then the MLP.
 The prefill encodes the source, fills every decoder layer's cross cache
 from the encoder output (``build_cross_caches``) and runs the target
 prefix; a decode step reads the cross caches as they are.  Caches are
-updated in place, as in ``transformer.py``.  ``encdec_loss`` is not
-ported yet (ROADMAP.md, Queue A, training).
+updated in place, as in ``transformer.py``.  ``encdec_loss`` trains the
+whole: the encoder and the cache-less decoder, each layer under
+``_remat`` as the JAX package's, then the chunked cross-entropy.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 from .common import ModelConfig, ParamDef
 from .layers import (apply_mlp, apply_norm, attention_def, cross_attention,
                      cross_attention_def, mlp_def, self_attention)
-from .transformer import _index_tree, norm_def, stack_defs, unembed_matrix
+from .transformer import (_index_tree, _remat, chunked_xent, norm_def,
+                          stack_defs, unembed_matrix)
 
 
 def _enc_layer_def(cfg: ModelConfig) -> dict:
@@ -66,12 +68,16 @@ def encode(params, cfg: ModelConfig, src_embeds: torch.Tensor):
     h = src_embeds.to(cfg.dtype)
     B, T = h.shape[:2]
     pos = _positions(B, T, 0, h.device)
-    for i in range(cfg.enc_layers):
-        p = _index_tree(params["enc_blocks"], i)
+
+    def layer(p, h):
         a, _ = self_attention(p["attn"], apply_norm(p["ln1"], h, cfg.norm),
                               cfg, causal=False, positions=pos)
         h = h + a
-        h = h + apply_mlp(p["mlp"], apply_norm(p["ln2"], h, cfg.norm), cfg)
+        return h + apply_mlp(p["mlp"], apply_norm(p["ln2"], h, cfg.norm), cfg)
+
+    layer = _remat(layer, cfg)
+    for i in range(cfg.enc_layers):
+        h = layer(_index_tree(params["enc_blocks"], i), h)
     return apply_norm(params["ln_enc"], h, cfg.norm)
 
 
@@ -85,9 +91,8 @@ def decode_trunk(params, cfg: ModelConfig, tokens, enc_out,
     h = params["embed"][tokens].to(cfg.dtype)
     B, T = h.shape[:2]
     pos = _positions(B, T, cache_index, h.device)
-    for i in range(cfg.dec_layers):
-        p = _index_tree(params["dec_blocks"], i)
-        c = None if caches is None else _index_tree(caches, i)
+
+    def layer(p, h, c):
         a, _ = self_attention(p["self_attn"],
                               apply_norm(p["ln1"], h, cfg.norm), cfg,
                               causal=True, positions=pos,
@@ -98,8 +103,31 @@ def decode_trunk(params, cfg: ModelConfig, tokens, enc_out,
                                apply_norm(p["ln2"], h, cfg.norm), enc_out,
                                cfg, kv_cache=None if c is None else c["cross"])
         h = h + a
-        h = h + apply_mlp(p["mlp"], apply_norm(p["ln3"], h, cfg.norm), cfg)
+        return h + apply_mlp(p["mlp"], apply_norm(p["ln3"], h, cfg.norm), cfg)
+
+    if caches is None:
+        layer = _remat(layer, cfg)
+    for i in range(cfg.dec_layers):
+        h = layer(_index_tree(params["dec_blocks"], i), h,
+                  None if caches is None else _index_tree(caches, i))
     return apply_norm(params["ln_dec"], h, cfg.norm), caches
+
+
+def encdec_loss(params, cfg: ModelConfig, batch: dict):
+    """batch: "src_embeds" (B, T_src, d), "tokens" and "labels" (B, T),
+    optionally "mask".  Mean masked xent of the decoder's logits; the aux
+    loss is 0.  Returns (loss, {"xent", "aux"})."""
+    enc_out = encode(params, cfg, batch["src_embeds"])
+    h, _ = decode_trunk(params, cfg, batch["tokens"], enc_out)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    mask = (torch.ones(labels.shape, dtype=torch.float32,
+                       device=labels.device) if mask is None
+            else mask.float())
+    loss = chunked_xent(h, unembed_matrix(params, cfg), labels, mask, cfg)
+    return loss, {"xent": loss,
+                  "aux": torch.zeros((), dtype=torch.float32,
+                                     device=loss.device)}
 
 
 def build_cross_caches(params, cfg: ModelConfig, enc_out, caches):

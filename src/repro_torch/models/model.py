@@ -1,4 +1,4 @@
-"""Model factory: ModelConfig -> {init, init_caches, prefill, decode}.
+"""Model factory: ModelConfig -> {init, init_caches, loss, prefill, decode}.
 
 Counterpart of ``repro.models.model``: the decoder-only families
 (``transformer.py``: dense, vlm, moe, ssm, hybrid) and the encoder-decoder
@@ -58,6 +58,12 @@ class Model:
         dev = resolve_device(device)
         defs = self.cache_defs(batch, max_len, cross_len, cache_dtype)
         return tree_defs_init(defs, None, dev)
+
+    def loss(self, params, batch: dict):
+        """(loss, {"xent", "aux"}): ``encdec_loss`` or ``lm_loss``."""
+        if self.cfg.family == "encdec":
+            return _encdec.encdec_loss(params, self.cfg, batch)
+        return _tf.lm_loss(params, self.cfg, batch)
 
     def prefill(self, params, batch: dict, caches):
         if self.cfg.family == "encdec":

@@ -12,14 +12,22 @@ unit is ``moe.every`` layers: ``every - 1`` dense layers ("dense_{j}")
 and then one whose MLP is the MoE ("moe_layer"), so llama4's interleave
 keeps the stacked leaves homogeneous.  The vlm family is the dense trunk
 with precomputed vision embeddings prepended and M-RoPE positions.  The
-encdec family is ``encdec.py``; ``lm_loss`` and ``chunked_xent`` are not
-ported yet (ROADMAP.md, Queue A).
+encdec family is ``encdec.py``.
+
+Training: ``trunk`` without caches runs each unit under ``_remat`` (the
+JAX package's ``jax.checkpoint`` per scan unit), ``lm_loss`` is the chunked
+cross-entropy (``chunked_xent``) plus ``AUX_LOSS_COEF`` times the MoE
+units' load-balancing losses.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .common import ModelConfig, ParamDef, tree_map_defs
 from .layers import (apply_mlp, apply_norm, attention_def, layernorm_def,
@@ -28,6 +36,7 @@ from .mamba2 import apply_mamba2, decode_mamba2, mamba2_def
 from .moe import apply_moe, moe_def
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+AUX_LOSS_COEF = 0.01
 
 
 def norm_def(cfg: ModelConfig) -> dict:
@@ -220,14 +229,18 @@ def _apply_moe_layer(p, h, cfg, positions, cache, cache_index):
 
 def _apply_moe_unit(p, h, cfg, positions, cache, cache_index):
     """The unit's ``every - 1`` dense layers, then its MoE layer (the JAX
-    package's ``_apply_unit`` order)."""
+    package's ``_apply_unit`` order).  Returns (h, the MoE layer's aux
+    loss)."""
     for j in range(cfg.moe.every - 1):
         key = f"dense_{j}"
-        h, _ = _apply_dense_layer(p[key], h, cfg, positions, cache[key],
-                                  cache_index)
-    h, _ = _apply_moe_layer(p["moe_layer"], h, cfg, positions,
-                            cache["moe_layer"], cache_index)
-    return h
+        h, _ = _apply_dense_layer(p[key], h, cfg, positions,
+                                  _sub(cache, key), cache_index)
+    return _apply_moe_layer(p["moe_layer"], h, cfg, positions,
+                            _sub(cache, "moe_layer"), cache_index)
+
+
+def _sub(cache, key):
+    return None if cache is None else cache[key]
 
 
 def _apply_ssm_layer(p, h, cfg, cache, cache_index, decode: bool = False):
@@ -245,43 +258,99 @@ def _apply_hybrid_unit(p, h, cfg, shared, positions, cache, cache_index,
     """``hybrid_attn_every`` Mamba-2 layers, then the shared block over
     this super-unit's own KV cache."""
     for j in range(cfg.hybrid_attn_every):
-        h, _ = _apply_ssm_layer(_index_tree(p["ssm_layers"], j), h, cfg,
-                                _index_tree(cache["ssm"], j), cache_index,
-                                decode)
-    h, _ = _apply_dense_layer(shared, h, cfg, positions, cache["attn"],
+        h, _ = _apply_ssm_layer(
+            _index_tree(p["ssm_layers"], j), h, cfg,
+            None if cache is None else _index_tree(cache["ssm"], j),
+            cache_index, decode)
+    h, _ = _apply_dense_layer(shared, h, cfg, positions, _sub(cache, "attn"),
                               cache_index)
     return h
 
 
-def trunk(params, cfg: ModelConfig, batch: dict, caches: dict,
-          cache_index: int, decode: bool = False):
-    """Embed + all blocks (+ the hybrid's tail) + final norm over the
-    caches, which are updated in place.  ``decode`` takes the Mamba-2
-    layers' one-token recurrence.  Returns (h, caches)."""
+#: the products that the "dots" policy keeps: the JAX package's
+#: ``dots_with_no_batch_dims_saveable`` keeps dot products without batch
+#: dims, which the port's einsums reach as a bmm of batch 1 or an mm
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS or (op is torch.ops.aten.bmm.default
+                       and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(fn, context_fn=None):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) where a
+    gradient is being taken: only its inputs are kept, the rest is
+    recomputed in the backward (``jax.checkpoint``)."""
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+
+    @functools.wraps(fn)
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``cfg.remat`` applied to ``fn``: "none" keeps every activation,
+    "full" only the inputs, "dots" also the products without batch dims.
+    Memory changes, never the numbers."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return _checkpoint(fn)
+    if cfg.remat == "dots":
+        return _checkpoint(fn, functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat {cfg.remat!r} is not none, full or dots")
+
+
+def trunk(params, cfg: ModelConfig, batch: dict, caches: dict | None = None,
+          cache_index: int = 0, decode: bool = False):
+    """Embed + all blocks (+ the hybrid's tail) + final norm.  With
+    ``caches`` they are updated in place; without (training), each unit
+    runs under ``_remat``.  ``decode`` takes the Mamba-2 layers'
+    one-token recurrence.  Returns (h, caches, aux): aux is the sum of the
+    MoE units' load-balancing losses (0 in the other families)."""
     _check_family(cfg)
     h = _embed_inputs(params, cfg, batch)
     B, T = h.shape[0], h.shape[1]
     positions = (None if cfg.family == "ssm" else
                  _positions_for(cfg, batch, B, T, cache_index, h.device))
-    for u in range(n_scan_units(cfg)):
-        p = _index_tree(params["blocks"], u)
-        cache = _index_tree(caches["blocks"], u)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def unit(p, h, cache):
         if cfg.family == "ssm":
-            h, _ = _apply_ssm_layer(p, h, cfg, cache, cache_index, decode)
-        elif cfg.family == "hybrid":
-            h = _apply_hybrid_unit(p, h, cfg, params["shared_attn"],
-                                   positions, cache, cache_index, decode)
-        elif cfg.family == "moe":
-            h = _apply_moe_unit(p, h, cfg, positions, cache, cache_index)
-        else:
-            h, _ = _apply_dense_layer(p, h, cfg, positions, cache,
-                                      cache_index)
+            return _apply_ssm_layer(p, h, cfg, cache, cache_index,
+                                    decode)[0], zero
+        if cfg.family == "hybrid":
+            return _apply_hybrid_unit(p, h, cfg, params["shared_attn"],
+                                      positions, cache, cache_index,
+                                      decode), zero
+        if cfg.family == "moe":
+            return _apply_moe_unit(p, h, cfg, positions, cache, cache_index)
+        return _apply_dense_layer(p, h, cfg, positions, cache,
+                                  cache_index)[0], zero
+
+    def tail(p, h, cache):
+        return _apply_ssm_layer(p, h, cfg, cache, cache_index, decode)[0]
+
+    if caches is None:
+        unit, tail = _remat(unit, cfg), _remat(tail, cfg)
+    aux = zero
+    for u in range(n_scan_units(cfg)):
+        h, a = unit(_index_tree(params["blocks"], u), h,
+                    None if caches is None
+                    else _index_tree(caches["blocks"], u))
+        aux = aux + a
     for j in range(hybrid_tail_layers(cfg)):
-        h, _ = _apply_ssm_layer(_index_tree(params["tail_blocks"], j), h,
-                                cfg, _index_tree(caches["tail"], j),
-                                cache_index, decode)
+        h = tail(_index_tree(params["tail_blocks"], j), h,
+                 None if caches is None else _index_tree(caches["tail"], j))
     h = apply_norm(params["ln_f"], h, cfg.norm)
-    return h, caches
+    return h, caches, aux
 
 
 def unembed_matrix(params, cfg: ModelConfig):
@@ -303,7 +372,7 @@ def lm_prefill(params, cfg: ModelConfig, batch: dict, caches):
     """Run the prompt through the trunk filling caches; returns last logits.
     ``batch``: "tokens" (B, T); for vlm optionally "vision_embeds" (B, Tv,
     d_model), prepended, and "positions" (B, Tv + T, 3)."""
-    h, caches = trunk(params, cfg, batch, caches, cache_index=0)
+    h, caches, _ = trunk(params, cfg, batch, caches, cache_index=0)
     return _logits(h[:, -1:], params, cfg), caches
 
 
@@ -311,6 +380,60 @@ def lm_decode(params, cfg: ModelConfig, batch: dict, caches,
               cache_index: int):
     """One decode step: batch["tokens"]: (B, 1); under M-RoPE optionally
     batch["positions"]: (B, 1, 3)."""
-    h, caches = trunk(params, cfg, batch, caches, cache_index=cache_index,
-                      decode=cfg.family in ("ssm", "hybrid"))
+    h, caches, _ = trunk(params, cfg, batch, caches, cache_index=cache_index,
+                         decode=cfg.family in ("ssm", "hybrid"))
     return _logits(h, params, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy and the loss
+# ---------------------------------------------------------------------------
+def _xent_chunk(hx, w, lx, mx):
+    """Summed masked xent of one chunk and its token count; logits in fp32
+    from the cfg.dtype operands (exact products, fp32 sums)."""
+    logits = torch.einsum("bcd,dv->bcv", hx.float(), w.float())
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lx[..., None].long())[..., 0]
+    return torch.sum((lse - ll) * mx), torch.sum(mx)
+
+
+def chunked_xent(h, w_out, labels, mask, cfg: ModelConfig):
+    """h: (B, T, d) -> mean masked token xent (fp32).  Logits exist one
+    chunk of ``cfg.xent_chunk`` tokens at a time; T is padded to whole
+    chunks (padding masked out), and each chunk is recomputed in the
+    backward unless ``cfg.remat`` is "none", as the JAX package's
+    ``jax.checkpoint`` of its scan body."""
+    B, T, d = h.shape
+    C = min(cfg.xent_chunk, T)
+    n_chunks = -(-T // C)
+    pad = n_chunks * C - T
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    h = h.to(cfg.dtype)
+    w = w_out.to(cfg.dtype)
+    body = _xent_chunk if cfg.remat == "none" else _checkpoint(_xent_chunk)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        sl = slice(i * C, (i + 1) * C)
+        t, c = body(h[:, sl], w, labels[:, sl], mask[:, sl])
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params, cfg: ModelConfig, batch: dict):
+    """Mean next-token xent over ``batch["labels"]`` (masked by
+    ``batch["mask"]`` where given) plus ``AUX_LOSS_COEF`` x the MoE aux
+    loss.  vlm: over the text region after the vision embeddings.
+    Returns (loss, {"xent", "aux"})."""
+    h, _, aux = trunk(params, cfg, batch)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    mask = (torch.ones(labels.shape, dtype=torch.float32,
+                       device=labels.device) if mask is None
+            else mask.float())
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        h = h[:, batch["vision_embeds"].shape[1]:]
+    loss = chunked_xent(h, unembed_matrix(params, cfg), labels, mask, cfg)
+    return loss + AUX_LOSS_COEF * aux, {"xent": loss, "aux": aux}

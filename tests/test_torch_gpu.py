@@ -14,7 +14,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.kernels._launches import launched_kernels
-from repro_torch.kernels.flash_attention import attention_ref, kernel, mha
+from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                 attention_ref, kernel,
+                                                 lse_ref, mha)
 from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_ref, ssd_scan
 from repro_torch.launch.serve import Request, ServeLoop
 
@@ -1146,3 +1148,258 @@ def test_lotaru_ml_observe_batch_waits_on_the_card_twice(S):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert calls == [1, 1]
+
+
+# ---------------------------------------------------------------------------
+# The flash backward kernel and the training path
+# ---------------------------------------------------------------------------
+#: (B, Hq, Hkv, Sq, Sk, D, causal): causal and non-causal self-attention,
+#: cross-attention (Sq != Sk), GQA 1/4/7/8, D 32/64/128/160, ragged tiles
+BWD_CASES = [
+    (2, 4, 4, 64, 64, 64, True),
+    (1, 4, 4, 100, 100, 32, True),       # ragged, one causal diagonal
+    (2, 4, 1, 130, 130, 128, True),      # GQA 4, three query tiles
+    (1, 28, 4, 70, 70, 128, True),       # qwen2: GQA 7
+    (1, 32, 4, 65, 65, 128, True),       # GQA 8, one row past a tile
+    (1, 8, 2, 70, 70, 160, True),        # D 160
+    (2, 16, 16, 90, 90, 64, False),      # encoder
+    (2, 16, 16, 13, 150, 64, False),     # cross: Sq < Sk
+    (1, 8, 2, 200, 33, 32, False),       # cross: Sq > Sk, GQA 4
+]
+
+
+def _bwd_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+    return (rnd(B, Hq, Sq, D), rnd(B, Hkv, Sk, D), rnd(B, Hkv, Sk, D),
+            rnd(B, Hq, Sq, D))
+
+
+def _grad_close(out, ref, tol, what):
+    scale = ref.float().abs().max()
+    err = float((out.float() - ref.float()).abs().max() / scale)
+    assert err <= tol, (what, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32-cuda_core", "bfloat16-mma"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal", BWD_CASES)
+def test_flash_bwd_matches_plain_version(dtype, B, Hq, Hkv, Sq, Sk, D,
+                                         causal):
+    """dq, dk, dv of each path of the kernel (one a dtype) against ``attention_bwd_ref``
+    on the same inputs (the kernel's output and log-sum-exp), each within
+    the forward's bar relative to the gradient's max; the forward's lse
+    against ``lse_ref``; a second run equal bit for bit."""
+    _need_card()
+    q, k, v, do = _bwd_inputs(B, Hq, Hkv, Sq, Sk, D, dtype)
+    out, lse = kernel.flash_attention(q, k, v, causal=causal,
+                                      return_lse=True)
+    torch.testing.assert_close(lse, lse_ref(q, k, causal=causal),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    before = kernel.BWD_LAUNCHES
+    grads = kernel.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel.BWD_LAUNCHES == before + 1
+    refs = attention_bwd_ref(q, k, v, out, do, lse, causal=causal)
+    for name, g, r, t in zip("qkv", grads, refs, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape, name
+        _grad_close(g, r, TOL[dtype], f"d{name}")
+    again = kernel.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    for g, h in zip(grads, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_path_by_dtype():
+    """bf16 takes the tensor cores, float32 the CUDA cores; rows the
+    tensor-core path's copies cannot take are refused."""
+    _need_card()
+    assert kernel.bwd_plan(torch.bfloat16) == "mma"
+    assert kernel.bwd_plan(torch.float32) == "cuda_core"
+    q, k, v, do = _bwd_inputs(1, 2, 2, 64, 64, 64, torch.bfloat16)
+    out, lse = kernel.flash_attention(q, k, v, return_lse=True)
+    odd = torch.empty(1, 2, 64, 72, device="cuda",
+                      dtype=torch.bfloat16)[..., 1:65]
+    odd.copy_(do)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel.flash_attention_bwd(q, k, v, out, odd, lse)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_masks_kv_len_and_offsets():
+    """The forward's other masks: kv_len < Sk, a query offset and one
+    offset per batch row; keys past kv_len get a zero gradient."""
+    _need_card()
+    q, k, v, do = _bwd_inputs(2, 4, 2, 40, 130, 64, torch.float32, seed=5)
+    for kw in ({"kv_len": 100, "q_offset": 60},
+               {"kv_len": 120,
+                "q_offset": torch.tensor([10, 80], device="cuda")}):
+        out, lse = kernel.flash_attention(q, k, v, causal=True,
+                                          return_lse=True, **kw)
+        grads = kernel.flash_attention_bwd(q, k, v, out, do, lse,
+                                           causal=True, **kw)
+        refs = attention_bwd_ref(q, k, v, out, do, lse, causal=True, **kw)
+        for name, g, r in zip("qkv", grads, refs):
+            _grad_close(g, r, 2e-5, f"d{name}")
+        assert not bool(grads[1][:, :, kw["kv_len"]:].any())
+
+
+@pytest.mark.gpu
+def test_flash_bwd_in_a_cuda_graph():
+    """The backward's three kernels replay from a CUDA graph (as
+    chip_smoke.py times them) and equal the eager call."""
+    _need_card()
+    q, k, v, do = _bwd_inputs(2, 8, 2, 256, 256, 64, torch.bfloat16, seed=6)
+    out, lse = kernel.flash_attention(q, k, v, causal=True, return_lse=True)
+    eager = kernel.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        grads = kernel.flash_attention_bwd(q, k, v, out, do, lse,
+                                           causal=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, e in zip(grads, eager):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-7b", "seamless-m4t-large-v2"])
+def test_mha_gradient_reaches_every_attention_weight(arch):
+    """A gradient through ``mha`` on the card (forward and backward
+    kernels, one launch each per attention) reaches wq, wk, wv and the
+    QKV biases (qwen2) and the cross-attention's weights (seamless), and
+    every leaf equals the CPU's plain path in float32 (1e-4 x max)."""
+    _need_card()
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import leaves
+    cfg = _small(arch)
+    model = build_model(cfg)
+    # at unit score variance (chip_smoke.py's unit_score_scale): the init's
+    # near one-hot softmax lets fp32 rounding alone pass 1e-4
+    params = _unit_scores(model.init(0, device="cpu"),
+                          cfg.resolved_head_dim() ** -0.5)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        flat = leaves(p)
+        for t in flat:
+            t.requires_grad_(True)
+        batch = SyntheticLMData(cfg, seq=24, global_batch=2, seed=1,
+                                device=dev).batch(0)
+        fwd, bwd = kernel.LAUNCHES, kernel.BWD_LAUNCHES
+        loss, _ = model.loss(p, batch)
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, flat)]
+        if dev == "cuda":
+            n_attn = (cfg.n_layers if cfg.family != "encdec"
+                      else cfg.enc_layers + 2 * cfg.dec_layers)
+            # the forward twice a unit under full remat
+            assert kernel.LAUNCHES - fwd == 2 * n_attn
+            assert kernel.BWD_LAUNCHES - bwd == n_attn
+    names = [n for n, _ in _paths(params)]
+    for name, g, r in zip(names, grads["cuda"], grads["cpu"]):
+        if any(w in name for w in ("wq", "wk", "wv", "bq", "bk", "bv")):
+            assert float(g.abs().sum()) > 0, name
+        _grad_close(g, r, 1e-4, name)
+
+
+def _unit_scores(tree, s):
+    return {k: (_unit_scores(v, s) if isinstance(v, dict)
+                else v * s if k in ("wq", "wk") else v)
+            for k, v in tree.items()}
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.detach().to(dev).clone()
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _paths(tree[k],
+                                                        f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+@pytest.mark.gpu
+def test_ssd_gradient_raises_on_the_card():
+    """The SSD scan has no backward kernel yet: asking it for a gradient
+    on the card raises rather than leave the inputs without one."""
+    _need_card()
+    x, dt, a, B_, C_, _ = _ssd_inputs(1, 64, 2, 16, 1, 16, torch.float32)
+    x.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="SSD backward"):
+        ssd(x, dt, a, B_, C_, chunk=32)
+    with torch.no_grad():
+        ssd(x, dt, a, B_, C_, chunk=32)
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_cpu():
+    """A train step of the widened stablelm smoke model (float32
+    activations, 2 microbatches) on the card and on the CPU from the same
+    state: the loss within 1e-4; then the gradients of one batch within
+    1e-4 x each leaf's max, and one AdamW step from the card's gradients
+    on both devices, the parameters within 1e-4 x max (from each device's
+    own gradients Adam's ~lr x sign(g) can put an element whose gradient
+    is 0 up to rounding 2 lr apart)."""
+    _need_card()
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_defs_init
+    from repro_torch.optim import AdamWConfig, apply_updates, state_defs
+    from repro_torch.optim.adamw import leaves, unflatten
+    cfg = _small("stablelm-1.6b")
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    params = _unit_scores(model.init(0, device="cpu"),
+                          cfg.resolved_head_dim() ** -0.5)
+    losses, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        batch = SyntheticLMData(cfg, seq=32, global_batch=4, seed=2,
+                                device=dev).batch(0)
+        state = tree_defs_init(state_defs(model.param_defs, opt), None, dev)
+        _, _, m = make_train_step(model, opt, microbatches=2)(
+            _to(params, dev), state, batch)
+        losses[dev] = float(m["loss"])
+        p = _to(params, dev)
+        flat = leaves(p)
+        for t in flat:
+            t.requires_grad_(True)
+        loss, _ = model.loss(p, batch)
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, flat)]
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        _grad_close(a, b, 1e-4, "grads")
+    after = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        state = tree_defs_init(state_defs(model.param_defs, opt), None, dev)
+        apply_updates(p, unflatten(p, [g.to(dev) for g in grads["cuda"]]),
+                      state, opt)
+        after[dev] = [t.cpu() for t in leaves(p)]
+    for a, b in zip(after["cuda"], after["cpu"]):
+        _grad_close(a, b, 1e-4, "params")
+
+
+
+@pytest.mark.gpu
+def test_adamw_sqrt_on_the_card_equals_the_cpu_route():
+    """AdamW's root takes CUDA's fp32 sqrt on the card and the float64
+    route on the CPU: both are the correctly rounded root, bit for bit."""
+    _need_card()
+    from repro_torch.optim.adamw import _sqrt
+    g = torch.Generator().manual_seed(3)
+    x = torch.exp(torch.empty(1 << 16).uniform_(-60, 60, generator=g))
+    x = torch.cat([x, torch.tensor([0.0, 1.0, 2.0, 1e-38, 3e38])])
+    assert torch.equal(_sqrt(x.cuda()).cpu(), _sqrt(x))

@@ -33,6 +33,7 @@ ENTRY_POINTS = [ROOT / "chip_smoke.py",
                 ROOT / "examples" / "online_reestimation_torch.py",
                 ROOT / "examples" / "quickstart_torch.py",
                 ROOT / "examples" / "heterogeneous_schedule_torch.py",
+                ROOT / "examples" / "train_lm_torch.py",
                 ROOT / "scripts" / "report_trace_torch.py"]
 
 
@@ -54,7 +55,9 @@ def test_importing_every_port_module_loads_no_jax():
         "        'repro_torch.obs.profiling', 'repro_torch.obs.registry',\n"
         "        'repro_torch.obs.report', 'repro_torch.online.buffer',\n"
         "        'repro_torch.online.executor', 'repro_torch.online.fleet',\n"
-        "        'repro_torch.launch.mesh'}\n"
+        "        'repro_torch.launch.mesh', 'repro_torch.launch.train',\n"
+        "        'repro_torch.optim.adamw', 'repro_torch.optim.compress',\n"
+        "        'repro_torch.checkpoint.store'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

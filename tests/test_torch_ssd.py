@@ -258,3 +258,17 @@ def test_chunked_path_arithmetic_at_state_64(terms):
                     / np.abs(np.asarray(ref)).max())
               for out, ref in ((y.numpy(), ref_y), (state.numpy(), ref_state)))
     assert err <= TOL, err
+
+
+def test_plain_scan_is_differentiated_on_the_cpu():
+    """On the CPU the SSD entry is the plain scan, which autograd
+    differentiates (the card's kernel has no backward yet and raises)."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 16, 2, 8, generator=g, requires_grad=True)
+    dt = torch.rand(1, 16, 2, generator=g) * 0.1
+    a = -torch.rand(2, generator=g)
+    B_ = torch.randn(1, 16, 1, 8, generator=g)
+    C_ = torch.randn(1, 16, 1, 8, generator=g)
+    y, state = ssd(x, dt, a, B_, C_, chunk=8)
+    (y.sum() + state.sum()).backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
