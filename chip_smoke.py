@@ -634,11 +634,12 @@ def _device_us(event, inclusive: bool) -> float:
     return float(getattr(event, name, getattr(event, legacy, 0.0)))
 
 
-def profile_steps(torch, fn, steps, marker, label, launches):
+def profile_steps(torch, fn, steps, marker, label, launches, parts=()):
     """``fn(s)`` for s in range(steps) under torch.profiler: wall and
     device-busy time per step (one stream, so device events do not
     overlap), kernels per step, the device time and launches per step of
-    the kernels whose name holds ``marker``, the top kernels and
+    the kernels whose name holds ``marker`` (and, under ``parts_ms``, of
+    those whose name holds each of ``parts``), the top kernels and
     operators by device time.  ``launches()`` reads the kernel's counter."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -670,6 +671,8 @@ def profile_steps(torch, fn, steps, marker, label, launches):
            "kernels_per_step": sum(n for _, _, n in kernels) / steps,
            f"{label}_ms_per_step": own_ms,
            f"{label}_launches_per_step": (launches() - launches0) / steps,
+           "parts_ms": {part: sum(ms for k, ms, _ in kernels if part in k)
+                        for part in parts},
            "kernels": kernels[:40], "operators": ops[:40]}
     print(f"  wall {out['wall_ms_per_step']:.3f} ms/step, device busy "
           f"{busy_ms:.3f} ms/step "
@@ -2697,8 +2700,8 @@ def bwd_inputs(torch, B, Hq, Hkv, Sq, Sk, D, dtype, seed):
 
 
 def run_bwd_checks(torch, kernel, attention_bwd_ref, lse_ref):
-    """13a: each case in float32 (the CUDA-core path) and bf16 (the
-    tensor-core path): the
+    """13a: each case in float32 (the CUDA-core path) and bf16 (the wgmma
+    path; mma.sync at D 160): the
     forward's lse against ``lse_ref``, dq, dk, dv against
     ``attention_bwd_ref`` on the same inputs (the kernel's output and
     lse), each within the forward's bar relative to the gradient's max,
@@ -2706,7 +2709,7 @@ def run_bwd_checks(torch, kernel, attention_bwd_ref, lse_ref):
     results = []
     for i, (name, B, Hq, Hkv, Sq, Sk, D, causal) in enumerate(BWD_CASES):
         for dtype in (torch.float32, torch.bfloat16):
-            path = kernel.bwd_plan(dtype)
+            path = kernel.bwd_plan(dtype, D)
             dname = str(dtype).split(".")[1]
             tol = TOL[dname]
             q, k, v, do = bwd_inputs(torch, B, Hq, Hkv, Sq, Sk, D, dtype, i)
@@ -2754,7 +2757,8 @@ def run_bwd_timings(torch, kernel, attention_bwd_ref, lse_ref, sdpa):
     a yardstick the port never calls; both with ``host_ms``, CUDA events
     around back-to-back calls: a CUDA graph cannot take autograd, nor the
     plain version's tens of GB of temporaries), the forward with and
-    without lse, the bound."""
+    without lse, the bound; the achieved TFLOP/s and share of the bound
+    (13e's profile splits the call among its kernels)."""
     rows = []
     for name, B, Hq, Hkv, T, D in BWD_TIMED:
         q, k, v, do = bwd_inputs(torch, B, Hq, Hkv, T, T, D, torch.bfloat16,
@@ -2794,10 +2798,11 @@ def run_bwd_timings(torch, kernel, attention_bwd_ref, lse_ref, sdpa):
         del refs, grads
         torch.cuda.empty_cache()
         b_ms, b_by = bwd_bound(B, Hq, Hkv, T, D, 2)
+        bwd_flops = 2.5 * 4 * D * B * Hq * T * (T + 1) / 2
         row = {"shape": name, "B": B, "H": Hq, "Hkv": Hkv, "T": T, "D": D,
                "dtype": "bfloat16", "causal": True, "rel_err": errs,
                "max_abs_err": abs_err, "lse_err": lse_err,
-               "path": kernel.bwd_plan(torch.bfloat16),
+               "path": kernel.bwd_plan(torch.bfloat16, D),
                "ms": device_ms(torch, kern, calls=3, replays=2),
                "host_ms": host_ms(torch, kern, budget_ms=100.0),
                "plain_ms": host_ms(torch, plain, budget_ms=100.0),
@@ -2807,6 +2812,9 @@ def run_bwd_timings(torch, kernel, attention_bwd_ref, lse_ref, sdpa):
                "fwd_lse_ms": device_ms(torch, lambda: kernel.flash_attention(
                    q, k, v, causal=True, return_lse=True)),
                "bound_ms": b_ms, "bound_by": b_by}
+        row["tflops"] = bwd_flops / row["ms"] / 1e9
+        row["library_tflops"] = bwd_flops / row["library_ms"] / 1e9
+        row["bound_share"] = b_ms / row["ms"]
         print(f"  {name:22s} B{B} T{T} H{Hq}/{Hkv} D{D}: lse {lse_err:.2e}; "
               "dq/dk/dv "
               + " ".join(f"{e:.2e}" for e in errs.values())
@@ -2815,6 +2823,10 @@ def run_bwd_timings(torch, kernel, attention_bwd_ref, lse_ref, sdpa):
               f"ms  bound {b_ms:9.4f} ms ({b_by}); host {row['host_ms']:9.4f}"
               f" ms; forward {row['fwd_ms']:.4f} ms, with lse "
               f"{row['fwd_lse_ms']:.4f} ms", flush=True)
+        print(f"    {row['path']}: {row['tflops']:.1f} TFLOP/s "
+              f"({100 * row['bound_share']:.1f}% of the bound; SDPA's "
+              f"backward {row['library_tflops']:.1f} TFLOP/s), kernel / "
+              f"SDPA {row['ms'] / row['library_ms']:.3f}", flush=True)
         rows.append(row)
         del q, k, v, do, out, lse, qc, kc, vc, lib_out
         torch.cuda.empty_cache()
@@ -3040,14 +3052,23 @@ def full_width_training(torch, kernel, train_mod, make_train_step,
     def launches():
         return kernel.LAUNCHES + kernel.BWD_LAUNCHES
     print("  one more step under torch.profiler:", flush=True)
-    prof = profile_steps(torch, one, 1, "flash_", "flash", launches)
+    bwd_kernels = kernel.BWD_KERNELS[kernel.bwd_plan(
+        torch.bfloat16, cfg.resolved_head_dim())]
+    prof = profile_steps(torch, one, 1, "flash_", "flash", launches,
+                         parts=("flash_bwd",) + bwd_kernels)
     del params, state, batch
     torch.cuda.empty_cache()
+    bwd_ms = prof["parts_ms"]["flash_bwd"]
+    busy = prof["device_busy_ms_per_step"]
+    print(f"  flash backward {bwd_ms:.3f} ms of the step's {busy:.3f} busy "
+          f"ms ({100 * bwd_ms / busy:.1f}%): "
+          + ", ".join(f"{k} {prof['parts_ms'][k]:.3f}" for k in bwd_kernels),
+          flush=True)
     return {"losses": losses, "step_ms": step_ms, "tokens_per_s": tok_s,
             "peak_memory_gb": peak_gb, "flash_fwd_launches": fwd,
             "flash_bwd_launches": bwd, "seconds": wall, "profile": prof,
-            "busy_share": prof["device_busy_ms_per_step"]
-            / prof["wall_ms_per_step"]}
+            "flash_bwd_ms_per_step": bwd_ms,
+            "busy_share": busy / prof["wall_ms_per_step"]}
 
 
 def run_training_phase(torch, kernel, get_config, build_model):

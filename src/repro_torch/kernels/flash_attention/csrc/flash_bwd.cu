@@ -2,7 +2,7 @@
 //
 // The gradient of the forward in flash_fwd.cu.  The JAX package has no
 // backward kernel: it trains through ``chunked_attention``
-// (src/repro/models/layers.py), the XLA twin of the TPU Pallas kernel
+// (src/repro/models/layers.py:94), the XLA twin of the TPU Pallas kernel
 // src/repro/kernels/flash_attention/kernel.py::_flash_fwd_kernel, and XLA
 // derives the gradient.  This is that gradient, from the flash-attention
 // formulas (Dao 2022, algorithm 2), on the card:
@@ -17,58 +17,91 @@
 // iff j < kv_len and, when causal, j <= q_offset(b) + i.  GQA: dK and dV of
 // a kv head sum the contributions of the query heads of its group.
 //
-// Three kernels, launched in order on the caller's stream by one C entry:
-//   1. ``flash_bwd_delta``: Delta = rowsum(dO * O) in fp32, a warp a row;
-//   2. a dK/dV kernel: one block per (key tile of 64, kv head, b); it
-//      holds its K and V tile in shared memory and loops over the group's
-//      query heads and over the query tiles that see its keys, recomputing
-//      P and dS per (query tile, key tile) and accumulating dK and dV in
-//      registers; it writes dK and dV once;
-//   3. a dQ kernel: one block per (query tile of 64, query head, b); it
-//      loops over the key tiles its rows see and accumulates dQ in
-//      registers, recomputing P and dS.
-// No block adds into another's output and every sum runs in a fixed
-// order: no atomics, so the result is the same bit for bit from run to
-// run (the restart check of the trainer relies on it).
+// Bound.  A causal call does 5 products per visible (query, key) pair
+// (S, dP, dV, dK, dQ), 2.5x the forward's operations: at (B 4, T 4096, H
+// 32, D 64) 0.6950 ms at the bf16 peak (989 TFLOP/s), at (B 4, T 4096, H
+// 28, Hkv 4, D 128) 1.2163 ms; the bytes (q, k, v, o, dO, lse read once,
+// dq, dk, dv written once) take a tenth of that.  Operations bound it.
 //
-// Two paths for kernels 2 and 3, chosen by dtype:
+// Every sum runs in a fixed order: equal inputs give equal outputs bit for
+// bit (the trainer's restart check relies on it).  Three paths, which the
+// caller names (kernel.py's ``bwd_plan``):
 //
-//   bfloat16: ``flash_bwd_dkdv_mma`` and ``flash_bwd_dq_mma``, on the
-//      tensor cores (mma.sync.m16n8k16, bf16 operands, fp32 accumulators),
-//      4 warps a block.  Bound: operations; a causal (B 4, T 4096, H 32,
-//      D 64) call needs ~2.5x the forward's FLOPs (~0.70 ms at the bf16
-//      peak).  In the dK/dV kernel a warp owns 16 keys and computes S^T =
-//      K Q^T and dP^T = V dO^T, so P^T and dS^T come out of the products
-//      in the layout of the A operand of the next ones (dV += P^T dO, dK
-//      += dS^T Q), rounded to bf16 in registers as the forward's P is; a
-//      query tile is 64 rows (32 at D 128 and 160, where the dK and dV
-//      accumulators take 2 D / 4 registers a lane).  The dQ kernel is the
-//      forward's shape: a warp owns 16 query rows, S = Q K^T and dP =
-//      dO V^T, then dQ += dS K.  Tiles are copied by cp.async (16 bytes,
-//      rows past the end zero-filled) into rows padded by 16 bytes, and
-//      read by ldmatrix (.trans for the B operands of dV, dK and dQ).
-//      Both kernels recompute S and dP; one tile is in flight at a time.
-//   float32: CUDA cores, fp32 FMAs, as the float32 forward (the tensor
-//      cores' only fp32 product is TF32, which would break the 2e-5 bar):
-//      ``flash_bwd_dkdv`` and ``flash_bwd_dq``, 256 threads as 16
-//      x 16, each tile staged in shared memory.  For S and dP a thread owns rows ty +
-//      16a and keys tx + 16c (a, c < 4) of the 64 x 64 tile; for the
-//      accumulators it owns 4 keys (dkdv) or rows (dq), ty + 16a, by D /
-//      16 head dims tx + 16m.  The tiles are padded to an odd pitch
-//      (D + 1), so a column of 16 rows falls in 16 banks; P and dS to a
-//      pitch of 80.  Its inner products are limited by shared-memory loads
-//      (8 loads for 16 FMAs).  D 160 uses 206 KB of shared memory a block.
+//   wgmma (bfloat16, D 32, 64, 128): ``flash_bwd_wgmma``, the Hopper
+//      design, one pass.  Each tile is (128 keys, one query head, b), so
+//      a GQA group's heads run in parallel, not in a loop.  A block has
+//      two consumer warpgroups (64 keys each) and a producer warpgroup:
+//      its warp 0 takes tiles and issues the TMA loads, one lane of each
+//      of its warps 1 .. DQ_STAGES adds dQ to device memory; setmaxnreg
+//      gives the consumers 240 registers and the producer 24, in one
+//      if/else on the warpgroup.  The producer feeds K and V of a tile,
+//      then per query tile of 64 rows Q, dO (TMA, 128-byte swizzle, or
+//      64-byte at D 32; D 128 is two boxes of 64) and that tile's lse *
+//      log2(e) and Delta (bulk copies of a padded array,
+//      ``flash_bwd_stats``) into a ring of 3 stages (2 at D 128), each
+//      guarded by a full and an empty mbarrier, so the next query tiles
+//      load while this one computes.  A consumer warpgroup runs all five
+//      products as wgmma: S^T = K Q^T and dP^T = V dO^T (operands from
+//      shared memory), P^T and dS^T in registers, which is the A-operand
+//      layout of dV += P^T dO and dK += dS^T Q (A from registers, dO and
+//      Q read transposed).  dS^T also goes to shared memory (128-byte
+//      swizzle, fence.proxy.async, a barrier of the warpgroup), and the
+//      warpgroup's share of dQ, dS K over its 64 keys, is a wgmma with
+//      both operands transposed, in flight with dV and dK.  Warpgroup 0
+//      writes its share to a dQ buffer in shared memory, warpgroup 1 adds
+//      its own to it (one order), and a reducer lane adds the buffer to
+//      an fp32 accumulator in device memory with a bulk reduce-add.  So S
+//      and dP are computed once: 5 products per pair, not the 7 of two
+//      passes.  ``flash_bwd_dq_convert`` then scales the accumulator and
+//      writes dq in bf16.  Three launches: statistics, main, conversion.
+//      Determinism: each (query tile, head-dim box) has a counter, and
+//      the key tiles that visit a query tile add to it from the last down
+//      (``tile_work``): key tile n adds when the counter reads n_last - n
+//      and then sets it one higher.  GQA: the heads of a group sum dK and
+//      dV in fp32 in head order under a counter per (key tile, consumer
+//      warpgroup); the last head writes bf16.  No atomic whose order can
+//      vary touches a result.
+//      Schedule: a persistent grid of at most one block an SM, whose
+//      producers take tiles in index order from a counter (``take_tile``)
+//      head by head, the key tiles of a head together (their dQ adds then
+//      meet in L2) and its last key tile first (so the tile that adds
+//      before another was taken before it).  A tile only ever waits on a
+//      tile taken before it, on a block that runs: no deadlock, whatever
+//      the number of SMs free.
+//   mma (bfloat16, D 160): ``flash_bwd_dkdv_mma`` and ``flash_bwd_dq_mma``,
+//      mma.sync.m16n8k16 in 4 warps, a tile copied by cp.async at a time,
+//      S and dP computed in both.  D 160 stays here: the dK and dV
+//      accumulators of 64 keys alone take 160 registers a thread of a
+//      warpgroup, which leaves too few for S, dP and dQ under 240.
+//   cuda_core (float32): ``flash_bwd_dkdv`` and ``flash_bwd_dq``, fp32
+//      FMAs (the tensor cores' only fp32 product is TF32, which would
+//      break the 2e-5 bar), 256 threads as 16 x 16, each tile staged in
+//      shared memory at an odd pitch (D + 1).
+//
+// The five causes that held the first (mma) design back, and the answers
+// of the wgmma path: (1) one tile in flight: a TMA ring of 2-3 stages fed
+// by a producer warp; (2) mma.sync: wgmma; (3) S and dP computed twice:
+// one pass with dQ summed through device memory in a fixed order; (4) a
+// serial loop over a GQA group in the longest blocks: a tile per query
+// head, taken from a counter by a persistent grid; (5) 32-row query tiles
+// at D 128: 64.  What bounds it now: the dQ adds (an fp32 box of 64 rows
+// a (key tile, query tile) pair, as much traffic as FlashAttention's
+// atomics) and the exponentials and the hand-offs between the roles
+// (PERF.md has the readings).
 //
 // q, k, v, o, dO, dq, dk, dv are strided (B, S, H, D) or (B, H, S, D) views
-// with stride 1 in D.  wgmma with TMA-fed tiles, a ring of tiles in
-// flight, and one pass for dQ as well (a deterministic reduction, not
-// atomics) are later work.
+// with stride 1 in D.  The TMA descriptors are encoded on the host per call
+// (cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint: no
+// libcuda at link time) and passed as __grid_constant__ parameters, so a
+// CUDA graph replays them.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_bwd.so flash_bwd.cu
-// Bound with ctypes (see ../kernel.py).  The launcher allocates nothing,
-// launches on the stream it is given and returns cudaGetLastError().
+// Bound with ctypes (see ../kernel.py).  The launcher allocates nothing
+// (the caller passes the scratch), launches on the stream it is given and
+// returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -87,14 +120,21 @@ struct BwdParams {
   const void* o;
   const void* dout;
   const float* lse;                     // (B, Hq, Sq) from the forward
-  float* delta;                         // (B, Hq, Sq) scratch
+  float* delta;                         // (B, Hq, Sq), wgmma (B, Hq, sq_pad)
+  float* lse2;                          // wgmma: (B, Hq, sq_pad) lse * log2(e)
   void* dq;
   void* dk;
   void* dv;
+  float* dq_accum;                      // wgmma: fp32 dQ sums
+  float* dkv_accum;                     // wgmma, GQA: fp32 dK, dV sums
+  int* dq_sems;                         // wgmma: counters, zeroed
+  int* kv_sems;
+  int* tile_counter;                    // wgmma: the next tile to take
   const int* q_offsets;                 // (B,) per-row offsets, or null
   // element strides (b, s, h) of q, k, v, o, dO, dq, dk, dv, in that order
   long long st[8][3];
   int B, sq, sk, hq, hkv, d;
+  int sq_pad;                           // rows of delta and lse2 a head
   int kv_len, q_offset, causal;
   float scale;
 };
@@ -108,10 +148,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ long long offset(const BwdParams& p, int t, int b,
@@ -406,7 +442,7 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
 }
 
 
-// ---- the tensor-core path (bf16): mma.sync, as the forward's prefill -------
+// ---- the mma path (bf16, D 160): mma.sync, as the forward's prefill --------
 
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;
@@ -795,13 +831,929 @@ cudaError_t launch_mma(const BwdParams& p, cudaStream_t stream) {
 }
 
 cudaError_t launch_mma_d(const BwdParams& p, cudaStream_t stream) {
-  // 64 query rows a dK/dV tile where its registers allow; 32 at D 128
-  // and 160 (the accumulators of dK and dV take 2 D / 4 registers a lane).
+  // D 160 only (the wgmma path takes the others); a dK/dV query tile is
+  // 32 rows (the accumulators of dK and dV take 2 D / 4 registers a lane).
+  if (p.d != 160) return cudaErrorInvalidValue;
+  return launch_mma<160, 32>(p, stream);
+}
+
+// ---- the wgmma path (bf16, D 32, 64, 128): Hopper's TMA, mbarriers, wgmma --
+
+constexpr int kBK = 128;                // keys a tile, 64 a consumer warpgroup
+constexpr int kBQ = 64;                 // query rows a ring stage
+constexpr int kHopperThreads = 384;     // consumers: warpgroups 0, 1; producer 2
+constexpr int kTileRing = 4;            // tiles taken ahead by the producer
+
+// The layout of a tile in shared memory, per head dim.  A row of a TMA box
+// is BOXW elements (128 bytes, or 64 at D 32) under the swizzle of its
+// width; D 128 is two boxes side by side.  Offsets in bytes from a base
+// aligned to 1024.
+template <int D> struct Geo {
+  static constexpr int BOXW = D < 64 ? D : 64;
+  static constexpr int ROWB = 2 * BOXW;            // bytes of a box row
+  static constexpr int NBOX = D / BOXW;
+  static constexpr int KPB = BOXW / 16;            // k-steps of 16 in a box
+  static constexpr uint32_t SWZ = ROWB == 128 ? 1 : 2;   // wgmma: 128B, 64B
+  static constexpr int STAGES = D >= 128 ? 2 : 3;
+  // dQ share buffers, one reducer lane each (the producer warpgroup's
+  // warps 1 .. DQ_STAGES; a third buffer and lane at D 32 and 64 measured
+  // no faster)
+  static constexpr int DQ_STAGES = 2;
+  static constexpr int KV_BOX = kBK * ROWB;
+  static constexpr int Q_BOX = kBQ * ROWB;
+  static constexpr int KV_TILE = NBOX * KV_BOX;
+  static constexpr int Q_TILE = NBOX * Q_BOX;
+  static constexpr int STAGE = 2 * Q_TILE;         // Q, then dO
+  static constexpr int DS_BUF = kBK * kBQ * 2;     // dS^T, [kBK][kBQ] bf16
+  static constexpr int DQ_BOX = kBQ * BOXW;        // floats of a dQ share box
+  static constexpr int OFF_K = 0;
+  static constexpr int OFF_V = KV_TILE;
+  static constexpr int OFF_Q = 2 * KV_TILE;
+  static constexpr int OFF_DS = OFF_Q + STAGES * STAGE;
+  static constexpr int OFF_DQ = OFF_DS + 2 * DS_BUF;
+  static constexpr int OFF_STATS = OFF_DQ + DQ_STAGES * NBOX * DQ_BOX * 4;
+  static constexpr int OFF_TILES = OFF_STATS + STAGES * 2 * kBQ * 4;
+  static constexpr int OFF_BAR = OFF_TILES + 4 * kTileRing;
+  // kv full, kv empty, q full [STAGES], q empty [STAGES], dq full,
+  // dq empty and dq half [DQ_STAGES] each, tile full and tile empty
+  // [kTileRing] each
+  static constexpr int N_BAR = 2 + 2 * STAGES + 3 * DQ_STAGES + 2 * kTileRing;
+  static constexpr int SMEM = OFF_BAR + 8 * N_BAR + 1024;   // + alignment
+  static_assert(SMEM <= 232448, "more shared memory than a block has");
+  static constexpr int Q_FULL = 2, Q_EMPTY = 2 + STAGES;
+  static constexpr int DQ_FULL = 2 + 2 * STAGES, DQ_EMPTY = DQ_FULL + DQ_STAGES;
+  static constexpr int DQ_HALF = DQ_EMPTY + DQ_STAGES;
+  static constexpr int TILE_FULL = DQ_HALF + DQ_STAGES;
+  static constexpr int TILE_EMPTY = TILE_FULL + kTileRing;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits until the phase of parity ``parity`` of ``bar`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// A box of a 4-d tensor map at coordinates (c0 innermost .. c3) into
+// shared memory; completion is counted on ``bar``.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+// ``bytes`` (a multiple of 16) contiguous bytes into shared memory.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// dst[i] += src[i] for ``bytes`` / 4 floats, performed in L2.
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32"
+      " [%0], [%1], %2;\n" ::"l"(dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+// ``bytes`` (a multiple of 16) from shared memory to dst.
+__device__ __forceinline__ void bulk_store(float* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until the committed bulk copies have read their sources.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Waits until the committed bulk copies have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Orders this thread's generic-proxy accesses with the async proxy's
+// (TMA, bulk copies, wgmma's shared-memory operands): of all state spaces,
+// or of shared memory only.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ int ld_acquire(const int* ptr) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(ptr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* ptr, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(ptr), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ void st_shared32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the point where it is called.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets, swizzle (1 = 128 B, 2 = 64 B).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t swz) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swz << 62);
+}
+// K-major (the contraction dim contiguous in a box row): 8-row groups
+// 8 rows apart; a k-step of 16 advances the start by 32 bytes in a box.
+template <class G> __device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
+  return make_desc(addr, 16, 8 * G::ROWB, G::SWZ);
+}
+// MN-major (the contraction dim along the box rows): groups of 8 rows 8
+// rows apart, boxes (of BOXW along M or N) ``lbo`` bytes apart.
+template <class G>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, uint32_t lbo) {
+  return make_desc(addr, lbo, 8 * G::ROWB, G::SWZ);
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(TB));
+}
+
+// d (64 x N fp32, the warpgroup's accumulator layout) (+)= A B over k16;
+// TA / TB: the operand is MN-major (read transposed).
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, a, b, accumulate);
+  else wgmma_ss_n64<TA, TB>(d, a, b, accumulate);
+}
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t b, int accumulate) {
+  if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, b, accumulate);
+  else if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, b, accumulate);
+  else wgmma_rs_n128<TB>(d, a, b, accumulate);
+}
+
+// The tile t of a call: key tile n of query head h of batch row b, its kv
+// head, offset, and the query tiles [m0, m1) that see one of its keys.
+// Tiles run head by head (the key tiles of a head run at once, so their
+// dQ adds meet in L2), the last key tile of a head first.  Key tile n
+// visits query tile m iff n kBK < kv_len and, when causal, n kBK <= q_off
+// + (m + 1) kBQ - 1: monotone in n, so the key tiles that add to a query
+// tile are 0 .. n_last(m) (``last_key_tile``), and they add in the order
+// n_last(m), ..., 0: each after the tile taken just before it.
+struct TileWork {
+  int n, h, b, hk, q_off, m0, m1;
+};
+__device__ __forceinline__ TileWork tile_work(const BwdParams& p, int t) {
+  TileWork w;
+  const int n_kt = (p.sk + kBK - 1) / kBK, hb = t / n_kt;
+  w.n = n_kt - 1 - t % n_kt;
+  w.b = hb / p.hq;
+  w.h = hb % p.hq;
+  w.hk = w.h / (p.hq / p.hkv);
+  w.q_off = p.q_offsets ? p.q_offsets[w.b] : p.q_offset;
+  const int k0 = w.n * kBK;
+  w.m1 = k0 < p.kv_len ? (p.sq + kBQ - 1) / kBQ : 0;
+  w.m0 = p.causal ? min(max(0, k0 - w.q_off) / kBQ, w.m1) : 0;
+  return w;
+}
+
+// n_last(m): the last key tile that visits query tile m (of a tile's head
+// and batch row, whose key tile visits m).
+__device__ __forceinline__ int last_key_tile(const BwdParams& p,
+                                             const TileWork& w, int m) {
+  const int lim = p.causal ? min(p.kv_len, w.q_off + (m + 1) * kBQ) : p.kv_len;
+  return (lim - 1) / kBK;
+}
+
+// The tiles of a block: its producer takes the next tile of the call from
+// a counter in device memory and passes it through a ring in shared
+// memory to the consumers and reducers (a tile index past the last ends
+// them).  Tiles start in the order of their index, each on a block that
+// runs; a tile waits only on tiles taken before it (the next key tile of
+// its head; the previous head of its GQA group), and a block works its
+// tiles in the order it took them.  So the lowest unfinished tile can
+// always go on and no block waits on a block that cannot run.
+__device__ __forceinline__ int take_tile(uint64_t* bars, const int* tiles,
+                                         int full, int empty, int jt) {
+  const int slot = jt % kTileRing;
+  mbar_wait(&bars[full + slot], (jt / kTileRing) & 1);
+  const int t = *reinterpret_cast<const volatile int*>(tiles + slot);
+  mbar_arrive(&bars[empty + slot]);
+  return t;
+}
+
+// Producer warp: K and V of each tile, then Q, dO, lse2 and Delta of each
+// query tile it visits into the ring.
+template <int D>
+__device__ __forceinline__ void bwd_producer(const CUtensorMap* tm_q,
+                                             const CUtensorMap* tm_k,
+                                             const CUtensorMap* tm_v,
+                                             const CUtensorMap* tm_do,
+                                             const BwdParams& p,
+                                             unsigned char* sm, uint64_t* bars,
+                                             int n_tiles) {
+  using G = Geo<D>;
+  int* tiles = reinterpret_cast<int*>(sm + G::OFF_TILES);
+  int it = 0;
+  for (int jt = 0;; ++jt) {
+    const int slot = jt % kTileRing;
+    mbar_wait(&bars[G::TILE_EMPTY + slot], ((jt / kTileRing) & 1) ^ 1);
+    const int t = atomicAdd(p.tile_counter, 1);
+    *reinterpret_cast<volatile int*>(tiles + slot) = t;
+    mbar_arrive(&bars[G::TILE_FULL + slot]);
+    if (t >= n_tiles) break;
+    const TileWork w = tile_work(p, t);
+    mbar_wait(&bars[1], (jt & 1) ^ 1);
+    mbar_expect_tx(&bars[0], 2 * G::KV_TILE);
+#pragma unroll
+    for (int c = 0; c < G::NBOX; ++c) {
+      tma_load(sm + G::OFF_K + c * G::KV_BOX, tm_k, &bars[0], c * G::BOXW,
+               w.n * kBK, w.hk, w.b);
+      tma_load(sm + G::OFF_V + c * G::KV_BOX, tm_v, &bars[0], c * G::BOXW,
+               w.n * kBK, w.hk, w.b);
+    }
+    const long long row0 = ((long long)w.b * p.hq + w.h) * p.sq_pad;
+    for (int m = w.m0; m < w.m1; ++m, ++it) {
+      const int s = it % G::STAGES;
+      mbar_wait(&bars[G::Q_EMPTY + s], ((it / G::STAGES) & 1) ^ 1);
+      uint64_t* full = &bars[G::Q_FULL + s];
+      mbar_expect_tx(full, G::STAGE + 2 * kBQ * 4);
+      unsigned char* st = sm + G::OFF_Q + s * G::STAGE;
+#pragma unroll
+      for (int c = 0; c < G::NBOX; ++c) {
+        tma_load(st + c * G::Q_BOX, tm_q, full, c * G::BOXW, m * kBQ, w.h, w.b);
+        tma_load(st + G::Q_TILE + c * G::Q_BOX, tm_do, full, c * G::BOXW,
+                 m * kBQ, w.h, w.b);
+      }
+      float* stats = reinterpret_cast<float*>(sm + G::OFF_STATS) + s * 2 * kBQ;
+      bulk_load(stats, p.lse2 + row0 + m * kBQ, kBQ * 4, full);
+      bulk_load(stats + kBQ, p.delta + row0 + m * kBQ, kBQ * 4, full);
+    }
+  }
+}
+
+// Reducer lane of dQ buffer ``buf`` (one lane a buffer, so DQ_STAGES adds
+// are in flight): adds the dQ shares of the iterations that use that
+// buffer to the fp32 accumulator, in the order n_last(m), ..., 0 of the key
+// tiles (the first writes it: it is not zeroed): box c of query tile m
+// waits until its counter reads n_last(m) - n, and is set one higher once
+// the add has completed.  The buffer goes back to
+// the consumers as soon as the add has read it.
+template <int D>
+__device__ __forceinline__ void bwd_reducer(const BwdParams& p,
+                                            unsigned char* sm, uint64_t* bars,
+                                            int n_tiles, int buf) {
+  using G = Geo<D>;
+  const int* tiles = reinterpret_cast<const int*>(sm + G::OFF_TILES);
+  const int mq = (p.sq + kBQ - 1) / kBQ;
+  int it = 0;
+  for (int jt = 0;; ++jt) {
+    const int t = take_tile(bars, tiles, G::TILE_FULL, G::TILE_EMPTY, jt);
+    if (t >= n_tiles) break;
+    const TileWork w = tile_work(p, t);
+    const long long head0 = ((long long)w.b * p.hq + w.h) * mq;
+    for (int m = w.m0; m < w.m1; ++m, ++it) {
+      if (it % G::DQ_STAGES != buf) continue;
+      const int turn = last_key_tile(p, w, m) - w.n;
+      int* sems = p.dq_sems + (head0 + m) * G::NBOX;
+      if (turn > 0) {                           // the tiles before are in
+#pragma unroll
+        for (int c = 0; c < G::NBOX; ++c)
+          while (ld_acquire(sems + c) != turn) {
+          }
+        fence_proxy_async();
+      }
+      mbar_wait(&bars[G::DQ_FULL + buf], (it / G::DQ_STAGES) & 1);
+#pragma unroll
+      for (int c = 0; c < G::NBOX; ++c) {       // the first writes, the rest add
+        float* dst = p.dq_accum + ((head0 + m) * G::NBOX + c) * G::DQ_BOX;
+        const void* src = sm + G::OFF_DQ + (buf * G::NBOX + c) * G::DQ_BOX * 4;
+        if (turn == 0) bulk_store(dst, src, G::DQ_BOX * 4);
+        else bulk_reduce_add(dst, src, G::DQ_BOX * 4);
+      }
+      bulk_commit();
+      bulk_wait_read();
+      mbar_arrive(&bars[G::DQ_EMPTY + buf]);
+      bulk_wait();
+      fence_proxy_async();
+      __threadfence();
+#pragma unroll
+      for (int c = 0; c < G::NBOX; ++c) st_release(sems + c, turn + 1);
+    }
+  }
+}
+
+// Consumer warpgroup ``wg``: keys 64 wg .. 64 wg + 63 of each tile.
+template <int D>
+__device__ __forceinline__ void bwd_consumer(const BwdParams& p,
+                                             unsigned char* sm, uint64_t* bars,
+                                             int n_tiles, int wg) {
+  using G = Geo<D>;
+  constexpr int NA = D / 2;                     // registers of dK (and dV)
+  const int tid = threadIdx.x & 127, wi = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float sl2 = p.scale * kLog2e;
+  const int n_kt = (p.sk + kBK - 1) / kBK;
+  const uint32_t k_base = smem_addr(sm + G::OFF_K);
+  const uint32_t v_base = smem_addr(sm + G::OFF_V);
+  const float* stats0 = reinterpret_cast<const float*>(sm + G::OFF_STATS);
+  // this thread's dS^T rows (keys of the tile): ra and ra + 8
+  const int ra = wg * 64 + 16 * wi + g;
+  const int* tiles = reinterpret_cast<const int*>(sm + G::OFF_TILES);
+  int it = 0;
+  for (int jt = 0;; ++jt) {
+    const int t = take_tile(bars, tiles, G::TILE_FULL, G::TILE_EMPTY, jt);
+    if (t >= n_tiles) break;
+    const TileWork w = tile_work(p, t);
+    float dk[NA], dv[NA];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dk[i] = dv[i] = 0.f;
+    const int key_a = w.n * kBK + ra;           // and key_a + 8
+    mbar_wait(&bars[0], jt & 1);
+    for (int m = w.m0; m < w.m1; ++m, ++it) {
+      const int s = it % G::STAGES;
+      mbar_wait(&bars[G::Q_FULL + s], (it / G::STAGES) & 1);
+      const uint32_t q_s = smem_addr(sm + G::OFF_Q + s * G::STAGE);
+      const uint32_t do_s = q_s + G::Q_TILE;
+      const float* lse_s = stats0 + s * 2 * kBQ;
+      const float* dl_s = lse_s + kBQ;
+
+      // S^T = K Q^T, dP^T = V dO^T: 64 keys x 64 query rows
+      float sacc[32], pacc[32];
+      fence_regs(sacc);
+      fence_regs(pacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t koff = (kk / G::KPB) * G::KV_BOX + wg * 64 * G::ROWB +
+                              (kk % G::KPB) * 32;
+        const uint32_t qoff = (kk / G::KPB) * G::Q_BOX + (kk % G::KPB) * 32;
+        wgmma_ss<64, 0, 0>(sacc, kmajor<G>(k_base + koff), kmajor<G>(q_s + qoff), kk);
+        wgmma_ss<64, 0, 0>(pacc, kmajor<G>(v_base + koff), kmajor<G>(do_s + qoff), kk);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sacc);
+      fence_regs(pacc);
+
+      // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - Delta) on the mask;
+      // element 4 j + e: key key_a + 8 (e >> 1), row m kBQ + 8 j + 2 t4 + (e & 1).
+      // A tile whose keys every row sees takes the loop without the mask.
+      const int k_hi = w.n * kBK + kBK - 1;
+      if (k_hi < p.kv_len && m * kBQ + kBQ <= p.sq &&
+          (!p.causal || k_hi <= w.q_off + m * kBQ)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t4);
+          const float2 dl = *reinterpret_cast<const float2*>(dl_s + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pr = ex2_ftz(fmaf(sacc[4 * j + e], sl2, (e & 1) ? -l2.y : -l2.x));
+            sacc[4 * j + e] = pr;
+            pacc[4 * j + e] = pr * (pacc[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+          }
+        }
+      } else {
+        // key <= q_off + row as key - q_off <= row; rows past Sq and keys
+        // past kv_len see nothing
+        const int kq = p.causal ? key_a - w.q_off : -(1 << 30);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t4);
+          const float2 dl = *reinterpret_cast<const float2*>(dl_s + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = m * kBQ + 8 * j + 2 * t4 + (e & 1);
+            const int dk8 = 8 * (e >> 1);
+            const bool valid = row < p.sq && key_a + dk8 < p.kv_len && kq + dk8 <= row;
+            const float pr = valid ? ex2_ftz(fmaf(sacc[4 * j + e], sl2,
+                                                  (e & 1) ? -l2.y : -l2.x))
+                                   : 0.f;
+            sacc[4 * j + e] = pr;
+            pacc[4 * j + e] = pr * (pacc[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+          }
+        }
+      }
+      // A fragments of k-step kc (query rows 16 kc .. 16 kc + 15)
+      uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kc][r] = pack_bf16(sacc[8 * kc + 2 * r], sacc[8 * kc + 2 * r + 1]);
+          sa[kc][r] = pack_bf16(pacc[8 * kc + 2 * r], pacc[8 * kc + 2 * r + 1]);
+        }
+      // dS^T into shared memory, [key][query row] under the 128-byte
+      // swizzle: 16-byte chunk q / 8 of row r at chunk (q / 8) ^ (r % 8)
+      const uint32_t ds_s = smem_addr(sm + G::OFF_DS + (it & 1) * G::DS_BUF);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = ra + 8 * (r & 1), chunk = 2 * kc + (r >> 1);
+          st_shared32(ds_s + row * 128 + ((chunk ^ (row & 7)) << 4) + 4 * t4, sa[kc][r]);
+        }
+
+      fence_proxy_async_shared();               // dS^T, before wgmma reads it
+      named_sync(2 + wg, 128);                  // the warpgroup's rows stored
+
+      // dV += P^T dO, dK += dS^T Q (A from registers, dO and Q MN-major),
+      // and dQ's share of this warpgroup's keys, box by box: dS (64 rows x
+      // 64 keys, dS^T read transposed) times K (read transposed), box 0
+      // in flight with dV and dK
+      const uint32_t ds_a = ds_s + wg * 64 * 128;
+      const uint32_t k_rows = k_base + wg * 64 * G::ROWB;
+      const int buf = it % G::DQ_STAGES;
+      float2* dq_buf = reinterpret_cast<float2*>(sm + G::OFF_DQ) +
+                       buf * G::NBOX * (G::DQ_BOX / 2);
+#pragma unroll
+      for (int c = 0; c < G::NBOX; ++c) {
+        float dq[G::BOXW / 2];
+        fence_regs(dq);
+        if (c == 0) {
+          fence_regs(dk);
+          fence_regs(dv);
+        }
+        wgmma_fence();
+        if (c == 0) {
+#pragma unroll
+          for (int kc = 0; kc < 4; ++kc) {
+            const uint32_t off = kc * 16 * G::ROWB;
+            wgmma_rs<D, 1>(dv, pa[kc], mnmajor<G>(do_s + off, G::Q_BOX), 1);
+            wgmma_rs<D, 1>(dk, sa[kc], mnmajor<G>(q_s + off, G::Q_BOX), 1);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<G::BOXW, 1, 1>(
+              dq, make_desc(ds_a + kk * 16 * 128, 16, 1024, 1),
+              mnmajor<G>(k_rows + c * G::KV_BOX + kk * 16 * G::ROWB, G::KV_BOX), kk);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(dq);
+        if (c == 0) {
+          fence_regs(dk);
+          fence_regs(dv);
+          fence_regs(pa);
+          fence_regs(sa);
+          mbar_arrive(&bars[G::Q_EMPTY + s]);   // Q, dO, lse2, Delta read
+          // warpgroup 0 writes its share once the reducer has taken the
+          // buffer's last one; warpgroup 1 adds its own once 0's is there
+          if (wg == 0) mbar_wait(&bars[G::DQ_EMPTY + buf], ((it / G::DQ_STAGES) & 1) ^ 1);
+          else mbar_wait(&bars[G::DQ_HALF + buf], (it / G::DQ_STAGES) & 1);
+        }
+        // fragment-major: float2 k of thread tid at k * 128 + tid
+        float2* dst = dq_buf + c * (G::DQ_BOX / 2);
+#pragma unroll
+        for (int k = 0; k < G::BOXW / 4; ++k) {
+          float2 v = make_float2(dq[2 * k], dq[2 * k + 1]);
+          if (wg == 1) {
+            const float2 a = dst[k * 128 + tid];
+            v = make_float2(a.x + v.x, a.y + v.y);
+          }
+          dst[k * 128 + tid] = v;
+        }
+      }
+      if (wg == 0) {
+        mbar_arrive(&bars[G::DQ_HALF + buf]);
+      } else {
+        fence_proxy_async_shared();             // before the bulk add reads it
+        mbar_arrive(&bars[G::DQ_FULL + buf]);
+      }
+    }
+    mbar_arrive(&bars[1]);                      // K and V read
+
+    // dK and dV of keys key_a + 8 (k & 1), dims 8 (k >> 1) + 2 t4 + {0, 1}
+    using T = __nv_bfloat16;
+    T* DK = static_cast<T*>(p.dk);
+    T* DV = static_cast<T*>(p.dv);
+    const int group = p.hq / p.hkv, gi = w.h % group;
+    const long long r = ((long long)w.b * p.hkv + w.hk) * n_kt + w.n;
+    float2* acc = reinterpret_cast<float2*>(p.dkv_accum) + (r * 2 + wg) * (long long)NA * 128;
+    int* sem = p.kv_sems + r * 2 + wg;
+    if (group > 1 && gi > 0) {                  // the heads before this one
+      if (tid == 0)
+        while (ld_acquire(sem) != gi) {
+        }
+      named_sync(2 + wg, 128);
+    }
+#pragma unroll
+    for (int k = 0; k < D / 4; ++k) {
+      float2 a = make_float2(dk[2 * k], dk[2 * k + 1]);
+      float2 v = make_float2(dv[2 * k], dv[2 * k + 1]);
+      float2* pk = acc + k * 128 + tid;
+      float2* pv = acc + (D / 4 + k) * 128 + tid;
+      if (group > 1 && gi > 0) {
+        const float2 x = __ldcg(pk), y = __ldcg(pv);
+        a = make_float2(x.x + a.x, x.y + a.y);
+        v = make_float2(y.x + v.x, y.y + v.y);
+      }
+      if (gi == group - 1) {
+        const int key = key_a + 8 * (k & 1), col = 8 * (k >> 1) + 2 * t4;
+        if (key < p.sk) {
+          *reinterpret_cast<__nv_bfloat162*>(DK + offset(p, kDK, w.b, key, w.hk) + col) =
+              __floats2bfloat162_rn(a.x * p.scale, a.y * p.scale);
+          *reinterpret_cast<__nv_bfloat162*>(DV + offset(p, kDV, w.b, key, w.hk) + col) =
+              __floats2bfloat162_rn(v.x, v.y);
+        }
+      } else {
+        __stcg(pk, a);
+        __stcg(pv, v);
+      }
+    }
+    if (gi < group - 1) {                       // the next head may go on
+      __threadfence();
+      named_sync(2 + wg, 128);
+      if (tid == 0) st_release(sem, gi + 1);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const BwdParams p) {
+  using G = Geo<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + G::OFF_BAR);
+  const int n_tiles = ((p.sk + kBK - 1) / kBK) * p.B * p.hq;
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 256);
+    for (int s = 0; s < G::STAGES; ++s) {
+      mbar_init(&bars[G::Q_FULL + s], 1);
+      mbar_init(&bars[G::Q_EMPTY + s], 256);
+    }
+    for (int i = 0; i < G::DQ_STAGES; ++i) {
+      mbar_init(&bars[G::DQ_FULL + i], 128);
+      mbar_init(&bars[G::DQ_EMPTY + i], 1);
+      mbar_init(&bars[G::DQ_HALF + i], 128);
+    }
+    for (int i = 0; i < kTileRing; ++i) {
+      mbar_init(&bars[G::TILE_FULL + i], 1);
+      mbar_init(&bars[G::TILE_EMPTY + i], 256 + G::DQ_STAGES);   // all readers
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<24>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    if (warp == 0 && lane == 0)
+      bwd_producer<D>(&tm_q, &tm_k, &tm_v, &tm_do, p, sm, bars, n_tiles);
+    else if (warp <= G::DQ_STAGES && lane == 0)
+      bwd_reducer<D>(p, sm, bars, n_tiles, warp - 1);
+  } else {
+    setmaxnreg_inc<240>();
+    bwd_consumer<D>(p, sm, bars, n_tiles, wg);
+  }
+}
+
+// dq = scale * the fp32 accumulator in bf16: a block a box of kBQ rows x
+// BOXW dims, read in its fragment-major order (coalesced), turned into rows
+// in shared memory, written 16 bytes a thread (whole rows a few lanes).
+template <int D>
+__global__ void __launch_bounds__(256) flash_bwd_dq_convert(const BwdParams p) {
+  using G = Geo<D>;
+  constexpr int PITCH = G::BOXW + 4;            // floats: rows in distinct banks
+  __shared__ __align__(16) float rows_s[kBQ * PITCH];
+  const int mq = (p.sq + kBQ - 1) / kBQ;
+  const long long box = blockIdx.x;
+  const int c = box % G::NBOX;
+  const int m = (box / G::NBOX) % mq;
+  const long long bh = box / ((long long)G::NBOX * mq);
+  const int h = bh % p.hq, b = bh / p.hq;
+  const float2* acc = reinterpret_cast<const float2*>(p.dq_accum) + box * (G::DQ_BOX / 2);
+  // float2 f = k * 128 + tid of the consumer thread tid: row 16 (tid >> 5)
+  // + (tid & 31) / 4 + 8 (k & 1), dims 8 (k >> 1) + 2 (tid & 3)
+  for (int f = threadIdx.x; f < G::DQ_BOX / 2; f += 256) {
+    const int tid = f & 127, k = f >> 7, lane = tid & 31;
+    const int r = 16 * (tid >> 5) + (lane >> 2) + 8 * (k & 1);
+    const int col = 8 * (k >> 1) + 2 * (lane & 3);
+    // no key at all (kv_len 0): no tile wrote the box, and dq is 0
+    *reinterpret_cast<float2*>(rows_s + r * PITCH + col) =
+        p.kv_len > 0 ? acc[f] : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  constexpr int CHUNKS = G::BOXW / 8;           // 16 bytes of bf16 a chunk
+  __nv_bfloat16* DQ = static_cast<__nv_bfloat16*>(p.dq);
+  for (int q = threadIdx.x; q < kBQ * CHUNKS; q += 256) {
+    const int r = q / CHUNKS, ch = q % CHUNKS, row = m * kBQ + r;
+    if (row >= p.sq) continue;
+    const float* src = rows_s + r * PITCH + 8 * ch;
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) o[k] = pack_bf16(src[2 * k] * p.scale, src[2 * k + 1] * p.scale);
+    *reinterpret_cast<uint4*>(DQ + offset(p, kDQ, b, row, h) + c * G::BOXW + 8 * ch) = out;
+  }
+}
+
+// The wgmma path's per-row statistics, sq_pad rows a head: Delta =
+// rowsum(dO * O) and the forward's lse times log2(e) (0 where a row sees
+// no key), both 0 past Sq.  D / 8 neighbouring lanes take a row, 16 bytes
+// each (O and dO rows are 16-byte aligned on this path), so a warp reads
+// whole rows.
+template <int D>
+__global__ void __launch_bounds__(256) flash_bwd_stats(const BwdParams p) {
+  constexpr int LPR = D / 8;                    // lanes a row
+  const long long row = ((long long)blockIdx.x * 256 + threadIdx.x) / LPR;
+  const int part = threadIdx.x % LPR;
+  const long long rows = (long long)p.B * p.hq * p.sq_pad;
+  const int i = row % p.sq_pad;
+  const long long bh = row / p.sq_pad;
+  const int h = bh % p.hq, b = bh / p.hq;
+  float acc = 0.f;
+  if (row < rows && i < p.sq) {
+    const uint4 x = reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.o) + offset(p, kO, b, i, h))[part];
+    const uint4 y = reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.dout) + offset(p, kDO, b, i, h))[part];
+    const __nv_bfloat162* xa = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* ya = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 u = __bfloat1622float2(xa[k]), v = __bfloat1622float2(ya[k]);
+      acc = fmaf(v.x, u.x, acc);
+      acc = fmaf(v.y, u.y, acc);
+    }
+  }
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (row < rows && part == 0) {
+    const float l = i < p.sq ? p.lse[bh * p.sq + i] : 0.f;
+    p.delta[row] = acc;
+    p.lse2[row] = isinf(l) ? 0.f : l * kLog2e;
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (the library
+// links no libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-d map (D, S, H, B) of a bf16 tensor with element strides st (b, s,
+// h), boxes of (boxw, rows, 1, 1) under the swizzle of a boxw row.
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+              const long long* st, int S, int H, int B, int D, int boxw,
+              int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)boxw, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             boxw * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const BwdParams& p, int sms, cudaStream_t stream) {
+  using G = Geo<D>;
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(enc, &tq, p.q, p.st[kQ], p.sq, p.hq, p.B, D, G::BOXW, kBQ) ||
+      !make_map(enc, &tdo, p.dout, p.st[kDO], p.sq, p.hq, p.B, D, G::BOXW, kBQ) ||
+      !make_map(enc, &tk, p.k, p.st[kK], p.sk, p.hkv, p.B, D, G::BOXW, kBK) ||
+      !make_map(enc, &tv, p.v, p.st[kV], p.sk, p.hkv, p.B, D, G::BOXW, kBK))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (e != cudaSuccess) return e;
+  const long long stat_blocks = ((long long)p.B * p.hq * p.sq_pad * (D / 8) + 255) / 256;
+  if (stat_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_bwd_stats<D><<<(unsigned)stat_blocks, 256, 0, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long n_tiles = (long long)((p.sk + kBK - 1) / kBK) * p.B * p.hq;
+  if (n_tiles > 0x7fffffffLL || sms < 1) return cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(n_tiles < sms ? n_tiles : sms);
+  if (grid > 0)
+    flash_bwd_wgmma<D><<<grid, kHopperThreads, G::SMEM, stream>>>(tq, tk, tv, tdo, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long boxes = (long long)p.B * p.hq * (p.sq_pad / kBQ) * G::NBOX;
+  if (boxes > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_bwd_dq_convert<D><<<(unsigned)boxes, 256, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma_d(const BwdParams& p, int sms, cudaStream_t stream) {
   switch (p.d) {
-    case 32: return launch_mma<32, 64>(p, stream);
-    case 64: return launch_mma<64, 64>(p, stream);
-    case 128: return launch_mma<128, 32>(p, stream);
-    case 160: return launch_mma<160, 32>(p, stream);
+    case 32: return launch_wgmma<32>(p, sms, stream);
+    case 64: return launch_wgmma<64>(p, sms, stream);
+    case 128: return launch_wgmma<128>(p, sms, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -820,22 +1772,30 @@ cudaError_t launch_f32_d(const BwdParams& p, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v,
-// o, dO and the three outputs share it.  strides: 24 element strides,
-// the (b, s, h) strides of q, k, v, o, dO, dq, dk, dv in that order; the d
-// stride is 1 (the tensor-core path also reads q, k, v and dO rows 16
-// bytes at a time).  lse: the forward's (B, Hq, Sq) log-sum-exp; delta:
-// B * Hq * Sq floats of scratch.  q_offsets: null, or B ints on the
-// device.  Returns a cudaError_t.
+// path: 0 = cuda_core (float32), 1 = mma (bfloat16, D 160), 2 = wgmma
+// (bfloat16, D 32, 64, 128); q, k, v, o, dO and the three outputs share
+// the dtype.  strides: 24 element strides, the (b, s, h) strides of q, k,
+// v, o, dO, dq, dk, dv in that order; the d stride is 1 (the tensor-core
+// paths also read q, k, v and dO rows 16 bytes at a time).  lse: the
+// forward's (B, Hq, Sq) log-sum-exp.  stats: B Hq Sq floats of scratch
+// (Delta), or on the wgmma path 2 B Hq sq_pad (lse * log2(e), then Delta;
+// sq_pad = Sq rounded up to 64).  wgmma path only: dq_accum, B Hq sq_pad
+// D floats; sems, B Hq (sq_pad / 64) (D / 64, at least 1) ints for dQ,
+// then B Hkv ceil(Sk / 128) 2 for dK and dV, then the tile counter, all
+// zero; dkv_accum, B
+// Hkv ceil(Sk / 128) 256 D floats where Hq > Hkv, else null; sms: the
+// most blocks to run at once (one an SM).  q_offsets: null, or B ints on
+// the device.  Returns a cudaError_t.
 int flash_bwd(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, const float* lse, float* delta, void* dq,
-              void* dk, void* dv, int dtype, int B, int Hq, int Hkv, int Sq,
-              int Sk, int D, const long long* strides, int kv_len,
-              int q_offset, const int* q_offsets, int causal, float scale,
+              const void* dout, const float* lse, float* stats, void* dq,
+              void* dk, void* dv, float* dq_accum, float* dkv_accum,
+              int* sems, int path, int B, int Hq, int Hkv, int Sq, int Sk,
+              int D, const long long* strides, int kv_len, int q_offset,
+              const int* q_offsets, int causal, float scale, int sms,
               void* stream) {
   BwdParams p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
-  p.lse = lse; p.delta = delta;
+  p.lse = lse;
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.q_offsets = q_offsets;
   for (int t = 0; t < 8; ++t)
@@ -843,11 +1803,45 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o,
   p.B = B; p.sq = Sq; p.sk = Sk; p.hq = Hq; p.hkv = Hkv; p.d = D;
   p.kv_len = kv_len; p.q_offset = q_offset; p.causal = causal;
   p.scale = scale;
+  p.sq_pad = (Sq + kBQ - 1) / kBQ * kBQ;
+  p.delta = stats;
+  p.lse2 = nullptr;
+  p.dq_accum = dq_accum;
+  p.dkv_accum = dkv_accum;
+  p.dq_sems = sems;
+  p.kv_sems = nullptr;
+  p.tile_counter = nullptr;
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_f32_d(p, st);
-  if (dtype == 1) return (int)launch_mma_d(p, st);
-  return (int)cudaErrorInvalidValue;
+  if (path == 0) return (int)launch_f32_d(p, st);
+  if (path == 1) return (int)launch_mma_d(p, st);
+  if (path != 2) return (int)cudaErrorInvalidValue;
+  const long long heads = (long long)B * Hq, rows = heads * p.sq_pad;
+  p.lse2 = stats;
+  p.delta = stats + rows;
+  p.kv_sems = sems + heads * (p.sq_pad / kBQ) * (D < 64 ? 1 : D / 64);
+  p.tile_counter = p.kv_sems + (long long)B * Hkv * ((Sk + kBK - 1) / kBK) * 2;
+  if (Hq > Hkv && !dkv_accum) return (int)cudaErrorInvalidValue;
+  return (int)launch_wgmma_d(p, sms, st);
+}
+
+// The wgmma path's tiles at head dim D into out[0..7]: keys a tile, query
+// rows a stage, box width, boxes, ring stages, dQ share stages, threads a
+// block, dynamic shared memory bytes.  Returns 0, or cudaErrorInvalidValue
+// for a head dim the path does not take.
+int flash_bwd_geometry(int D, int* out) {
+  int smem, stages, dq_stages;
+  switch (D) {
+    case 32: smem = Geo<32>::SMEM; stages = Geo<32>::STAGES; dq_stages = Geo<32>::DQ_STAGES; break;
+    case 64: smem = Geo<64>::SMEM; stages = Geo<64>::STAGES; dq_stages = Geo<64>::DQ_STAGES; break;
+    case 128: smem = Geo<128>::SMEM; stages = Geo<128>::STAGES; dq_stages = Geo<128>::DQ_STAGES; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const int boxw = D < 64 ? D : 64;
+  const int vals[8] = {kBK, kBQ, boxw, D / boxw, stages, dq_stages,
+                       kHopperThreads, smem};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return 0;
 }
 
 const char* flash_bwd_error_string(int err) {

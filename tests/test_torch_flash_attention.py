@@ -289,10 +289,165 @@ def test_lse_definition():
     assert bool(torch.isneginf(none).all())
 
 
-def test_bwd_plan_by_dtype():
-    """bf16 takes the tensor-core backward, float32 the CUDA-core one."""
-    assert kernel.bwd_plan(torch.bfloat16) == "mma"
-    assert kernel.bwd_plan(torch.float32) == "cuda_core"
+@pytest.mark.parametrize("dtype,D,path", [
+    (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 160, "mma"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 160, "cuda_core")])
+def test_bwd_plan_by_dtype(dtype, D, path):
+    """bf16 takes the Hopper kernel (wgmma fed by TMA) at D 32, 64 and 128
+    and the mma.sync kernels at D 160; float32 the CUDA-core kernels."""
+    assert kernel.bwd_plan(dtype, D) == path
+    assert kernel.BWD_KERNELS[path][1].startswith("flash_bwd_")
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_bwd_geometry_fits_a_block(D):
+    """The wgmma path's tiles: TMA boxes of 128-byte rows (64-byte at D
+    32) that cover D, a ring of at least two stages, two dQ share buffers
+    (a reducer lane each), all in the shared memory one block may take."""
+    g = kernel.bwd_geometry(D)
+    assert g["box"] * g["boxes"] == D and 2 * g["box"] == g["swizzle"]
+    assert g["swizzle"] == (64 if D == 32 else 128)
+    assert g["stages"] >= 2 and g["dq_stages"] == 2
+    assert g["keys"] == 2 * 64 and g["rows"] == 64 and g["threads"] == 384
+    assert g["smem"] <= kernel.SMEM_LIMIT
+    # the bytes that must sit at 1,024-byte boundaries (TMA's 128-byte
+    # swizzle, the wgmma operands): K, V, each ring stage, the dS^T buffers
+    for size in (g["keys"] * D * 2, 2 * g["rows"] * D * 2,
+                 g["keys"] * g["rows"] * 2):
+        assert size % 1024 == 0
+
+
+def test_bwd_geometry_refuses_d160():
+    with pytest.raises(ValueError, match="wgmma path"):
+        kernel.bwd_geometry(160)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", [
+    (4, 32, 32, 4096, 4096, 64), (4, 28, 4, 4096, 4096, 128),
+    (1, 8, 2, 300, 65, 32), (2, 4, 4, 1, 63, 64)])
+def test_bwd_scratch_sizes(B, Hq, Hkv, Sq, Sk, D):
+    """Scratch words of a call: lse2 and Delta over whole query tiles, the
+    fp32 dQ accumulator (as large as dq in fp32 over whole tiles), the
+    counters (a dQ box, a (kv head, key tile, warpgroup), the tile
+    counter), and dK/dV sums only where a GQA group shares a kv head."""
+    n = kernel.bwd_scratch(B, Hq, Hkv, Sq, Sk, D)
+    mq, n_kt = -(-Sq // 64), -(-Sk // 128)
+    assert n["stats"] == 2 * B * Hq * mq * 64
+    assert n["dq_accum"] == B * Hq * mq * 64 * D
+    assert n["sems"] == B * Hq * mq * max(1, D // 64) + B * Hkv * n_kt * 2 + 1
+    assert n["dkv_accum"] == (B * Hkv * n_kt * 2 * 128 * D if Hq > Hkv else 0)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sk", [(2, 4, 4, 300), (1, 28, 4, 4096),
+                                         (3, 8, 1, 65)])
+def test_bwd_tile_order(B, Hq, Hkv, Sk):
+    """Every (key tile, head, batch row) once; the key tiles of a head
+    next to each other, its last key tile first; the tiles a tile waits
+    for (the next key tile of its head, the previous head of its GQA
+    group) come before it, which is what keeps the persistent grid from
+    waiting on a tile no block has taken."""
+    tiles, blocks = kernel.bwd_tiles(B, Hq, Sk, 132)
+    n_kt, group = -(-Sk // 128), Hq // Hkv
+    assert tiles == n_kt * B * Hq and blocks == min(tiles, 132)
+    index = {kernel.bwd_tile(t, Hq, Sk): t for t in range(tiles)}
+    assert len(index) == tiles
+    for (n, h, b), t in index.items():
+        assert index[(n_kt - 1, h, b)] == t - (n_kt - 1 - n)
+        if n + 1 < n_kt:
+            assert index[(n + 1, h, b)] < t
+        if h % group:
+            assert index[(n, h - 1, b)] < t
+
+
+@pytest.mark.parametrize("Sq,Sk,kv_len,causal,q_offset", [
+    (300, 300, 300, True, 0), (65, 129, 129, True, 64), (129, 65, 65, False, 0),
+    (40, 130, 100, True, 60), (300, 1, 1, False, 0), (63, 300, 250, True, 237),
+    (200, 512, 0, True, 0)])
+def test_bwd_visits_and_sum_order(Sq, Sk, kv_len, causal, q_offset):
+    """The key tiles that visit a query tile are 0 .. bwd_last_key_tile(m)
+    (so summing from the last down orders every dQ add), a key tile visits
+    a query tile iff one of the tile's rows sees one of its keys, and
+    every (row, key) the mask lets through lies in a visited pair."""
+    n_kt, mq = -(-Sk // 128), -(-Sq // 64)
+    visits = {n: set(kernel.bwd_visits(n, Sq, kv_len, causal, q_offset))
+              for n in range(n_kt)}
+    for m in range(mq):
+        seen = [n for n in range(n_kt) if m in visits[n]]
+        if seen:
+            last = kernel.bwd_last_key_tile(m, kv_len, causal, q_offset)
+            assert seen == list(range(last + 1))
+        for n in range(n_kt):
+            keys = np.arange(n * 128, min(n * 128 + 128, kv_len))
+            rows = np.arange(m * 64, m * 64 + 64)
+            sees = keys.size > 0 and (not causal or bool(
+                (keys[:, None] <= q_offset + rows[None, :]).any()))
+            assert (m in visits[n]) == sees
+    valid = np.arange(Sk)[None, :] < kv_len
+    if causal:
+        valid = valid & (np.arange(Sk)[None, :]
+                         <= q_offset + np.arange(Sq)[:, None])
+    for i, j in zip(*np.nonzero(np.broadcast_to(valid, (Sq, Sk)))):
+        assert i // 64 in visits[j // 128]
+
+
+def _tiled_bwd(q, k, v, out, do, lse, causal, kv_len, q_offset):
+    """The wgmma path's arithmetic in fp32 torch on the CPU: tiles in
+    ``bwd_tile`` order, the query tiles ``bwd_visits`` names, dQ's shares
+    summed from the last key tile down, dK and dV over a GQA group's heads
+    in head order."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group, scale = Hq // Hkv, D ** -0.5
+    dq = torch.zeros_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    delta = (do * out).sum(-1)
+    shares = {}
+    tiles, _ = kernel.bwd_tiles(B, Hq, Sk, 132)
+    for t in range(tiles):
+        n, h, b = kernel.bwd_tile(t, Hq, Sk)
+        keys = torch.arange(n * 128, min(n * 128 + 128, Sk))
+        kk, vv = k[b, h // group, keys], v[b, h // group, keys]
+        for m in kernel.bwd_visits(n, Sq, kv_len, causal, q_offset):
+            rows = torch.arange(m * 64, min(m * 64 + 64, Sq))
+            s = q[b, h, rows] @ kk.T * scale
+            ok = (keys[None, :] < kv_len) & (
+                ~torch.tensor(causal) | (keys[None, :] <= q_offset + rows[:, None]))
+            p = torch.where(ok, torch.exp(s - lse[b, h, rows, None]), 0.)
+            ds = p * (do[b, h, rows] @ vv.T - delta[b, h, rows, None])
+            dv[b, h // group, keys] += p.T @ do[b, h, rows]
+            dk[b, h // group, keys] += ds.T @ q[b, h, rows] * scale
+            shares.setdefault((b, h, m), []).append((n, ds @ kk * scale))
+    for (b, h, m), got in shares.items():
+        last = kernel.bwd_last_key_tile(m, kv_len, causal, q_offset)
+        assert sorted(n for n, _ in got) == list(range(last + 1))
+        rows = torch.arange(m * 64, min(m * 64 + 64, Sq))
+        for _, share in sorted(got, key=lambda x: -x[0]):
+            dq[b, h, rows] += share
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,kv_len,q_offset", [
+    (1, 4, 2, 200, 300, 32, True, 300, 100),
+    (2, 2, 1, 130, 70, 64, False, 60, 0),
+    (1, 7, 1, 129, 129, 32, True, 129, 0)])
+def test_bwd_tiling_matches_plain_version(B, Hq, Hkv, Sq, Sk, D, causal,
+                                          kv_len, q_offset):
+    """The wgmma path's tiling, visits and summation order, emulated on
+    the CPU in fp32, give ``attention_bwd_ref``'s gradient (which the tests
+    above hold to jax.grad of chunked_attention) within 2e-5 of each
+    gradient's max."""
+    q, k, v = (torch.from_numpy(x) for x in
+               _inputs(9, (B, Hq, Sq, D), (B, Hkv, Sk, D)))
+    do = torch.from_numpy(np.random.default_rng(10).normal(
+        0, 1, (B, Hq, Sq, D)).astype(np.float32))
+    kw = {"causal": causal, "kv_len": kv_len, "q_offset": q_offset}
+    out = attention_ref(q, k, v, **kw)
+    lse = lse_ref(q, k, **kw)
+    refs = attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    got = _tiled_bwd(q, k, v, out, do, lse, causal, kv_len, q_offset)
+    for g, r in zip(got, refs):
+        assert float((g - r).abs().max()) <= 2e-5 * float(r.abs().max())
 
 
 def test_bwd_wrapper_rejects_cpu_tensors():

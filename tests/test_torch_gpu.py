@@ -1154,7 +1154,10 @@ def test_lotaru_ml_observe_batch_waits_on_the_card_twice(S):
 # The flash backward kernel and the training path
 # ---------------------------------------------------------------------------
 #: (B, Hq, Hkv, Sq, Sk, D, causal): causal and non-causal self-attention,
-#: cross-attention (Sq != Sk), GQA 1/4/7/8, D 32/64/128/160, ragged tiles
+#: cross-attention (Sq != Sk), GQA 1/4/7/8, D 32/64/128/160, ragged tiles;
+#: lengths 1, 63, 65, 129 and 300 cross the wgmma path's 64-row query
+#: tiles, 128-key tiles and TMA boxes (Sq 1: the forward's lse is the
+#: plain version's, the kernel writes it for Sq >= 2)
 BWD_CASES = [
     (2, 4, 4, 64, 64, 64, True),
     (1, 4, 4, 100, 100, 32, True),       # ragged, one causal diagonal
@@ -1165,6 +1168,15 @@ BWD_CASES = [
     (2, 16, 16, 90, 90, 64, False),      # encoder
     (2, 16, 16, 13, 150, 64, False),     # cross: Sq < Sk
     (1, 8, 2, 200, 33, 32, False),       # cross: Sq > Sk, GQA 4
+    (1, 4, 4, 1, 63, 64, False),         # one query row
+    (2, 4, 2, 63, 63, 64, True),         # a row short of a tile
+    (1, 4, 4, 65, 129, 64, True),        # causal cross: Sq < Sk
+    (2, 8, 8, 129, 65, 128, False),      # cross: Sq > Sk, D 128
+    (1, 4, 4, 300, 1, 32, False),        # one key
+    (1, 4, 2, 300, 129, 32, True),       # causal cross: Sq > Sk, D 32
+    (1, 28, 4, 129, 129, 128, True),     # GQA 7 at D 128, a key past a tile
+    (1, 32, 4, 300, 300, 128, True),     # GQA 8 at D 128, three key tiles
+    (1, 8, 2, 63, 300, 160, True),       # D 160 cross
 ]
 
 
@@ -1185,7 +1197,7 @@ def _grad_close(out, ref, tol, what):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["float32-cuda_core", "bfloat16-mma"])
+                         ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal", BWD_CASES)
 def test_flash_bwd_matches_plain_version(dtype, B, Hq, Hkv, Sq, Sk, D,
                                          causal):
@@ -1195,10 +1207,14 @@ def test_flash_bwd_matches_plain_version(dtype, B, Hq, Hkv, Sq, Sk, D,
     against ``lse_ref``; a second run equal bit for bit."""
     _need_card()
     q, k, v, do = _bwd_inputs(B, Hq, Hkv, Sq, Sk, D, dtype)
-    out, lse = kernel.flash_attention(q, k, v, causal=causal,
-                                      return_lse=True)
-    torch.testing.assert_close(lse, lse_ref(q, k, causal=causal),
-                               atol=TOL[dtype], rtol=TOL[dtype])
+    if Sq > 1:
+        out, lse = kernel.flash_attention(q, k, v, causal=causal,
+                                          return_lse=True)
+        torch.testing.assert_close(lse, lse_ref(q, k, causal=causal),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    else:
+        out = attention_ref(q, k, v, causal=causal)
+        lse = lse_ref(q, k, causal=causal)
     before = kernel.BWD_LAUNCHES
     grads = kernel.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
     torch.cuda.synchronize()
@@ -1206,34 +1222,87 @@ def test_flash_bwd_matches_plain_version(dtype, B, Hq, Hkv, Sq, Sk, D,
     refs = attention_bwd_ref(q, k, v, out, do, lse, causal=causal)
     for name, g, r, t in zip("qkv", grads, refs, (q, k, v)):
         assert g.dtype == dtype and g.shape == t.shape, name
-        _grad_close(g, r, TOL[dtype], f"d{name}")
+        if Sk == 1 and name != "v":
+            # one key: P is 1 and dS = P (dP - Delta) is 0, so dq and dk
+            # are 0 up to rounding; held to the bar of dv's max
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= TOL[dtype] * float(refs[2].float().abs().max()), (
+                f"d{name}", err)
+        else:
+            _grad_close(g, r, TOL[dtype], f"d{name}")
     again = kernel.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
     for g, h in zip(grads, again):
         assert torch.equal(g, h)
 
 
 @pytest.mark.gpu
-def test_flash_bwd_path_by_dtype():
-    """bf16 takes the tensor cores, float32 the CUDA cores; rows the
-    tensor-core path's copies cannot take are refused."""
+@pytest.mark.parametrize("dtype,D,path", [
+    (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 160, "mma"),
+    (torch.float32, 64, "cuda_core")])
+def test_flash_bwd_path_by_dtype(dtype, D, path):
+    """bf16 at D 32, 64 and 128 takes the wgmma kernel, at D 160 the
+    mma.sync kernels (``bwd_plan`` names the exception), float32 the CUDA
+    cores; a call launches its path's kernels as the driver records
+    them, and the source's tiles are ``bwd_geometry``'s."""
     _need_card()
-    assert kernel.bwd_plan(torch.bfloat16) == "mma"
-    assert kernel.bwd_plan(torch.float32) == "cuda_core"
-    q, k, v, do = _bwd_inputs(1, 2, 2, 64, 64, 64, torch.bfloat16)
+    assert kernel.bwd_plan(dtype, D) == path
+    q, k, v, do = _bwd_inputs(2, 8, 2, 130, 130, D, dtype)
     out, lse = kernel.flash_attention(q, k, v, return_lse=True)
-    odd = torch.empty(1, 2, 64, 72, device="cuda",
-                      dtype=torch.bfloat16)[..., 1:65]
-    odd.copy_(do)
-    with pytest.raises(ValueError, match="16-byte"):
-        kernel.flash_attention_bwd(q, k, v, out, odd, lse)
+    kernel.flash_attention_bwd(q, k, v, out, do, lse)
+    launched = launched_kernels(
+        lambda: kernel.flash_attention_bwd(q, k, v, out, do, lse))
+    assert [n for n in launched if n.startswith("flash_bwd")] == list(
+        kernel.BWD_KERNELS[path])
+    if path == "wgmma":
+        assert kernel.bwd_source_geometry(D) == {
+            key: val for key, val in kernel.bwd_geometry(D).items()
+            if key != "swizzle"}
+
+
+def _misaligned(t, how):
+    """A copy of t (B, H, S, D) whose address ("address") or (b, h, s)
+    strides ("stride") are not 16-byte aligned."""
+    B, H, S, D = t.shape
+    if how == "address":
+        buf = torch.empty(B, H, S, D + 8, device=t.device, dtype=t.dtype)
+        view = buf[..., 1:D + 1]
+    else:
+        buf = torch.empty(B, H, S, D + 4, device=t.device, dtype=t.dtype)
+        view = buf[..., :D]
+    view.copy_(t)
+    return view
 
 
 @pytest.mark.gpu
-def test_flash_bwd_masks_kv_len_and_offsets():
+@pytest.mark.parametrize("name,D", [
+    (name, D) for D in (64, 160) for name in ("q", "k", "v", "dout")]
+    + [("out", 64)])
+@pytest.mark.parametrize("how", ["address", "stride"])
+def test_flash_bwd_refuses_unaligned_rows(name, D, how):
+    """Each tensor the tensor-core paths read by TMA or 16-byte copies (q,
+    k, v, dout; out too on the wgmma path) raises where its address or a
+    (b, h, s) stride is not a multiple of 16 bytes; nothing falls back."""
+    _need_card()
+    q, k, v, do = _bwd_inputs(1, 4, 2, 64, 64, D, torch.bfloat16)
+    out, lse = kernel.flash_attention(q, k, v, return_lse=True)
+    args = {"q": q, "k": k, "v": v, "dout": do, "out": out}
+    args[name] = _misaligned(args[name], how)
+    before = kernel.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel.flash_attention_bwd(args["q"], args["k"], args["v"],
+                                   args["out"], args["dout"], lse)
+    assert kernel.BWD_LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_bwd_masks_kv_len_and_offsets(dtype):
     """The forward's other masks: kv_len < Sk, a query offset and one
     offset per batch row; keys past kv_len get a zero gradient."""
     _need_card()
-    q, k, v, do = _bwd_inputs(2, 4, 2, 40, 130, 64, torch.float32, seed=5)
+    q, k, v, do = _bwd_inputs(2, 4, 2, 40, 130, 64, dtype, seed=5)
     for kw in ({"kv_len": 100, "q_offset": 60},
                {"kv_len": 120,
                 "q_offset": torch.tensor([10, 80], device="cuda")}):
@@ -1243,8 +1312,14 @@ def test_flash_bwd_masks_kv_len_and_offsets():
                                            causal=True, **kw)
         refs = attention_bwd_ref(q, k, v, out, do, lse, causal=True, **kw)
         for name, g, r in zip("qkv", grads, refs):
-            _grad_close(g, r, 2e-5, f"d{name}")
+            _grad_close(g, r, TOL[dtype], f"d{name}")
         assert not bool(grads[1][:, :, kw["kv_len"]:].any())
+    # no key at all: every gradient is 0
+    out, lse = kernel.flash_attention(q, k, v, causal=True, kv_len=0,
+                                      return_lse=True)
+    for g in kernel.flash_attention_bwd(q, k, v, out, do, lse, causal=True,
+                                        kv_len=0):
+        assert not bool(g.any())
 
 
 @pytest.mark.gpu
