@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-It drives the port's serving paths and its training path, stablelm-1.6b
+It drives the port's serving paths and its training paths, stablelm-1.6b
 (every attention through the flash-attention kernel; trained at full
 width through its backward kernel too), mamba2-1.3b (every prefill of every
-layer through the SSD-scan kernel), qwen2-7b, qwen2-vl-7b, stablelm-12b,
+layer through the SSD-scan kernel; trained at full width through the SSD
+backward kernel too), qwen2-7b, qwen2-vl-7b, stablelm-12b,
 starcoder2-15b and zamba2-1.2b (both kernels), qwen3-moe-30b-a3b,
 llama4-maverick-400b-a17b and seamless-m4t-large-v2 (flash), the int8 KV
 cache, and Lotaru's estimator path, online loop, multi-workflow fleet and
@@ -16,7 +17,8 @@ in order; any failure ends the run with a non-zero exit code:
 1. the card's name and power limit (nvidia-smi), torch, CUDA and nvcc
    versions;
 2. the build of the kernels from ``src/`` into ``build/kernels/`` (the
-   flash forward and backward, the SSD scan), one nvcc per source,
+   flash forward and backward, the SSD scan and its backward), one nvcc
+   per source,
    started together, with nvcc's ``-Xptxas -v`` reports;
 3. the flash kernel against its plain PyTorch version on the card, case
    by case (float32 at 2e-5, bfloat16 at 2e-2, as tests/test_kernels.py),
@@ -183,9 +185,26 @@ in order; any failure ends the run with a non-zero exit code:
    ``launch.train.train`` of stablelm-1.6b at full width, 4 steps of 8 x
    4,096 tokens in 2 microbatches: flash forward launches 2 x 24 x 2 a
    step (full remat) and backward 24 x 2, median step, tokens/s, peak
-   memory and the busy share of one more step under torch.profiler.  The
-   SSD scan has no backward kernel yet: ssm and hybrid configs raise when
-   asked to train on the card.
+   memory and the busy share of one more step under torch.profiler.
+   13c also trains mamba2-1.3b (2 layers) and zamba2-1.2b (7 layers: one
+   super-unit of 6 Mamba-2 layers and the shared attention block, and
+   one tail layer) at full width and T 320 (three chunks, the last
+   ragged), every Mamba-2 layer through the SSD scan with its chunk
+   states and its backward kernel (``ssd_bwd.cu``), with exact SSD
+   launch counts.  13f the SSD backward against its plain version
+   ``ssd_chunked_bwd`` in float64 on the fp32 upcasts of the same inputs
+   (each gradient within 1e-5 of its max, the plain version's own fp32
+   gap printed beside it): mamba2's and zamba2's widths, G 2, initial
+   states, a final-state gradient, ragged T, one chunk and eight, float32
+   and bf16 x/B/C, and a second run equal bit for bit; 13g its device time
+   (CUDA-graph replays) at mamba2's and zamba2's training shape (B 4, T
+   4,096, bf16) beside its plain version's, its bound, its host time and
+   the forward with and without its chunk states; 13h
+   ``launch.train.train`` of mamba2-1.3b at full width with 13e's
+   settings: SSD forward launches 2 x 48 x 2 a step, backward 48 x 2, no
+   flash launch, finite losses, median step, tokens/s, peak memory and
+   one more step under torch.profiler (its busy share and the SSD
+   backward's device ms by launch).
 
 The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``; the full report goes to
@@ -2663,9 +2682,36 @@ TRAIN_ARCHS = ["stablelm-1.6b", "qwen2-7b", "qwen2-vl-7b",
                "qwen3-moe-30b-a3b", "seamless-m4t-large-v2"]
 TRAIN_B, TRAIN_T = 2, 16
 TRAIN_TOL = 1e-4
-#: 13e: stablelm-1.6b at full width: steps, sequence (train_4k's), global
-#: batch, microbatches
+#: 13c: the ssm and hybrid configs and their layers (zamba2: one super-unit
+#: of 6 Mamba-2 layers and the shared attention block, and one tail layer),
+#: at T 320: the SSD scan over three chunks, the last of 64 rows
+TRAIN_SSM = [("mamba2-1.3b", 2), ("zamba2-1.2b", 7)]
+TRAIN_SSM_T = 320
+#: 13e and 13h: stablelm-1.6b and mamba2-1.3b at full width: steps,
+#: sequence (train_4k's), global batch, microbatches
 FULL_STEPS, FULL_SEQ, FULL_BATCH, FULL_MICRO = 4, 4096, 8, 2
+SSD_BWD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu"
+#: what the SSD backward replaces: the gradient of the TPU kernel's
+#: function, which the JAX package takes by XLA's autodiff of ssd_chunked
+SSD_BWD_GRADIENT_OF = "src/repro/models/mamba2.py:60"
+#: 13f: (name, B, T, H, P, G, N, chunk, layout, state0, dstate): mamba2's
+#: and zamba2's widths (N 128, N 64) on views of the conv output, G 2,
+#: initial states, a final-state gradient or none, ragged T, one chunk
+#: and several
+SSD_BWD_CASES = [
+    ("mamba2 B2 T300 state0 dstate", 2, 300, 64, 64, 1, 128, 128, "conv",
+     "random", True),
+    ("mamba2 B1 T1000 (8 chunks)", 1, 1000, 64, 64, 1, 128, 128, "conv",
+     None, False),
+    ("mamba2 B2 T13 (one chunk) state0", 2, 13, 64, 64, 1, 128, 128, "conv",
+     "random", False),
+    ("zamba2 B2 T300 state0 dstate", 2, 300, 64, 64, 1, 64, 128, "conv",
+     "random", True),
+    ("G2 N64 B2 T200 state0", 2, 200, 16, 64, 2, 64, 128, "bthp", "random",
+     False),
+    ("G2 N128 B1 T129 dstate", 1, 129, 16, 64, 2, 128, 128, "bthp", None,
+     True),
+]
 
 
 def bwd_bound(B, Hq, Hkv, S, D, elem):
@@ -2833,6 +2879,190 @@ def run_bwd_timings(torch, kernel, attention_bwd_ref, lse_ref, sdpa):
     return rows
 
 
+def ssd_bwd_bound(B, T, H, P, G, N, chunk, elem):
+    """Least time for the SSD backward on these inputs (no final-state
+    gradient, as in training): x, B_ and C_ (``elem`` bytes), dt and dy
+    (fp32) read once, dx, ddt, dB and dC (fp32) written once, at the HBM
+    rate (the forward's chunk states, which this design reads, are not
+    the gradient's own need and are left out), against the operations at
+    the bf16
+    peak, per chunk of ``rows`` rows and its rows (rows + 1) / 2 pairs
+    m <= l: C B^T 2 N a pair per group; per head dy x^T, A1^T dy 2 P and
+    A2^T C, A2 B 2 N a pair each, and the four products with a state
+    (the state-gradient term, s_in^T dy, ds B, ds^T x) 2 P N a row each."""
+    L = min(chunk, T)
+    flops = 0
+    for t0 in range(0, T, L):
+        rows = min(L, T - t0)
+        pairs = rows * (rows + 1) // 2
+        flops += B * (G * 2 * N * pairs
+                      + H * (4 * P * pairs + 4 * N * pairs
+                             + 8 * rows * P * N))
+    nbytes = (elem * B * T * (H * P + 2 * G * N) + 4 * B * T * H
+              + 4 * B * T * H * P
+              + 4 * B * T * H * P + 4 * B * T * H + 2 * 4 * B * T * G * N)
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+SSD_GRADS = ("dx", "ddt", "da", "dB", "dC", "dstate0")
+
+
+def ssd_bwd_call(torch, ssd_kernel, case_inputs, chunk):
+    """The forward with its chunk states, then ``call()`` of the
+    backward on them."""
+    x, dt, a, B_, C_, s0, dy, ds = case_inputs
+    _, _, states = ssd_kernel.ssd_scan(x, dt, a, B_, C_, chunk=chunk,
+                                       state0=s0, return_states=True)
+
+    def call():
+        return ssd_kernel.ssd_scan_bwd(x, dt, a, B_, C_, dy, states,
+                                       chunk=chunk, dstate=ds,
+                                       state0_grad=s0 is not None)
+    return call
+
+
+def ssd_bwd_inputs(torch, B, T, H, P, G, N, dtype, layout, state0, dstate,
+                   seed):
+    """``ssd_inputs`` and a gradient of y (and of the final state)."""
+    x, dt, a, B_, C_, s0 = ssd_inputs(torch, B, T, H, P, G, N, dtype, layout,
+                                      state0, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(B, T, H, P, generator=g, device="cuda")
+    ds = (torch.randn(B, H, P, N, generator=g, device="cuda") if dstate
+          else None)
+    return x, dt, a, B_, C_, s0, dy, ds
+
+
+def ssd_bwd_refs(ssd_chunked_bwd, inputs, chunk, dtype):
+    """``ssd_chunked_bwd`` on the inputs upcast to ``dtype`` (float64 for
+    the bar, float32 for the plain version's own gap)."""
+    x, dt, a, B_, C_, s0, dy, ds = inputs
+    up = [None if t is None else t.to(dtype)
+          for t in (x, dt, a, B_, C_, s0, dy, ds)]
+    return ssd_chunked_bwd(*up[:5], chunk, *up[5:])
+
+
+def ssd_grad_errs(grads, refs):
+    """Each gradient's max |error| over the reference's max (None where
+    the gradient is not asked for)."""
+    return {n: grad_rel(g, r) for n, g, r in zip(SSD_GRADS, grads, refs)
+            if g is not None}
+
+
+def run_ssd_bwd_checks(torch, ssd_kernel, ssd_chunked_bwd):
+    """13f: each of SSD_BWD_CASES in float32 and with bf16 x/B/C: the
+    backward kernel's fp32 gradients, before any cast, against
+    ``ssd_chunked_bwd`` in float64 on the fp32 upcasts of the same inputs
+    (and the forward's chunk states), each within SSD_TOL of its max; the
+    plain version's own gap in float32 beside it; a second call equal bit
+    for bit."""
+    results = []
+    for i, (name, B, T, H, P, G, N, chunk, layout, state0, dstate) in \
+            enumerate(SSD_BWD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            inputs = ssd_bwd_inputs(torch, B, T, H, P, G, N, dtype, layout,
+                                    state0, dstate, 300 + i)
+            call = ssd_bwd_call(torch, ssd_kernel, inputs, chunk)
+            grads, again = call(), call()
+            torch.cuda.synchronize()
+            ref64 = ssd_bwd_refs(ssd_chunked_bwd, inputs, chunk,
+                                 torch.float64)
+            ref32 = ssd_bwd_refs(ssd_chunked_bwd, inputs, chunk,
+                                 torch.float32)
+            errs = ssd_grad_errs(grads, ref64)
+            plain = ssd_grad_errs(ref32[:len(errs)], ref64)
+            abs_err = max(float((g.double() - r).abs().max())
+                          for g, r in zip(grads, ref64) if g is not None)
+            same = all(torch.equal(g, h) for g, h in zip(grads, again)
+                       if g is not None)
+            finite = all(bool(torch.isfinite(g).all()) for g in grads
+                         if g is not None)
+            ok = max(errs.values()) <= SSD_TOL and same and finite
+            print(f"  {name:32s} {dname:9s} "
+                  + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                  + f" (x max, tol {SSD_TOL:g}; plain fp32 "
+                  f"{max(plain.values()):.2e}) rerun "
+                  f"{'equal' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            check(ok, f"ssd_bwd disagrees with its plain version or with "
+                      f"itself: {name} {dname} {errs} rerun equal {same}, "
+                      f"finite {finite}")
+            results.append({"case": name, "dtype": dname, "rel_err": errs,
+                            "plain_fp32_rel_err": plain,
+                            "max_abs_err": abs_err, "rerun_equal": same})
+            del inputs, call, grads, again, ref64, ref32
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_ssd_bwd_timings(torch, ssd_kernel, ssd_chunked_bwd, cfgs):
+    """13g: at each config's training shape (13h's microbatch, B 4 x T
+    4,096, bf16 x/B/C on views of the conv output, zero state0 and no
+    final-state gradient, as the model calls it): the backward held to
+    ``ssd_chunked_bwd`` in float64 (SSD_TOL), then device ms of the
+    backward (CUDA-graph replays), of its plain version in float32, of
+    the forward with and without its chunk states, the host ms per call,
+    the bound.  No single PyTorch call computes this gradient; 13h's
+    profiled step splits a call at mamba2's shape among its five launches
+    (a profile of these direct calls, late in the script, records none of
+    them)."""
+    rows = []
+    for label, cfg in cfgs:
+        s = cfg.ssm
+        H, P, G, N = (s.n_ssm_heads(cfg.d_model), s.head_dim, s.n_groups,
+                      s.d_state)
+        B, T = FULL_BATCH // FULL_MICRO, FULL_SEQ
+        inputs = ssd_bwd_inputs(torch, B, T, H, P, G, N, torch.bfloat16,
+                                "conv", None, False, 17)
+        kern = ssd_bwd_call(torch, ssd_kernel, inputs, s.chunk)
+        grads = kern()
+        ref = ssd_bwd_refs(ssd_chunked_bwd, inputs, s.chunk, torch.float64)
+        errs = ssd_grad_errs(grads, ref)
+        abs_err = max(float((g.double() - r).abs().max())
+                      for g, r in zip(grads, ref) if g is not None)
+        check(max(errs.values()) <= SSD_TOL,
+              f"ssd_bwd disagrees with its plain version at {label}: {errs}")
+        del grads, ref
+        torch.cuda.empty_cache()
+        x, dt, a, B_, C_ = inputs[:5]
+
+        def plain():
+            return ssd_bwd_refs(ssd_chunked_bwd, inputs, s.chunk,
+                                torch.float32)
+        b_ms, b_by = ssd_bwd_bound(B, T, H, P, G, N, s.chunk, 2)
+        pl = ssd_kernel.bwd_plan(torch.bfloat16, T, s.chunk)
+        row = {"shape": f"{label} train", "B": B, "T": T, "H": H, "P": P,
+               "G": G, "N": N, "chunk": s.chunk, "dtype": "bfloat16",
+               "path": pl.path, "rel_err": errs, "max_abs_err": abs_err,
+               "ms": device_ms(torch, kern, calls=3, replays=2),
+               "host_ms": host_ms(torch, kern, budget_ms=200.0),
+               "plain_ms": device_ms(torch, plain, calls=1, replays=2),
+               "library_ms": None,
+               "library": "none: no single PyTorch call computes the SSD "
+                          "scan's gradient",
+               "fwd_ms": device_ms(torch, lambda: ssd_kernel.ssd_scan(
+                   x, dt, a, B_, C_, chunk=s.chunk)),
+               "fwd_states_ms": device_ms(torch, lambda: ssd_kernel.ssd_scan(
+                   x, dt, a, B_, C_, chunk=s.chunk, return_states=True)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        row["bound_share"] = b_ms / row["ms"]
+        print(f"  {label:12s} B{B} T{T} H{H} P{P} G{G} N{N}: "
+              + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f" (tol {SSD_TOL:g}); device: kernel {row['ms']:9.4f} ms  "
+              f"plain {row['plain_ms']:9.4f} ms  bound {b_ms:9.4f} ms "
+              f"({b_by}, {100 * row['bound_share']:.1f}%); host "
+              f"{row['host_ms']:9.4f} ms; forward {row['fwd_ms']:.4f} ms, "
+              f"with its chunk states {row['fwd_states_ms']:.4f} ms",
+              flush=True)
+        rows.append(row)
+        del inputs, kern, x, dt, a, B_, C_
+        torch.cuda.empty_cache()
+    return rows
+
+
 def copy_to(tree, device):
     """A copy of a tree of tensors on ``device``."""
     if isinstance(tree, dict):
@@ -2849,11 +3079,13 @@ def two_layers(cfg):
 
 def train_reference_check(torch, build_model, apply_updates, state_defs,
                           tree_defs_init, SyntheticLMData, AdamWConfig,
-                          leaves, unflatten, cfg, label):
-    """13c: loss and gradients of one batch on the card (both kernels of
-    the path) and on the CPU (plain versions), within TRAIN_TOL x each
-    leaf's max at unit score variance (with the init's weights the gap is
-    measured and printed beside it); then one AdamW step from the same
+                          leaves, unflatten, cfg, label, seq=TRAIN_T):
+    """13c: loss and gradients of one batch of ``seq`` tokens on the card
+    (the kernels of the path) and on the CPU (plain versions), within
+    TRAIN_TOL x each leaf's max at unit score variance (with the init's
+    weights the gap is measured and printed beside it; a config without
+    attention has no score to scale, and only that pass runs); then one
+    AdamW step from the same
     (zero) state and the card's gradients, on the card and on the CPU:
     every parameter after the step within TRAIN_TOL x the leaf's max.
     The step from the CPU's gradients is measured beside it: Adam's first
@@ -2867,7 +3099,7 @@ def train_reference_check(torch, build_model, apply_updates, state_defs,
     opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=100)
 
     def loss_and_grads(p, dev):
-        batch = SyntheticLMData(cfg, seq=TRAIN_T, global_batch=TRAIN_B,
+        batch = SyntheticLMData(cfg, seq=seq, global_batch=TRAIN_B,
                                 seed=3, device=dev).batch(0)
         flat = leaves(p)
         for t in flat:
@@ -2890,7 +3122,7 @@ def train_reference_check(torch, build_model, apply_updates, state_defs,
         return max(grad_rel(x, y.to("cuda")) for x, y in zip(a, b))
 
     out = {}
-    for weights in ("init", "unit"):
+    for weights in (("unit",) if cfg.family == "ssm" else ("init", "unit")):
         params = unit_score_scale(base, cfg) if weights == "unit" else base
         loss_cpu, g_cpu = loss_and_grads(params, "cpu")
         loss_card, g_card = loss_and_grads(to_device(params, "cuda"),
@@ -2997,24 +3229,29 @@ def small_lm_learns(torch, build_model, make_train_step, AdamWConfig,
     return {"losses": losses, "uniform": uniform}
 
 
-def full_width_training(torch, kernel, train_mod, make_train_step,
-                        AdamWConfig, state_defs, tree_defs_init,
-                        SyntheticLMData, cfg):
-    """13e: ``train`` of stablelm-1.6b at full width, FULL_STEPS steps of
-    FULL_BATCH x FULL_SEQ tokens in FULL_MICRO microbatches (no
-    checkpoint: its state would be ~26 GB); the flash launches of the run
-    (forward twice a layer a microbatch under full remat, backward once),
-    median step, tokens/s, peak memory, then one more step under
-    torch.profiler for the device-busy share."""
+def full_width_training(torch, kernel, other, label, bwd_kernels, train_mod,
+                        make_train_step, AdamWConfig, state_defs,
+                        tree_defs_init, SyntheticLMData, cfg):
+    """13e and 13h: ``train`` of ``cfg`` at full width, FULL_STEPS steps
+    of FULL_BATCH x FULL_SEQ tokens in FULL_MICRO microbatches (no
+    checkpoint: its state would be ~26 GB); the launches of the run of
+    the path's kernel module ``kernel`` (``label``: forward twice a layer
+    a microbatch under full remat, backward once; every layer of
+    stablelm-1.6b is an attention, every layer of mamba2-1.3b a Mamba-2
+    layer) and none of ``other``'s, median step, tokens/s, peak memory,
+    then one more step under torch.profiler for the device-busy share and
+    the backward's device ms (``bwd_kernels``, its launches)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    other.LAUNCHES = other.BWD_LAUNCHES = 0
     t0 = time.perf_counter()
     rep = train_mod.train(cfg, steps=FULL_STEPS, seq=FULL_SEQ,
                           global_batch=FULL_BATCH, microbatches=FULL_MICRO,
                           seed=0, device="cuda")
     wall = time.perf_counter() - t0
     fwd, bwd = kernel.LAUNCHES, kernel.BWD_LAUNCHES
+    stray = other.LAUNCHES + other.BWD_LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     passes = FULL_STEPS * FULL_MICRO
     step_ms = 1e3 * sorted(rep.step_times)[len(rep.step_times) // 2]
@@ -3022,17 +3259,20 @@ def full_width_training(torch, kernel, train_mod, make_train_step,
     print(f"  losses {[round(x, 4) for x in rep.losses]}; step times "
           f"{[round(1e3 * t, 1) for t in rep.step_times]} ms, median "
           f"{step_ms:.1f} ms, {tok_s:.0f} tokens/s; peak memory "
-          f"{peak_gb:.2f} GB; flash forward launches {fwd} = {passes} "
+          f"{peak_gb:.2f} GB; {label} forward launches {fwd} = {passes} "
           f"passes x {cfg.n_layers} layers x 2 (remat), backward {bwd} = "
-          f"{passes} x {cfg.n_layers}; {wall:.1f} s in all", flush=True)
+          f"{passes} x {cfg.n_layers}; the other kernels {stray}; "
+          f"{wall:.1f} s in all", flush=True)
     check(all(x == x and abs(x) < 1e4 for x in rep.losses),
           f"non-finite losses at full width: {rep.losses}")
     check(fwd == passes * cfg.n_layers * 2,
-          f"flash forward launched {fwd} times, expected "
+          f"{label} forward launched {fwd} times, expected "
           f"{passes} x {cfg.n_layers} x 2")
     check(bwd == passes * cfg.n_layers,
-          f"flash backward launched {bwd} times, expected "
+          f"{label} backward launched {bwd} times, expected "
           f"{passes} x {cfg.n_layers}")
+    check(stray == 0, f"the other kernels ran {stray} times on the "
+                      f"{cfg.arch} path")
     check(peak_gb < torch.cuda.get_device_properties(0).total_memory / 1e9,
           "peak memory past the card")
     # one more step, profiled, from the trained parameters and a fresh state
@@ -3052,34 +3292,33 @@ def full_width_training(torch, kernel, train_mod, make_train_step,
     def launches():
         return kernel.LAUNCHES + kernel.BWD_LAUNCHES
     print("  one more step under torch.profiler:", flush=True)
-    bwd_kernels = kernel.BWD_KERNELS[kernel.bwd_plan(
-        torch.bfloat16, cfg.resolved_head_dim())]
-    prof = profile_steps(torch, one, 1, "flash_", "flash", launches,
-                         parts=("flash_bwd",) + bwd_kernels)
+    prof = profile_steps(torch, one, 1, f"{label}_", label, launches,
+                         parts=(f"{label}_bwd",) + bwd_kernels)
     del params, state, batch
     torch.cuda.empty_cache()
-    bwd_ms = prof["parts_ms"]["flash_bwd"]
+    bwd_ms = prof["parts_ms"][f"{label}_bwd"]
     busy = prof["device_busy_ms_per_step"]
-    print(f"  flash backward {bwd_ms:.3f} ms of the step's {busy:.3f} busy "
-          f"ms ({100 * bwd_ms / busy:.1f}%): "
+    print(f"  {label} backward {bwd_ms:.3f} ms of the step's {busy:.3f} "
+          f"busy ms ({100 * bwd_ms / busy:.1f}%): "
           + ", ".join(f"{k} {prof['parts_ms'][k]:.3f}" for k in bwd_kernels),
           flush=True)
     return {"losses": losses, "step_ms": step_ms, "tokens_per_s": tok_s,
-            "peak_memory_gb": peak_gb, "flash_fwd_launches": fwd,
-            "flash_bwd_launches": bwd, "seconds": wall, "profile": prof,
-            "flash_bwd_ms_per_step": bwd_ms,
+            "peak_memory_gb": peak_gb, f"{label}_fwd_launches": fwd,
+            f"{label}_bwd_launches": bwd, "seconds": wall, "profile": prof,
+            f"{label}_bwd_ms_per_step": bwd_ms,
             "busy_share": busy / prof["wall_ms_per_step"]}
 
 
-def run_training_phase(torch, kernel, get_config, build_model):
-    """Phase 13: 13a the backward against its plain version, 13b its
-    timings, 13c a train step card vs CPU for TRAIN_ARCHS, 13d restarts
-    and the small LM, 13e stablelm-1.6b at full width.  The SSD scan has
-    no backward kernel, so ssm and hybrid configs do not train on the
-    card (they raise); none is here."""
+def run_training_phase(torch, kernel, ssd_kernel, get_config, build_model):
+    """Phase 13: 13a the flash backward against its plain version, 13b its
+    timings, 13c a train step card vs CPU for TRAIN_ARCHS and TRAIN_SSM,
+    13d restarts and the small LM, 13e stablelm-1.6b at full width; 13f
+    the SSD backward against its plain version, 13g its timings, 13h
+    mamba2-1.3b at full width."""
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      lse_ref)
+    from repro_torch.kernels.ssd import ssd_chunked_bwd
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as train_mod
     from repro_torch.models.common import ModelConfig, tree_defs_init
@@ -3099,7 +3338,9 @@ def run_training_phase(torch, kernel, get_config, build_model):
     print(f"== phase 13c ({time.perf_counter() - t0:.1f} s): one train "
           f"step at 2 layers, card against CPU "
           f"(B {TRAIN_B}, T {TRAIN_T}, float32 activations): "
-          + ", ".join(TRAIN_ARCHS), flush=True)
+          + ", ".join(TRAIN_ARCHS) + "; at T " + str(TRAIN_SSM_T) + ": "
+          + ", ".join(f"{a} ({n} layers)" for a, n in TRAIN_SSM),
+          flush=True)
     steps_check = {}
     for arch in TRAIN_ARCHS:
         cfg = two_layers(get_config(arch)).with_(dtype=torch.float32)
@@ -3107,6 +3348,22 @@ def run_training_phase(torch, kernel, get_config, build_model):
             torch, build_model, apply_updates, state_defs, tree_defs_init,
             SyntheticLMData, AdamWConfig, leaves, unflatten, cfg,
             f"{arch} ({cfg.param_count():,} parameters)")
+    for arch, n_layers in TRAIN_SSM:
+        cfg = get_config(arch).with_(n_layers=n_layers, dtype=torch.float32)
+        ssd_kernel.LAUNCHES = ssd_kernel.BWD_LAUNCHES = 0
+        steps_check[arch] = train_reference_check(
+            torch, build_model, apply_updates, state_defs, tree_defs_init,
+            SyntheticLMData, AdamWConfig, leaves, unflatten, cfg,
+            f"{arch} {n_layers} layers, T {TRAIN_SSM_T} "
+            f"({cfg.param_count():,} parameters)", seq=TRAIN_SSM_T)
+        passes = 1 if cfg.family == "ssm" else 2     # init, unit
+        fwd, bwd = ssd_kernel.LAUNCHES, ssd_kernel.BWD_LAUNCHES
+        print(f"  {arch}: SSD forward launches {fwd}, backward {bwd} "
+              f"({passes} gradient passes x {n_layers} layers)", flush=True)
+        check(fwd == 2 * passes * n_layers and bwd == passes * n_layers,
+              f"{arch}: SSD launches forward {fwd}, backward {bwd}; expected "
+              f"{2 * passes * n_layers} and {passes * n_layers}")
+        steps_check[arch].update(ssd_fwd_launches=fwd, ssd_bwd_launches=bwd)
     print(f"== phase 13d ({time.perf_counter() - t0:.1f} s): restarts "
           "(stablelm-1.6b, 2 layers at full width, checkpoints every 2 "
           "steps) and the small LM on the card", flush=True)
@@ -3121,14 +3378,43 @@ def run_training_phase(torch, kernel, get_config, build_model):
           f"at full width ({cfg.param_count():,}"
           f" parameters), {FULL_STEPS} steps of {FULL_BATCH} x {FULL_SEQ} "
           f"tokens in {FULL_MICRO} microbatches", flush=True)
-    full = full_width_training(torch, kernel, train_mod,
-                               steps_mod.make_train_step, AdamWConfig,
-                               state_defs, tree_defs_init, SyntheticLMData,
-                               cfg)
-    print(f"  phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+    full = full_width_training(
+        torch, kernel, ssd_kernel, "flash",
+        kernel.BWD_KERNELS[kernel.bwd_plan(torch.bfloat16,
+                                           cfg.resolved_head_dim())],
+        train_mod, steps_mod.make_train_step, AdamWConfig, state_defs,
+        tree_defs_init, SyntheticLMData, cfg)
+    t13f = time.perf_counter()
+    print(f"== phase 13f ({t13f - t0:.1f} s): SSD backward kernel against "
+          f"its plain version in float64 (each gradient within {SSD_TOL:g} "
+          "of its max; float32 and bf16 x/B/C; reruns bit for bit)",
+          flush=True)
+    ssd_checks = run_ssd_bwd_checks(torch, ssd_kernel, ssd_chunked_bwd)
+    mcfg, zcfg = get_config("mamba2-1.3b"), get_config("zamba2-1.2b")
+    print(f"== phase 13g ({time.perf_counter() - t0:.1f} s): SSD backward "
+          f"timing at the training shape (B {FULL_BATCH // FULL_MICRO}, T "
+          f"{FULL_SEQ}, bf16; device time from CUDA graph replays)",
+          flush=True)
+    ssd_rows = run_ssd_bwd_timings(torch, ssd_kernel, ssd_chunked_bwd,
+                                   [("mamba2-1.3b", mcfg),
+                                    ("zamba2-1.2b", zcfg)])
+    print(f"== phase 13h ({time.perf_counter() - t0:.1f} s): mamba2-1.3b at "
+          f"full width ({mcfg.param_count():,} parameters), {FULL_STEPS} "
+          f"steps of {FULL_BATCH} x {FULL_SEQ} tokens in {FULL_MICRO} "
+          "microbatches", flush=True)
+    ssm_full = full_width_training(
+        torch, ssd_kernel, kernel, "ssd",
+        ssd_kernel.BWD_KERNELS[ssd_kernel.bwd_plan(torch.bfloat16, FULL_SEQ,
+                                                   mcfg.ssm.chunk).path],
+        train_mod, steps_mod.make_train_step, AdamWConfig, state_defs,
+        tree_defs_init, SyntheticLMData, mcfg)
+    print(f"  phases 13f-13h: {time.perf_counter() - t13f:.1f} s; phase 13: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return {"bwd_checks": checks, "bwd_timings": rows,
             "train_step": steps_check, "restart": restart,
             "small_lm": learns, "full_width": full,
+            "ssd_bwd_checks": ssd_checks, "ssd_bwd_timings": ssd_rows,
+            "ssm_full_width": ssm_full,
             "seconds": time.perf_counter() - t0}
 
 
@@ -3184,7 +3470,8 @@ def main() -> int:
     print("== phase 2: build (one nvcc per source, started together)",
           flush=True)
     t0 = time.time()
-    sources = [kernel.SOURCE, kernel.BWD_SOURCE, ssd_kernel.SOURCE]
+    sources = [kernel.SOURCE, kernel.BWD_SOURCE, ssd_kernel.SOURCE,
+               ssd_kernel.BWD_SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_build.build, sources))
     print(f"built {', '.join(str(p.relative_to(ROOT)) for p in libs)} in "
@@ -3454,8 +3741,10 @@ def main() -> int:
               f" {dec['kernels_per_step']:8.0f} {r['peak_memory_gb']:8.2f} "
               f"{r['flash_launches']:6d}", flush=True)
 
-    print("== phase 13: training, the flash backward kernel", flush=True)
-    training = run_training_phase(torch, kernel, get_config, build_model)
+    print("== phase 13: training, the flash and SSD backward kernels",
+          flush=True)
+    training = run_training_phase(torch, kernel, ssd_kernel, get_config,
+                                  build_model)
 
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
@@ -3467,7 +3756,9 @@ def main() -> int:
                      "stablelm-1.6b training (13e)":
                          training["full_width"]["flash_fwd_launches"]}
     ssd_by_path = {"mamba2-1.3b": ssd_launches,
-                   "zamba2-1.2b": configs["zamba2-1.2b"]["ssd_launches"]}
+                   "zamba2-1.2b": configs["zamba2-1.2b"]["ssd_launches"],
+                   "mamba2-1.3b training (13h)":
+                       training["ssm_full_width"]["ssd_fwd_launches"]}
     entry = {"name": "flash_attention_fwd", "route": "cuda",
              "source": KERNEL_SOURCE, "replaces": REPLACES,
              "replaces_function": "_flash_fwd_kernel",
@@ -3514,7 +3805,29 @@ def main() -> int:
                  "host_ms": bwd_row["host_ms"],
                  "timed_shape": bwd_row["shape"],
                  "shapes": training["bwd_timings"]}
-    kernels_line = {"kernels": [entry, ssd_entry, bwd_entry]}
+    ssm_full = training["ssm_full_width"]
+    ssd_bwd_row = training["ssd_bwd_timings"][0]
+    per_call = FULL_STEPS / ssm_full["ssd_bwd_launches"]
+    ssd_bwd_entry = {
+        "name": "ssd_scan_bwd", "route": "cuda", "source": SSD_BWD_SOURCE,
+        "replaces": SSD_REPLACES,
+        "replaces_function": "the gradient of _ssd_kernel",
+        "gradient_of": SSD_BWD_GRADIENT_OF,
+        "launches": ssm_full["ssd_bwd_launches"],
+        "launches_by_path": {"mamba2-1.3b training (13h)":
+                             ssm_full["ssd_bwd_launches"]},
+        "max_abs_err": ssd_bwd_row["max_abs_err"],
+        "ms": ssd_bwd_row["ms"], "plain_ms": ssd_bwd_row["plain_ms"],
+        "bound_ms": ssd_bwd_row["bound_ms"],
+        "bound_by": ssd_bwd_row["bound_by"], "library_ms": None,
+        "library": ssd_bwd_row["library"], "host_ms": ssd_bwd_row["host_ms"],
+        "timed_shape": ssd_bwd_row["shape"],
+        "kernels_ms": {k: ms * per_call for k, ms
+                       in ssm_full["profile"]["parts_ms"].items()
+                       if k != "ssd_bwd"},
+        "kernels_ms_from": "13h's profiled step, per backward call",
+        "shapes": training["ssd_bwd_timings"]}
+    kernels_line = {"kernels": [entry, ssd_entry, bwd_entry, ssd_bwd_entry]}
     report = {**kernels_line, "checks": checks, "ssd_checks": ssd_checks,
               "serve": summary, "batch_shapes": batch_shapes,
               "peak_memory_gb": peak_gb, "decode_profile": profile,

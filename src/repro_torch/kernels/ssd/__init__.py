@@ -1,5 +1,6 @@
-from .kernel import ssd_scan
+from .kernel import ssd_scan, ssd_scan_bwd
 from .ops import ssd
-from .ref import ssd_chunked, ssd_ref
+from .ref import ssd_chunked, ssd_chunked_bwd, ssd_ref
 
-__all__ = ["ssd_scan", "ssd", "ssd_chunked", "ssd_ref"]
+__all__ = ["ssd_scan", "ssd_scan_bwd", "ssd", "ssd_chunked",
+           "ssd_chunked_bwd", "ssd_ref"]

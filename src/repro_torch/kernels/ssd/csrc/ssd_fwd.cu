@@ -85,6 +85,14 @@
 //      product but TF32, and a three-term split of both operands would
 //      cost more than float32, the type of the parity checks, is worth.
 //
+// Training asks for one more output, ``states``: the fp32 state entering
+// each chunk, (B, chunks, H, P, N), which the backward (ssd_bwd.cu) reads
+// instead of recomputing it.  The chunked path's state passing already
+// leaves exactly that in its scratch c, so with more than one chunk the
+// buffer takes the scratch's place; with one chunk b writes state0 (or
+// zeros) into it; the fp32 kernel writes its shared state at each chunk's
+// start.  Serving passes null and nothing more is written.
+//
 // wgmma, TMA and a fused single-pass scan are left for later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -115,6 +123,7 @@ struct Params {
   float* cb;                            // chunked: (B, chunks, G, Lp, Lp)
   float* cs;                            // chunked: (B, chunks, H, P, N)
   float* segs;                          // chunked: (B, chunks, H)
+  float* states;                        // may be null: (B, chunks, H, P, N)
   long long x_sb, x_st, x_sh, x_sp;     // element strides
   long long dt_sb, dt_st, dt_sh;
   long long b_sb, b_st, b_sg, b_sn;
@@ -209,6 +218,11 @@ ssd_fwd_fp32(const Params p) {
   for (int ck = 0; ck < p.n_chunks; ++ck) {
     const int t0 = ck * p.L;
     const int nv = min(p.L, p.T - t0);   // valid rows; the rest read as 0
+    if (p.states) {                      // the state entering the chunk
+      float* sd = p.states + (((long long)bb * p.n_chunks + ck) * p.H + h) * P * N;
+      for (int e = tid; e < P * N; e += kThreads)
+        sd[e] = st[(e % N) * LdS + e / N];
+    }
     // ---- stage the chunk -------------------------------------------------
     for (int e = tid; e < Lp * P; e += kThreads) {
       const int l = e / P, pp = e % P;
@@ -650,6 +664,12 @@ ssd_chunk_state(const Params p) {
   }
   if (!one && threadIdx.x == 0)
     p.segs[((long long)bb * p.n_chunks + c) * p.H + h] = seg;
+  // One chunk: the state entering it, for the backward, is state0 (or 0).
+  if (one && p.states) {
+    float* sd = p.states + ((long long)bb * p.H + h) * PN;
+    for (int e = threadIdx.x; e < PN; e += kMmaThreads)
+      sd[e] = s0 ? s0[e] : 0.f;
+  }
 }
 
 // c. s <- exp(seg_c) s + S_c over the chunks, four state elements a
@@ -930,10 +950,15 @@ extern "C" {
 // state0 may be null.  The chunked path takes three scratch buffers from
 // the caller: cb of B * chunks * G * Lp * Lp floats, and, with more than
 // one chunk, cs of B * chunks * H * P * N and segs of B * chunks * H
-// floats.  Returns a cudaError_t (0 on success).
+// floats.  ``states`` may be null; if given (contiguous fp32 (B, chunks, H,
+// P, N)), the state entering each chunk is written there for the backward
+// (ssd_bwd.cu): on the chunked path with more than one chunk it takes the
+// place of cs, whose state passing leaves exactly that in it.  Returns a
+// cudaError_t (0 on success).
 int ssd_fwd(const void* x, const float* dt, const float* a, const void* b,
             const void* c, const float* state0, float* y, float* state,
-            float* cb, float* cs, float* segs, int path, int B, int T, int H,
+            float* cb, float* cs, float* segs, float* states, int path,
+            int B, int T, int H,
             int G, int P, int N, int L, int Lp, int n_chunks,
             const long long* strides, void* stream) {
   const int tile = path == 0 ? 16 : 4;
@@ -945,7 +970,8 @@ int ssd_fwd(const void* x, const float* dt, const float* a, const void* b,
   Params p;
   p.x = x; p.dt = dt; p.a = a; p.b = b; p.c = c;
   p.state0 = state0; p.y = y; p.state = state;
-  p.cb = cb; p.cs = cs; p.segs = segs;
+  if (path == 0 && n_chunks > 1 && states) cs = states;
+  p.cb = cb; p.cs = cs; p.segs = segs; p.states = states;
   p.x_sb = strides[0]; p.x_st = strides[1]; p.x_sh = strides[2];
   p.x_sp = strides[3];
   p.dt_sb = strides[4]; p.dt_st = strides[5]; p.dt_sh = strides[6];

@@ -93,3 +93,114 @@ def ssd_chunked(x, dt, a, B_, C_, chunk: int, state0=None):
         ys.append(y_inter + y_intra)
     y = torch.cat(ys, dim=1)
     return (y[:, :T] if pad else y), state
+
+
+def ssd_chunked_bwd(x, dt, a, B_, C_, chunk: int, state0, dy, dstate):
+    """The gradient of ``ssd_chunked`` from explicit formulas, chunk by
+    chunk: a forward pass that keeps the state entering each chunk, then a
+    reverse pass.  ``dy``: (B, T, H, P), the gradient of y; ``dstate``:
+    (B, H, P, N), that of the final state, or None (zeros); ``state0`` as
+    ``ssd_chunked``.  Returns (dx, ddt, da, dB, dC, dstate0) in the
+    compute type (fp32, or fp64 for fp64 inputs); T is padded as
+    ``ssd_chunked`` pads it.
+
+    Per chunk and head (css the inclusive cumsum of dt a, seg its last
+    value, E[l, m] = exp(css_l - css_m) for m <= l and 0 otherwise,
+    w_m = exp(seg - css_m), s_in the state entering the chunk, ds the
+    gradient of the state leaving it):
+
+        dx_m   = sum_l CB E dt_m [l, m] dy_l + w_m dt_m ds B_m
+        dC_l   = exp(css_l) s_in^T dy_l + sum_m Gm[l, m] B_m,  Gm = dyx E dt_m
+        dB_m   = sum_l Gm[l, m] C_l + w_m dt_m ds^T x_m
+        ddt_m  = sum_l dyx CB E [l, m] + w_m x_m^T ds B_m + a dda_m
+        dcss_l = exp(css_l) dy_l^T s_in C_l + sum_m Q[l, m]
+                 - sum_l' Q[l', l] - R_l,  Q = dyx CB E dt_m,
+                 R_m = w_m dt_m x_m^T ds B_m, and the last row also takes
+                 sum_m R_m + exp(seg) <ds, s_in>
+        dda    = the reverse cumsum of dcss;  da += sum dt dda
+        ds_prev = exp(seg) ds + sum_l exp(css_l) dy_l C_l^T
+
+    with CB[l, m] = C_l . B_m and dyx[l, m] = dy_l . x_m; dB and dC are
+    summed over the heads of a group.
+    """
+    Bb, T, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    L = min(chunk, T)
+    n_chunks = -(-T // L)
+    pad = n_chunks * L - T
+    ct = _compute_type(x)
+    xf, dtf, Bf, Cf = x.to(ct), dt.to(ct), B_.to(ct), C_.to(ct)
+    dyf = dy.to(ct)
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = torch.nn.functional.pad(dtf, (0, 0, 0, pad))
+        Bf = torch.nn.functional.pad(Bf, (0, 0, 0, 0, 0, pad))
+        Cf = torch.nn.functional.pad(Cf, (0, 0, 0, 0, 0, pad))
+        dyf = torch.nn.functional.pad(dyf, (0, 0, 0, 0, 0, pad))
+    rep = H // G
+    af = a.to(ct)
+    mask = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))
+
+    def chunk_of(c):
+        sl = slice(c * L, (c + 1) * L)
+        Bh = Bf[:, sl].repeat_interleave(rep, dim=2)           # (B, L, H, N)
+        Ch = Cf[:, sl].repeat_interleave(rep, dim=2)
+        dtc = dtf[:, sl]
+        css = torch.cumsum(dtc * af, dim=1)                     # (B, L, H)
+        return xf[:, sl], dtc, Bh, Ch, dyf[:, sl], css, css[:, -1, :]
+
+    # forward: the state entering each chunk
+    state = (torch.zeros(Bb, H, P, N, dtype=ct, device=x.device)
+             if state0 is None else state0.to(ct))
+    s_in = []
+    for c in range(n_chunks):
+        xc, dtc, Bh, _, _, css, seg = chunk_of(c)
+        s_in.append(state)
+        w = torch.exp(seg[:, None, :] - css)
+        state = (state * torch.exp(seg)[..., None, None]
+                 + torch.einsum("blhn,blhp->bhpn", Bh * w[..., None],
+                                xc * dtc[..., None]))
+
+    # reverse: the gradient of the state leaving each chunk, ds
+    ds = (torch.zeros(Bb, H, P, N, dtype=ct, device=x.device)
+          if dstate is None else dstate.to(ct))
+    da = torch.zeros(H, dtype=ct, device=x.device)
+    dxs, ddts, dBs, dCs = [], [], [], []
+    for c in reversed(range(n_chunks)):
+        xc, dtc, Bh, Ch, dyc, css, seg = chunk_of(c)
+        sin = s_in[c]
+        diff = css[:, :, None, :] - css[:, None, :, :]          # (B, L, L, H)
+        E = torch.exp(diff.masked_fill(~mask[None, :, :, None],
+                                       float("-inf")))
+        Mt = E * dtc[:, None, :, :]                             # E dt_m
+        CB = torch.einsum("blhn,bmhn->blmh", Ch, Bh)
+        dyx = torch.einsum("blhp,bmhp->blmh", dyc, xc)
+        A2 = dyx * Mt                                           # Gm
+        ecs = torch.exp(css)
+        w = torch.exp(seg[:, None, :] - css)
+        wdt = w * dtc
+        dsB = torch.einsum("bhpn,bmhn->bmhp", ds, Bh)           # ds B_m
+        dxs.append(torch.einsum("blmh,blhp->bmhp", CB * Mt, dyc)
+                   + wdt[..., None] * dsB)
+        dC_inter = ecs[..., None] * torch.einsum("bhpn,blhp->blhn", sin, dyc)
+        dCh = dC_inter + torch.einsum("blmh,bmhn->blhn", A2, Bh)
+        dBh = (torch.einsum("blmh,blhn->bmhn", A2, Ch)
+               + wdt[..., None] * torch.einsum("bhpn,bmhp->bmhn", ds, xc))
+        dBs.append(dBh.unflatten(2, (G, rep)).sum(3))
+        dCs.append(dCh.unflatten(2, (G, rep)).sum(3))
+        Z = dyx * CB * E
+        Q = Z * dtc[:, None, :, :]
+        v = w * (xc * dsB).sum(-1)                              # (B, L, H)
+        R = dtc * v
+        dcss = ((dC_inter * Ch).sum(-1) + Q.sum(2) - Q.sum(1) - R)
+        dcss[:, -1] += R.sum(1) + torch.exp(seg) * (ds * sin).sum((-1, -2))
+        dda = torch.flip(torch.cumsum(torch.flip(dcss, [1]), 1), [1])
+        ddts.append(Z.sum(1) + v + af * dda)
+        da = da + (dtc * dda).sum((0, 1))
+        ds = (ds * torch.exp(seg)[..., None, None]
+              + torch.einsum("blh,blhp,blhn->bhpn", ecs, dyc, Ch))
+
+    def whole(parts):
+        out = torch.cat(parts[::-1], dim=1)
+        return out[:, :T] if pad else out
+    return (whole(dxs), whole(ddts), da, whole(dBs), whole(dCs), ds)

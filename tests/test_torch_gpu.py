@@ -1405,17 +1405,225 @@ def _paths(tree, prefix=""):
     return [(prefix, tree)]
 
 
+def _entering_states(x, dt, a, B_, C_, chunk, s0):
+    """The plain state entering each chunk, (B, chunks, H, P, N): state0
+    (or zeros), then the final state of each prefix of whole chunks."""
+    Bb, T, H, P = x.shape
+    N = B_.shape[3]
+    L = min(chunk, T)
+    out = [s0 if s0 is not None
+           else torch.zeros(Bb, H, P, N, device=x.device)]
+    for c in range(1, -(-T // L)):
+        out.append(ssd_chunked(x[:, :c * L], dt[:, :c * L], a,
+                               B_[:, :c * L], C_[:, :c * L], chunk,
+                               state0=s0)[1])
+    return torch.stack(out, dim=1)
+
+
+def _ssd_grads_close(grads, refs, tol=SSD_TOL):
+    """Each of (dx, ddt, da, dB, dC[, dstate0]) within ``tol`` of the
+    reference's max; the kernel's are float32, before any cast."""
+    for name, g, r in zip(("dx", "ddt", "da", "dB", "dC", "dstate0"),
+                          grads, refs):
+        assert g.dtype == torch.float32 and g.shape == r.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        _grad_close(g.double(), r, tol, name)
+
+
 @pytest.mark.gpu
-def test_ssd_gradient_raises_on_the_card():
-    """The SSD scan has no backward kernel yet: asking it for a gradient
-    on the card raises rather than leave the inputs without one."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk,state,dstate", [
+    (1, 32, 2, 8, 1, 8, 8, False, False),
+    (2, 64, 4, 16, 2, 16, 16, False, True),
+    (1, 50, 4, 8, 1, 8, 16, True, False),   # ragged last chunk, state0
+    (2, 50, 4, 16, 2, 64, 16, True, True),  # P 16, G 2, N 64
+    (2, 13, 8, 64, 1, 128, 128, True, True),  # one short chunk
+    (1, 300, 8, 64, 1, 128, 128, False, False),  # 3 chunks, ragged
+    (2, 300, 8, 64, 2, 64, 128, True, True),    # zamba2's N 64, G 2
+    (1, 1000, 4, 64, 4, 128, 128, True, False),  # 8 chunks, G 4
+])
+def test_ssd_bwd_kernel_matches_plain_version(dtype, B, T, H, P, G, N, chunk,
+                                              state, dstate):
+    """The backward kernel against ``ssd_chunked_bwd`` in float64 on the
+    fp32 upcasts of the same inputs, each gradient within 1e-5 of its max;
+    the forward's chunk states against the plain scan's."""
     _need_card()
-    x, dt, a, B_, C_, _ = _ssd_inputs(1, 64, 2, 16, 1, 16, torch.float32)
-    x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="SSD backward"):
-        ssd(x, dt, a, B_, C_, chunk=32)
-    with torch.no_grad():
-        ssd(x, dt, a, B_, C_, chunk=32)
+    from repro_torch.kernels.ssd import ssd_chunked_bwd, ssd_scan_bwd
+    x, dt, a, B_, C_, s0 = _ssd_inputs(B, T, H, P, G, N, dtype, state,
+                                       seed=T + N)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dy = torch.randn(B, T, H, P, generator=g, device="cuda")
+    ds = (torch.randn(B, H, P, N, generator=g, device="cuda") if dstate
+          else None)
+    y, st, states = ssd_scan(x, dt, a, B_, C_, chunk=chunk, state0=s0,
+                             return_states=True)
+    _ssd_close(states, _entering_states(x, dt, a, B_, C_, chunk, s0))
+    grads = ssd_scan_bwd(x, dt, a, B_, C_, dy, states, chunk=chunk,
+                         dstate=ds, state0_grad=state)
+    torch.cuda.synchronize()
+    f64 = [t.double() for t in (x, dt, a, B_, C_)]
+    refs = ssd_chunked_bwd(*f64, chunk, None if s0 is None else s0.double(),
+                           dy.double(), None if ds is None else ds.double())
+    _ssd_grads_close(grads[:6 if state else 5], refs)
+    if not state:
+        assert grads[5] is None
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_reruns_equal_bit_for_bit():
+    """No atomic whose order varies: a second call, and a replay of a
+    CUDA graph that captured one, give the first call's bits (mamba2's
+    widths, 8 chunks, G 1 so that dB and dC sum over all 8 heads)."""
+    _need_card()
+    from repro_torch.kernels.ssd import ssd_scan_bwd
+    x, dt, a, B_, C_, s0 = _ssd_inputs(2, 1000, 8, 64, 1, 128,
+                                       torch.bfloat16, True, seed=4)
+    dy = torch.randn(2, 1000, 8, 64, device="cuda")
+    _, _, states = ssd_scan(x, dt, a, B_, C_, chunk=128, state0=s0,
+                            return_states=True)
+
+    def call():
+        return ssd_scan_bwd(x, dt, a, B_, C_, dy, states, chunk=128)
+    first, again = call(), call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    for f, s, r in zip(first, again, replayed):
+        assert torch.equal(f, s) and torch.equal(f, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ssd_gradient_through_strided_views(dtype):
+    """The model's call on the card: x, B_, C_ views of one conv output
+    (an odd offset: rows not on 16 bytes), dt and a that want gradients,
+    through ``ops.ssd`` and ``_SSDScan``: one forward and one backward
+    launch, and every gradient equal to the CPU's autograd of the plain
+    scan on the same values (1e-5 x max; the bf16 conv gradient is
+    compared before autograd's cast, through the fp32 leaves)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    H, P, N, T = 8, 64, 128, 300
+    conv = torch.randn(2, T, 1 + H * P + 2 * N, generator=g,
+                       device="cuda")[..., 1:]
+    dtr = torch.randn(2, T, H, generator=g, device="cuda") * 0.5 - 3.0
+    A_log = torch.randn(H, generator=g, device="cuda") * 0.3
+    s0 = torch.randn(2, H, P, N, generator=g, device="cuda")
+    dy = torch.randn(2, T, H, P, generator=g, device="cuda")
+    ds = torch.randn(2, H, P, N, generator=g, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_(True)
+                  for t in (conv, dtr, A_log, s0)]
+        c, d, al, st0 = leaves
+        cv = c.to(dtype)
+        x = cv[..., :H * P].unflatten(-1, (H, P))
+        B_ = cv[..., H * P:H * P + N].unflatten(-1, (1, N))
+        C_ = cv[..., H * P + N:].unflatten(-1, (1, N))
+        dt = torch.nn.functional.softplus(d)
+        a = -torch.exp(al)
+        fwd, bwd = ssd_mod.kernel.LAUNCHES, ssd_mod.kernel.BWD_LAUNCHES
+        y, st = ssd(x, dt, a, B_, C_, chunk=128, state0=st0)
+        grads[dev] = [t.cpu() for t in torch.autograd.grad(
+            (y, st), leaves, (dy.to(dev), ds.to(dev)))]
+        if dev == "cuda":
+            assert ssd_mod.kernel.LAUNCHES - fwd == 1
+            assert ssd_mod.kernel.BWD_LAUNCHES - bwd == 1
+    for name, a_, b_ in zip(("conv", "dt", "A_log", "state0"),
+                            grads["cuda"], grads["cpu"]):
+        _grad_close(a_, b_, 1e-5 if dtype == torch.float32 else 1e-2, name)
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_launches():
+    """A backward call counts one ``BWD_LAUNCHES`` and launches its plan's
+    five kernels once each, as the CUDA driver records them; the chunk
+    kernel's shared memory, as the source lays it out, is within the
+    card's opt-in limit a block at every instantiation and chunk
+    length."""
+    _need_card()
+    from repro_torch.kernels.ssd import ssd_scan_bwd
+    k = ssd_mod.kernel
+    x, dt, a, B_, C_, s0 = _ssd_inputs(1, 300, 4, 64, 1, 128,
+                                       torch.bfloat16, True)
+    dy = torch.randn(1, 300, 4, 64, device="cuda")
+    _, _, states = ssd_scan(x, dt, a, B_, C_, chunk=128, state0=s0,
+                            return_states=True)
+    pl = k.bwd_plan(torch.bfloat16, 300, 128)
+    before = k.BWD_LAUNCHES
+    ssd_scan_bwd(x, dt, a, B_, C_, dy, states, chunk=128)
+    assert k.BWD_LAUNCHES == before + 1
+    launched = launched_kernels(
+        lambda: ssd_scan_bwd(x, dt, a, B_, C_, dy, states, chunk=128))
+    assert launched == list(pl.kernels), launched
+    lib = k._bwd_lib()
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for P in k.HEAD_DIMS:
+        for N in k.STATE_DIMS:
+            for Lp in range(k.BWD_TILE, k.MAX_CHUNK + 1, k.BWD_TILE):
+                assert 0 < lib.ssd_bwd_chunk_smem(P, N, Lp) <= limit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_ssm_train_step_on_the_card_matches_cpu(arch):
+    """A train step of the widened mamba2 and zamba2 smoke models (float32
+    activations, 2 microbatches, 2 chunks of 16) on the card, every SSD
+    layer through both SSD kernels (zamba2's shared block through both
+    flash kernels), against the CPU: the loss within 1e-4, the gradients
+    of one batch within 1e-4 x each leaf's max, and the parameters after
+    one AdamW step from the card's gradients within 1e-4 x max."""
+    _need_card()
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_defs_init
+    from repro_torch.optim import AdamWConfig, apply_updates, state_defs
+    from repro_torch.optim.adamw import leaves, unflatten
+    cfg = _small(arch)
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    params = _unit_scores(model.init(0, device="cpu"),
+                          cfg.resolved_head_dim() ** -0.5)
+    losses, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        batch = SyntheticLMData(cfg, seq=32, global_batch=4, seed=2,
+                                device=dev).batch(0)
+        state = tree_defs_init(state_defs(model.param_defs, opt), None, dev)
+        _, _, m = make_train_step(model, opt, microbatches=2)(
+            _to(params, dev), state, batch)
+        losses[dev] = float(m["loss"])
+        p = _to(params, dev)
+        flat = leaves(p)
+        for t in flat:
+            t.requires_grad_(True)
+        fwd, bwd = ssd_mod.kernel.LAUNCHES, ssd_mod.kernel.BWD_LAUNCHES
+        loss, _ = model.loss(p, batch)
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, flat)]
+        if dev == "cuda":   # every layer is a Mamba-2 layer; full remat
+            assert ssd_mod.kernel.LAUNCHES - fwd == 2 * cfg.n_layers
+            assert ssd_mod.kernel.BWD_LAUNCHES - bwd == cfg.n_layers
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        _grad_close(a, b, 1e-4, "grads")
+    after = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        state = tree_defs_init(state_defs(model.param_defs, opt), None, dev)
+        apply_updates(p, unflatten(p, [g.to(dev) for g in grads["cuda"]]),
+                      state, opt)
+        after[dev] = [t.cpu() for t in leaves(p)]
+    for a, b in zip(after["cuda"], after["cpu"]):
+        _grad_close(a, b, 1e-4, "params")
 
 
 @pytest.mark.gpu

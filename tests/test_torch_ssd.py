@@ -8,6 +8,7 @@ The bf16 case rounds the same inputs to bf16 on both sides, and both
 upcast them to fp32, so only the order of the fp32 sums differs.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -15,7 +16,8 @@ import torch
 from repro.kernels.ssd import ssd_ref as jax_ssd_ref
 from repro.kernels.ssd import ssd_scan as jax_ssd_scan
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
-from repro_torch.kernels.ssd import kernel, ssd, ssd_chunked, ssd_ref
+from repro_torch.kernels.ssd import (kernel, ops, ssd, ssd_chunked,
+                                     ssd_chunked_bwd, ssd_ref, ssd_scan_bwd)
 
 # (B, T, H, P, G, N, chunk): the shapes of tests/test_kernels.py
 SHAPES = [
@@ -262,7 +264,8 @@ def test_chunked_path_arithmetic_at_state_64(terms):
 
 def test_plain_scan_is_differentiated_on_the_cpu():
     """On the CPU the SSD entry is the plain scan, which autograd
-    differentiates (the card's kernel has no backward yet and raises)."""
+    differentiates (on the card ``_SSDScan`` takes the hand-written
+    backward kernel)."""
     g = torch.Generator().manual_seed(0)
     x = torch.randn(1, 16, 2, 8, generator=g, requires_grad=True)
     dt = torch.rand(1, 16, 2, generator=g) * 0.1
@@ -272,3 +275,214 @@ def test_plain_scan_is_differentiated_on_the_cpu():
     y, state = ssd(x, dt, a, B_, C_, chunk=8)
     (y.sum() + state.sum()).backward()
     assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+# ---------------------------------------------------------------------------
+# The backward: the plain version against autograd and against jax.vjp, the
+# backward kernel's plan, and the autograd function's plumbing
+# ---------------------------------------------------------------------------
+#: (B, T, H, P, G, N, chunk, state0, dstate): one chunk and several, ragged
+#: T, G 1 and G > 1, state0 given and absent, dstate zero and nonzero
+BWD_CASES = [
+    (1, 16, 2, 8, 1, 8, 16, False, False),      # one whole chunk
+    (2, 13, 4, 8, 2, 8, 16, True, True),        # one ragged chunk, G 2
+    (2, 50, 4, 8, 2, 8, 16, True, True),        # 4 chunks, the last of 2
+    (1, 48, 6, 4, 3, 5, 16, False, True),       # 3 whole chunks, G 3
+    (2, 37, 4, 3, 1, 4, 8, True, False),        # 5 chunks, ragged, G 1
+]
+GRAD_NAMES = ("dx", "ddt", "da", "dB", "dC", "dstate0")
+
+
+def _bwd_inputs(seed, B, T, H, P, G, N, state, dstate):
+    inp = _inputs(seed, B, T, H, P, G, N, state=state)
+    rng = np.random.default_rng(seed + 1)
+    inp["dy"] = rng.normal(0, 1, (B, T, H, P)).astype(np.float32)
+    if dstate:
+        inp["dstate"] = rng.normal(0, 1, (B, H, P, N)).astype(np.float32)
+    return inp
+
+
+def _rel(out, ref) -> float:
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    assert out.shape == ref.shape
+    return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk,state,dstate", BWD_CASES)
+def test_ssd_chunked_bwd_matches_autograd_in_float64(B, T, H, P, G, N, chunk,
+                                                     state, dstate):
+    """The explicit formulas against autograd of the port's plain scan:
+    every gradient within 1e-12 of its max, in float64."""
+    inp = _bwd_inputs(11, B, T, H, P, G, N, state, dstate)
+    t = {k: torch.from_numpy(v).double() for k, v in inp.items()}
+    leaves = [t[k].requires_grad_(True) for k in ("x", "dt", "a", "B_", "C_")]
+    s0 = t["state0"].requires_grad_(True) if state else None
+    y, fin = ssd_chunked(*leaves, chunk, state0=s0)
+    outs, cots = [y], [t["dy"]]
+    if dstate:
+        outs.append(fin)
+        cots.append(t["dstate"])
+    ref = torch.autograd.grad(outs, leaves + ([s0] if state else []), cots)
+    got = ssd_chunked_bwd(*(x.detach() for x in leaves), chunk,
+                          None if s0 is None else s0.detach(), t["dy"],
+                          t.get("dstate"))
+    assert all(g.dtype == torch.float64 for g in got)
+    for name, g, r in zip(GRAD_NAMES, got, ref):
+        assert _rel(g, r) <= 1e-12, name
+
+
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk,state,dstate", BWD_CASES)
+def test_ssd_chunked_bwd_matches_jax_vjp(B, T, H, P, G, N, chunk, state,
+                                         dstate):
+    """The plain backward in fp32 against ``jax.vjp`` of the JAX
+    package's ``ssd_chunked`` (the gradient its training takes, by XLA's
+    autodiff) on the same inputs: every gradient within 1e-5 of its max.
+    A zero dstate is a zero cotangent on the JAX side and None here."""
+    inp = _bwd_inputs(12, B, T, H, P, G, N, state, dstate)
+    args = _jax(inp)
+    if state:
+        args.append(jnp.asarray(inp["state0"]))
+
+    def f(x, dt, a, B_, C_, *s0):
+        return jax_ssd_chunked(x, dt, a, B_, C_, chunk,
+                               state0=s0[0] if s0 else None)
+    (_, fin), vjp = jax.vjp(f, *args)
+    ds = (jnp.asarray(inp["dstate"]) if dstate
+          else jnp.zeros_like(fin))
+    ref = vjp((jnp.asarray(inp["dy"]), ds))
+    t = _torch(inp)
+    got = ssd_chunked_bwd(
+        *t, chunk, torch.from_numpy(inp["state0"]) if state else None,
+        torch.from_numpy(inp["dy"]),
+        torch.from_numpy(inp["dstate"]) if dstate else None)
+    for name, g, r in zip(GRAD_NAMES, got, ref):
+        assert _rel(g.numpy(), r) <= TOL, name
+
+
+def test_ssd_chunked_bwd_keeps_the_compute_type():
+    """bf16 x, B, C are upcast as ``ssd_chunked`` upcasts them: fp32
+    gradients, equal to those of the fp32 upcasts."""
+    inp = _bwd_inputs(13, 1, 20, 2, 8, 1, 8, False, True)
+    x, dt, a, B_, C_ = _torch(inp, torch.bfloat16)
+    dy, ds = torch.from_numpy(inp["dy"]), torch.from_numpy(inp["dstate"])
+    got = ssd_chunked_bwd(x, dt, a, B_, C_, 8, None, dy, ds)
+    up = ssd_chunked_bwd(x.float(), dt, a, B_.float(), C_.float(), 8, None,
+                         dy, ds)
+    for g, u in zip(got, up):
+        assert g.dtype == torch.float32 and torch.equal(g, u)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,chunk,L,Lp,n_chunks", [
+    (13, 128, 13, 16, 1),       # one short chunk, padded to a strip
+    (128, 128, 128, 128, 1),
+    (129, 128, 128, 128, 2),    # a second chunk of one row
+    (50, 16, 16, 16, 4),
+    (4096, 128, 128, 128, 32),  # mamba2's training sequence
+])
+def test_bwd_plan(dtype, T, chunk, L, Lp, n_chunks):
+    """Both input types take the CUDA-core path; a chunk's rows are padded
+    to the 16-row strips; a call launches the source's five kernels."""
+    pl = kernel.bwd_plan(dtype, T, chunk)
+    assert (pl.path, pl.L, pl.Lp, pl.n_chunks) == ("cuda_core", L, Lp,
+                                                   n_chunks)
+    assert pl.kernels == kernel.BWD_KERNELS["cuda_core"] == (
+        "ssd_bwd_dstate", "ssd_bwd_state_passing", "ssd_bwd_chunk",
+        "ssd_bwd_group_sum", "ssd_bwd_da_sum")
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.bwd_plan(torch.float16, T, chunk)
+
+
+def test_bwd_scratch():
+    """The scratch of mamba2's training call (B 4, T 4,096, H 64, P 64,
+    N 128: the per-head dB and dC partials are 537 MB each, the chunk
+    state gradients 268 MB)."""
+    pl = kernel.bwd_plan(torch.bfloat16, 4096, 128)
+    n = kernel.bwd_scratch(4, 4096, 64, 64, 128, pl)
+    assert n == {"dbh": 4 * 4096 * 64 * 128, "dch": 4 * 4096 * 64 * 128,
+                 "dsc": 4 * 32 * 64 * 64 * 128, "segs": 4 * 32 * 64,
+                 "dcss": 4 * 32 * 64 * 128, "da_part": 4 * 32 * 64}
+    assert 4 * n["dbh"] == 536_870_912 and 4 * n["dsc"] == 268_435_456
+
+
+def test_bwd_wrapper_rejects_cpu_tensors():
+    inp = _bwd_inputs(14, 1, 8, 2, 8, 1, 8, False, False)
+    x, dt, a, B_, C_ = _torch(inp)
+    dy = torch.from_numpy(inp["dy"])
+    states = torch.zeros(1, 1, 2, 8, 8)
+    with pytest.raises(ValueError, match="ssd_scan_bwd: x is on cpu"):
+        ssd_scan_bwd(x, dt, a, B_, C_, dy, states, chunk=8)
+
+
+def test_cpu_tensors_never_reach_the_autograd_function(monkeypatch):
+    """A CPU tensor that wants a gradient takes the plain scan, whatever
+    autograd does: ``_SSDScan`` and the kernels are never reached."""
+    def refuse(*_, **__):
+        raise AssertionError("reached the card's path")
+    monkeypatch.setattr(ops._SSDScan, "apply", refuse)
+    monkeypatch.setattr(ops, "ssd_scan", refuse)
+    monkeypatch.setattr(ops, "ssd_scan_bwd", refuse)
+    inp = _bwd_inputs(15, 1, 20, 2, 8, 1, 8, True, False)
+    leaves = [t.requires_grad_(True) for t in _torch(inp)]
+    s0 = torch.from_numpy(inp["state0"]).requires_grad_(True)
+    y, state = ssd(*leaves, chunk=8, state0=s0)
+    grads = torch.autograd.grad(y.sum() + state.sum(), leaves + [s0])
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def _plain_scan(x, dt, a, B_, C_, *, chunk, state0=None,
+                return_states=False):
+    """``kernel.ssd_scan`` in plain torch on the CPU, with its chunk
+    states: the rehearsal's stand-in for the forward kernel."""
+    y, fin = ssd_chunked(x, dt, a, B_, C_, chunk, state0=state0)
+    L = min(chunk, x.shape[1])
+    states = [state0 if state0 is not None else torch.zeros_like(fin)]
+    for c in range(1, -(-x.shape[1] // L)):
+        states.append(ssd_chunked(x[:, :c * L], dt[:, :c * L], a,
+                                  B_[:, :c * L], C_[:, :c * L], chunk,
+                                  state0=state0)[1])
+    return (y, fin, torch.stack(states, 1)) if return_states else (y, fin)
+
+
+@pytest.mark.parametrize("state,use_y,use_state", [
+    (True, True, True), (False, True, False), (True, False, True),
+    (False, True, True)])
+def test_autograd_function_routes_the_gradients(monkeypatch, state, use_y,
+                                                use_state):
+    """``_SSDScan`` on the CPU with the kernel entries replaced by the
+    plain versions (``ssd_chunked`` with its chunk states, and
+    ``ssd_chunked_bwd``): the gradients it returns equal autograd of the
+    plain scan, whichever outputs reach the loss (an unused output's
+    gradient arrives as None), and a None state0 gets none."""
+    calls = {}
+
+    def plain_bwd(x, dt, a, B_, C_, dy, states, *, chunk, dstate,
+                  state0_grad):
+        calls["dstate"], calls["state0_grad"] = dstate, state0_grad
+        out = ssd_chunked_bwd(x, dt, a, B_, C_, chunk, states[:, 0], dy,
+                              dstate)
+        return out[:5] + ((out[5],) if state0_grad else (None,))
+    monkeypatch.setattr(ops, "ssd_scan", _plain_scan)
+    monkeypatch.setattr(ops, "ssd_scan_bwd", plain_bwd)
+    inp = _bwd_inputs(16, 2, 40, 4, 8, 2, 8, state, True)
+    ins = [t.requires_grad_(True) for t in _torch(inp)]
+    s0 = (torch.from_numpy(inp["state0"]).requires_grad_(True) if state
+          else None)
+    wrt = ins + ([s0] if state else [])
+    dy, ds = torch.from_numpy(inp["dy"]), torch.from_numpy(inp["dstate"])
+
+    def loss(y, fin):
+        return ((y * dy).sum() if use_y else 0) + (
+            (fin * ds).sum() if use_state else 0)
+    got = torch.autograd.grad(loss(*ops._SSDScan.apply(*ins, s0, 16)), wrt)
+    # without y, C_ does not reach the loss: autograd has no gradient for
+    # it, the kernel's is zeros
+    ref = torch.autograd.grad(loss(*ssd_chunked(*ins, 16, state0=s0)), wrt,
+                              allow_unused=True)
+    assert (calls["dstate"] is None) == (not use_state)
+    assert calls["state0_grad"] == state
+    for g, r in zip(got, ref):
+        if r is None:
+            assert not use_y and not bool(g.abs().max())
+        else:
+            assert _rel(g.detach().numpy(), r.numpy()) <= TOL
