@@ -196,10 +196,12 @@ in order; any failure ends the run with a non-zero exit code:
    (each gradient within 1e-5 of its max, the plain version's own fp32
    gap printed beside it): mamba2's and zamba2's widths, G 2, initial
    states, a final-state gradient, ragged T, one chunk and eight, float32
-   and bf16 x/B/C, and a second run equal bit for bit; 13g its device time
-   (CUDA-graph replays) at mamba2's and zamba2's training shape (B 4, T
-   4,096, bf16) beside its plain version's, its bound, its host time and
-   the forward with and without its chunk states; 13h
+   (the CUDA-core path) and bf16 x/B/C (the tensor-core path, "mma"), the
+   path of each call printed, and a second run equal bit for bit; 13g its
+   device time (CUDA-graph replays) at mamba2's and zamba2's training
+   shape (B 4, T 4,096, bf16, the mma path) beside its plain version's,
+   its bound, its host time and the forward with and without its chunk
+   states; 13h
    ``launch.train.train`` of mamba2-1.3b at full width with 13e's
    settings: SSD forward launches 2 x 48 x 2 a step, backward 48 x 2, no
    flash launch, finite losses, median step, tokens/s, peak memory and
@@ -2981,7 +2983,8 @@ def run_ssd_bwd_checks(torch, ssd_kernel, ssd_chunked_bwd):
             finite = all(bool(torch.isfinite(g).all()) for g in grads
                          if g is not None)
             ok = max(errs.values()) <= SSD_TOL and same and finite
-            print(f"  {name:32s} {dname:9s} "
+            path = ssd_kernel.bwd_plan(dtype, T, chunk).path
+            print(f"  {name:32s} {dname:9s} {path:9s} "
                   + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
                   + f" (x max, tol {SSD_TOL:g}; plain fp32 "
                   f"{max(plain.values()):.2e}) rerun "
@@ -2990,7 +2993,8 @@ def run_ssd_bwd_checks(torch, ssd_kernel, ssd_chunked_bwd):
             check(ok, f"ssd_bwd disagrees with its plain version or with "
                       f"itself: {name} {dname} {errs} rerun equal {same}, "
                       f"finite {finite}")
-            results.append({"case": name, "dtype": dname, "rel_err": errs,
+            results.append({"case": name, "dtype": dname, "path": path,
+                            "rel_err": errs,
                             "plain_fp32_rel_err": plain,
                             "max_abs_err": abs_err, "rerun_equal": same})
             del inputs, call, grads, again, ref64, ref32
@@ -3006,9 +3010,9 @@ def run_ssd_bwd_timings(torch, ssd_kernel, ssd_chunked_bwd, cfgs):
     backward (CUDA-graph replays), of its plain version in float32, of
     the forward with and without its chunk states, the host ms per call,
     the bound.  No single PyTorch call computes this gradient; 13h's
-    profiled step splits a call at mamba2's shape among its five launches
-    (a profile of these direct calls, late in the script, records none of
-    them)."""
+    profiled step splits a call at mamba2's shape among its path's
+    launches (a profile of these direct calls, late in the script, records
+    none of them)."""
     rows = []
     for label, cfg in cfgs:
         s = cfg.ssm
@@ -3049,7 +3053,7 @@ def run_ssd_bwd_timings(torch, ssd_kernel, ssd_chunked_bwd, cfgs):
                    x, dt, a, B_, C_, chunk=s.chunk, return_states=True)),
                "bound_ms": b_ms, "bound_by": b_by}
         row["bound_share"] = b_ms / row["ms"]
-        print(f"  {label:12s} B{B} T{T} H{H} P{P} G{G} N{N}: "
+        print(f"  {label:12s} B{B} T{T} H{H} P{P} G{G} N{N} {pl.path}: "
               + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
               + f" (tol {SSD_TOL:g}); device: kernel {row['ms']:9.4f} ms  "
               f"plain {row['plain_ms']:9.4f} ms  bound {b_ms:9.4f} ms "
@@ -3387,8 +3391,8 @@ def run_training_phase(torch, kernel, ssd_kernel, get_config, build_model):
     t13f = time.perf_counter()
     print(f"== phase 13f ({t13f - t0:.1f} s): SSD backward kernel against "
           f"its plain version in float64 (each gradient within {SSD_TOL:g} "
-          "of its max; float32 and bf16 x/B/C; reruns bit for bit)",
-          flush=True)
+          "of its max; float32 and bf16 x/B/C, with the path each took; "
+          "reruns bit for bit)", flush=True)
     ssd_checks = run_ssd_bwd_checks(torch, ssd_kernel, ssd_chunked_bwd)
     mcfg, zcfg = get_config("mamba2-1.3b"), get_config("zamba2-1.2b")
     print(f"== phase 13g ({time.perf_counter() - t0:.1f} s): SSD backward "
@@ -3821,7 +3825,8 @@ def main() -> int:
         "bound_ms": ssd_bwd_row["bound_ms"],
         "bound_by": ssd_bwd_row["bound_by"], "library_ms": None,
         "library": ssd_bwd_row["library"], "host_ms": ssd_bwd_row["host_ms"],
-        "timed_shape": ssd_bwd_row["shape"],
+        "timed_shape": ssd_bwd_row["shape"], "path": ssd_bwd_row["path"],
+        "path_kernels": list(ssd_kernel.BWD_KERNELS[ssd_bwd_row["path"]]),
         "kernels_ms": {k: ms * per_call for k, ms
                        in ssm_full["profile"]["parts_ms"].items()
                        if k != "ssd_bwd"},

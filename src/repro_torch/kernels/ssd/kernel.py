@@ -9,8 +9,9 @@ from an optional initial state, and on request the state entering each
 chunk.  ``plan`` picks the path.  The backward (``ssd_scan_bwd``) is the
 gradient that the JAX package takes by autodiff of ``ssd_chunked``, from a
 source of its own, which reads those chunk states; ``bwd_plan`` names its
-path and launches, ``bwd_scratch`` mirrors its host-side scratch in
-Python.  Each library is built by nvcc at first use
+path (by dtype, as ``plan``) and launches, ``bwd_slices`` the heads a block
+of its tensor-core path takes, ``bwd_scratch`` mirrors its host-side
+scratch in Python.  Each library is built by nvcc at first use
 (``repro_torch.kernels._build``), never at import.
 """
 from __future__ import annotations
@@ -41,16 +42,29 @@ TILE = {"chunked": 16, "fp32": 4}
 LAUNCHES = 0
 #: the path of the last call
 LAST_PATH = None
-#: calls of the backward in this process, one per call (each launches the
-#: source's five kernels)
+#: calls of the backward in this process, one per call (each launches its
+#: path's kernels)
 BWD_LAUNCHES = 0
-#: the backward's path (one for both input types: fp32 products on the
-#: CUDA cores) and the kernels a call launches, in order
+#: the backward's paths, by the number the source's entry takes, and the
+#: kernels a call of each launches, in order: "mma" (bf16 x/B/C: products on
+#: the tensor cores, a block for a slice of a group's heads) and
+#: "cuda_core" (float32: fp32 products on the CUDA cores, a block a head)
+BWD_PATHS = {"cuda_core": 0, "mma": 1}
 BWD_KERNELS = {"cuda_core": ("ssd_bwd_dstate", "ssd_bwd_state_passing",
                              "ssd_bwd_chunk", "ssd_bwd_group_sum",
-                             "ssd_bwd_da_sum")}
+                             "ssd_bwd_da_sum"),
+               "mma": ("ssd_bwd_dstate_mma", "ssd_bwd_state_passing",
+                       "ssd_bwd_inter", "ssd_bwd_chunk_mma", "ssd_bwd_dda",
+                       "ssd_bwd_group_sum", "ssd_bwd_da_sum")}
 #: the backward's strips: a chunk's rows are padded to a multiple of it
 BWD_TILE = 16
+#: bf16 terms of each fp32 operand of the mma path's products (the
+#: source's ``kTerms``; tests/test_torch_ssd.py emulates the arithmetic)
+BWD_TERMS = 3
+#: the mma path's grid: the blocks (chunks x B x G x slices) that
+#: ``bwd_slices`` asks for, about two waves of the card's 132 SMs at one
+#: block an SM (more slices, fewer heads a block, measured slower)
+BWD_MIN_BLOCKS = 256
 
 
 class Plan(NamedTuple):
@@ -82,7 +96,7 @@ def plan(dtype: torch.dtype, T: int, chunk: int) -> Plan:
 class BwdPlan(NamedTuple):
     """How one backward call runs; the source takes L, Lp and n_chunks as
     given."""
-    path: str          # "cuda_core"
+    path: str          # "mma" or "cuda_core"
     L: int             # rows of a chunk, min(chunk, T)
     Lp: int            # L padded to the strips of BWD_TILE rows
     n_chunks: int
@@ -93,26 +107,51 @@ class BwdPlan(NamedTuple):
 
 
 def bwd_plan(dtype: torch.dtype, T: int, chunk: int) -> BwdPlan:
-    """The backward's layout.  Both input types take the CUDA-core path:
-    bf16 x/B/C are widened to fp32 as they are staged, and every product
-    and sum is fp32 (``dtype`` is taken for the plan's signature to match
-    ``plan``'s)."""
+    """The backward's layout.  bfloat16 x/B/C take the tensor-core path
+    ("mma"), float32 the CUDA-core path, as the forward picks its path."""
     if dtype not in DTYPES:
         raise ValueError(f"ssd_scan_bwd: dtype {dtype} not in {DTYPES}")
+    path = "mma" if dtype == torch.bfloat16 else "cuda_core"
     L = min(chunk, T)
-    return BwdPlan("cuda_core", L, -(-L // BWD_TILE) * BWD_TILE, -(-T // L))
+    return BwdPlan(path, L, -(-L // BWD_TILE) * BWD_TILE, -(-T // L))
 
 
-def bwd_scratch(B: int, T: int, H: int, P: int, N: int, pl: BwdPlan) -> dict:
-    """Scratch of a backward call, in fp32 words: the per-head partials of
-    dB and dC (``dbh``, ``dch``: B T H N each, summed over the heads of a
-    group by the fourth launch), ``dsc`` (each chunk's state-gradient
-    term, then the gradient of the state leaving it), ``segs`` and
-    ``da_part`` (one a (b, chunk, head)), ``dcss`` (the inter-chunk dC
-    term's share of dcss, Lp a (b, chunk, head))."""
-    bch = B * pl.n_chunks * H
-    return {"dbh": B * T * H * N, "dch": B * T * H * N, "dsc": bch * P * N,
-            "segs": bch, "dcss": bch * pl.Lp, "da_part": bch}
+def bwd_slices(B: int, H: int, G: int, n_chunks: int) -> int:
+    """Slices of a group's heads on the mma path (a block takes one slice,
+    H / (G S) heads, in head order): the fewest that divide H / G and give
+    a grid of BWD_MIN_BLOCKS blocks, or of a quarter of one block a head
+    where the call is smaller than that (a block then takes ~4 heads)."""
+    rep = H // G
+    want = min(BWD_MIN_BLOCKS, max(1, n_chunks * B * G * rep // 4))
+    for S in range(1, rep + 1):
+        if rep % S == 0 and n_chunks * B * G * S >= want:
+            return S
+    return rep
+
+
+def bwd_scratch(B: int, T: int, H: int, P: int, N: int, pl: BwdPlan,
+                G: int = 1) -> dict:
+    """Scratch of a backward call, in fp32 words.  Both paths: ``dbh`` and
+    ``dch``, the dB and dC partials that the group-sum launch sums over
+    each group (B T H N each on the CUDA-core path, one a head; B T G S N
+    on the mma path, one a slice of ``bwd_slices`` heads); ``dsc`` (each
+    chunk's state-gradient term, then the gradient of the state leaving
+    it); ``segs`` and ``da_part`` (one a (b, chunk, head)); ``dcss`` (the
+    inter-chunk dC term's share of dcss, Lp a (b, chunk, head), on the mma
+    path one for each half of N).  The mma path also passes v (``vv``, one
+    for each half of P) and <ds, s_in> (``dsin``) from its inter kernel,
+    and Z's column and row sums (``colz``, ``rowq``) from its chunk
+    kernel, to its scan."""
+    bch, Lp = B * pl.n_chunks * H, pl.Lp
+    if pl.path == "cuda_core":
+        return {"dbh": B * T * H * N, "dch": B * T * H * N,
+                "dsc": bch * P * N, "segs": bch, "dcss": bch * Lp,
+                "da_part": bch}
+    parts = G * bwd_slices(B, H, G, pl.n_chunks)
+    return {"dbh": B * T * parts * N, "dch": B * T * parts * N,
+            "dsc": bch * P * N, "segs": bch, "dcss": 2 * bch * Lp,
+            "da_part": bch, "vv": 2 * bch * Lp, "dsin": bch,
+            "colz": bch * Lp, "rowq": bch * Lp}
 
 
 @functools.cache
@@ -131,13 +170,13 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build(BWD_SOURCE)))
     lib.ssd_bwd.argtypes = (
-        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 24 + [ctypes.c_int] * 12
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     lib.ssd_bwd.restype = ctypes.c_int
     lib.ssd_bwd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_bwd_error_string.restype = ctypes.c_char_p
-    lib.ssd_bwd_chunk_smem.argtypes = [ctypes.c_int] * 3
-    lib.ssd_bwd_chunk_smem.restype = ctypes.c_longlong
+    lib.ssd_bwd_smem.argtypes = [ctypes.c_int] * 4
+    lib.ssd_bwd_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -286,7 +325,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (dstate0 is None unless ``state0_grad``).  x, dt, a, B_, C_ and
     ``chunk`` are the forward's; ``states`` its ``return_states`` output;
     ``dy`` the float32 gradient of y, with any element strides; ``dstate``
-    that of the final state, or None for zeros.  The sums are fp32 and run
+    that of the final state, or None for zeros.  bfloat16 x/B_/C_ take
+    the tensor-core path, float32 the CUDA-core path (``bwd_plan``).  The
+    sums are fp32 and run
     in a fixed order (no atomic): equal inputs give equal outputs bit for
     bit.  Anything the kernel does not take raises."""
     global BWD_LAUNCHES
@@ -307,7 +348,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dstate0 = (torch.empty(Bb, H, P, N, dtype=f32, device=dev)
                if state0_grad else None)
     scratch = {k: torch.empty(n, dtype=f32, device=dev)
-               for k, n in bwd_scratch(Bb, T, H, P, N, pl).items()}
+               for k, n in bwd_scratch(Bb, T, H, P, N, pl, G).items()}
     strides = [*x.stride(), *dt.stride(), *B_.stride(), *C_.stride(),
                *dy.stride()]
 
@@ -321,8 +362,10 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             C_.data_ptr(), dy.data_ptr(), ptr(dstate), states.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), dB.data_ptr(),
             dC.data_ptr(), ptr(dstate0),
-            *(scratch[k].data_ptr() for k in ("dbh", "dch", "dsc", "segs",
-                                              "dcss", "da_part")),
+            *(ptr(scratch.get(k)) for k in ("dbh", "dch", "dsc", "segs",
+                                            "dcss", "da_part", "vv",
+                                            "dsin", "colz", "rowq")),
+            BWD_PATHS[pl.path], bwd_slices(Bb, H, G, pl.n_chunks),
             int(x.dtype == torch.bfloat16), Bb, T, H, G, P, N, pl.L, pl.Lp,
             pl.n_chunks, (ctypes.c_longlong * 19)(*strides), stream)
     if rc != 0:

@@ -1546,8 +1546,8 @@ def test_ssd_gradient_through_strided_views(dtype):
 @pytest.mark.gpu
 def test_ssd_bwd_launches():
     """A backward call counts one ``BWD_LAUNCHES`` and launches its plan's
-    five kernels once each, as the CUDA driver records them; the chunk
-    kernel's shared memory, as the source lays it out, is within the
+    kernels once each, as the CUDA driver records them; each path's
+    kernels' shared memory, as the source lays it out, is within the
     card's opt-in limit a block at every instantiation and chunk
     length."""
     _need_card()
@@ -1567,10 +1567,44 @@ def test_ssd_bwd_launches():
     assert launched == list(pl.kernels), launched
     lib = k._bwd_lib()
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    for P in k.HEAD_DIMS:
-        for N in k.STATE_DIMS:
-            for Lp in range(k.BWD_TILE, k.MAX_CHUNK + 1, k.BWD_TILE):
-                assert 0 < lib.ssd_bwd_chunk_smem(P, N, Lp) <= limit
+    for path in k.BWD_PATHS.values():
+        for P in k.HEAD_DIMS:
+            for N in k.STATE_DIMS:
+                for Lp in range(k.BWD_TILE, k.MAX_CHUNK + 1, k.BWD_TILE):
+                    assert 0 < lib.ssd_bwd_smem(path, P, N, Lp) <= limit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "mma"),
+                                        (torch.float32, "cuda_core")],
+                         ids=["bfloat16", "float32"])
+def test_ssd_bwd_path_by_dtype(dtype, path):
+    """bf16 x/B/C take the tensor-core path and float32 the CUDA-core path:
+    a call at mamba2's widths over 4 chunks (G 1, 8 heads: the mma path
+    sums dB and dC over slices of heads) launches its path's kernels, and
+    a second call equals the first bit for bit."""
+    _need_card()
+    from repro_torch.kernels.ssd import ssd_scan_bwd
+    k = ssd_mod.kernel
+    x, dt, a, B_, C_, s0 = _ssd_inputs(2, 500, 8, 64, 1, 128, dtype, True,
+                                       seed=6)
+    dy = torch.randn(2, 500, 8, 64, device="cuda")
+    ds = torch.randn(2, 8, 64, 128, device="cuda")
+    _, _, states = ssd_scan(x, dt, a, B_, C_, chunk=128, state0=s0,
+                            return_states=True)
+    pl = k.bwd_plan(dtype, 500, 128)
+    assert pl.path == path and pl.kernels == k.BWD_KERNELS[path]
+
+    def call():
+        return ssd_scan_bwd(x, dt, a, B_, C_, dy, states, chunk=128,
+                            dstate=ds)
+    before = k.BWD_LAUNCHES
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    assert k.BWD_LAUNCHES == before + 2
+    for f, s in zip(first, again):
+        assert torch.equal(f, s)
+    assert launched_kernels(call) == list(pl.kernels)
 
 
 @pytest.mark.gpu

@@ -359,6 +359,146 @@ def test_ssd_chunked_bwd_matches_jax_vjp(B, T, H, P, G, N, chunk, state,
         assert _rel(g.numpy(), r) <= TOL, name
 
 
+def _mm_split2(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b with both operands fp32, each split into ``terms`` bf16
+    terms, and the term pairs (i, j) with i + j < terms multiplied."""
+    ta, tb = _split(a, terms), _split(b, terms)
+    return sum(ta[i] @ tb[j] for i in range(terms) for j in range(terms)
+               if i + j < terms)
+
+
+def _emulate_chunked_bwd(x, dt, a, B_, C_, chunk, state0, dy, dstate, terms,
+                         slices):
+    """The mma path's arithmetic in plain PyTorch (float32, bf16 x, B, C):
+    C B^T on the inputs as they are; exp(css) dy, s_in, ds, dy, A1 and the
+    A2 sum in ``terms`` bf16 terms; every sum fp32; dB and dC summed over a
+    slice's heads in head order (the A2 sum times B and C once a slice),
+    then over the ``slices`` slices.  The states entering the chunks are
+    fp32, as the forward keeps them."""
+    Bb, T, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    rep = H // G
+    hps = rep // slices
+    L = min(chunk, T)
+    nc = -(-T // L)
+    x, B_, C_ = x.float(), B_.float(), C_.float()
+
+    def mm(a_, b_, split_a):
+        return _mm_split(a_, b_, terms, split_a)
+    sls = [slice(c * L, min((c + 1) * L, T)) for c in range(nc)]
+    cs = {}
+    for c, sl in enumerate(sls):
+        css = torch.cumsum(dt[:, sl] * a, 1)                    # (B, l, H)
+        cs[c] = (css, css[:, -1])
+    s_in, st = [], state0.clone()
+    for c, sl in enumerate(sls):
+        s_in.append(st.clone())
+        css, seg = cs[c]
+        wB = ((torch.exp(seg[:, None] - css) * dt[:, sl])[..., None]
+              * B_[:, sl].repeat_interleave(rep, 2))
+        st = (torch.exp(seg)[..., None, None] * st
+              + torch.einsum("blhp,blhn->bhpn", x[:, sl], wB))
+    dx = torch.zeros(Bb, T, H, P)
+    ddt = torch.zeros(Bb, T, H)
+    da = torch.zeros(H)
+    dB = torch.zeros(Bb, T, G, N)
+    dC = torch.zeros(Bb, T, G, N)
+    dS = {}
+    share = {}
+    for c, sl in enumerate(sls):                                # dstate
+        css, _ = cs[c]
+        for b in range(Bb):
+            for g in range(G):
+                Cc = C_[b, sl, g]
+                for s in range(slices):
+                    acc = 0
+                    for h in range(g * rep + s * hps, g * rep + (s + 1) * hps):
+                        ey = torch.exp(css[b, :, h])[:, None] * dy[b, sl, h]
+                        dS[c, b, h] = mm(ey.T, Cc, True)
+                        inter = _mm_split2(ey, s_in[c][b, h], terms)
+                        share[c, b, h] = (Cc * inter).sum(-1)
+                        acc = acc + inter
+                    dC[b, sl, g] += acc
+    ds, cur = {}, dstate.clone()                                # state pass
+    for c in reversed(range(nc)):
+        for b in range(Bb):
+            for h in range(H):
+                ds[c, b, h] = cur[b, h].clone()
+                cur[b, h] = torch.exp(cs[c][1][b, h]) * cur[b, h] + dS[c, b, h]
+    for c, sl in enumerate(sls):                                # the chunks
+        n = sl.stop - sl.start
+        mask = torch.tril(torch.ones(n, n, dtype=torch.bool))
+        for b in range(Bb):
+            for g in range(G):
+                Bc, Cc = B_[b, sl, g], C_[b, sl, g]
+                cb = Cc @ Bc.T                                  # exact products
+                for s in range(slices):
+                    dbi, a2s = 0, torch.zeros(n, n)
+                    for h in range(g * rep + s * hps, g * rep + (s + 1) * hps):
+                        css, seg = cs[c][0][b, :, h], cs[c][1][b, h]
+                        dtc, xc, dyc = dt[b, sl, h], x[b, sl, h], dy[b, sl, h]
+                        dsc, w = ds[c, b, h], torch.exp(seg - css)
+                        wdt = w * dtc
+                        u = mm(Bc, dsc.T, False)                # ds B_m
+                        v = w * (xc * u).sum(-1)
+                        dbi = dbi + wdt[:, None] * mm(xc, dsc, False)
+                        dyx = mm(dyc, xc.T, True)
+                        diff = (css[:, None] - css[None, :]).masked_fill(
+                            ~mask, float("-inf"))
+                        E = torch.exp(diff)
+                        a1, a2 = cb * E * dtc[None], dyx * E * dtc[None]
+                        Z = dyx * cb * E
+                        dx[b, sl, h] = (wdt[:, None] * u
+                                        + _mm_split2(a1.T, dyc, terms))
+                        a2s = a2s + a2
+                        colz = Z.sum(0)
+                        dcss = (share[c, b, h] + (Z * dtc[None]).sum(1)
+                                - dtc * (colz + v))
+                        dcss[-1] += ((dtc * v).sum() + torch.exp(seg)
+                                     * (dsc * s_in[c][b, h]).sum())
+                        dda = torch.flip(torch.cumsum(torch.flip(dcss, [0]),
+                                                      0), [0])
+                        ddt[b, sl, h] = colz + v + a[h] * dda
+                        da[h] += (dtc * dda).sum()
+                    dB[b, sl, g] += dbi + mm(a2s.T, Cc, True)
+                    dC[b, sl, g] += mm(a2s, Bc, True)
+    return dx, ddt, da, dB, dC, cur
+
+
+@pytest.mark.parametrize("N,terms,meets_bar", [
+    (128, kernel.BWD_TERMS, True),     # mamba2-1.3b's widths
+    (64, kernel.BWD_TERMS, True),      # zamba2-1.2b's
+    (128, 1, False),                   # one bf16 term
+], ids=["mamba2", "zamba2", "one term"])
+def test_chunked_bwd_arithmetic_needs_the_split(N, terms, meets_bar):
+    """The mma path's arithmetic (``_emulate_chunked_bwd``) at the models'
+    widths (L 128, P 64) over 4 chunks, with state0 and a final-state
+    gradient, 4 heads a slice as ``bwd_slices`` gives them, against
+    ``jax.vjp`` of the JAX package's ``ssd_chunked`` in float32 on the same
+    bf16-rounded x, B, C: with the kernel's bf16 terms every gradient is
+    within 1e-5 of its max; with one term it is not."""
+    B, T, H, P, G, chunk = 1, 512, 4, 64, 1, 128
+    inp = _bwd_inputs(21, B, T, H, P, G, N, True, True)
+    x, dt, a, B_, C_ = _torch(inp, torch.bfloat16)
+    args = [jnp.asarray(t.float().numpy()) for t in (x, dt, a, B_, C_)]
+
+    def f(x_, dt_, a_, B__, C__, s0):
+        return jax_ssd_chunked(x_, dt_, a_, B__, C__, chunk, state0=s0)
+    _, vjp = jax.vjp(f, *args, jnp.asarray(inp["state0"]))
+    ref = vjp((jnp.asarray(inp["dy"]), jnp.asarray(inp["dstate"])))
+    slices = kernel.bwd_slices(B, H, G, T // chunk)
+    assert H // (G * slices) == 4
+    got = _emulate_chunked_bwd(x, dt, a, B_, C_, chunk,
+                               torch.from_numpy(inp["state0"]),
+                               torch.from_numpy(inp["dy"]),
+                               torch.from_numpy(inp["dstate"]), terms, slices)
+    errs = {name: _rel(g.numpy(), r) for name, g, r in zip(GRAD_NAMES, got,
+                                                           ref)}
+    assert (max(errs.values()) <= TOL) == meets_bar, errs
+    if not meets_bar:
+        assert min(errs.values()) > TOL, errs
+
+
 def test_ssd_chunked_bwd_keeps_the_compute_type():
     """bf16 x, B, C are upcast as ``ssd_chunked`` upcasts them: fp32
     gradients, equal to those of the fp32 upcasts."""
@@ -372,7 +512,8 @@ def test_ssd_chunked_bwd_keeps_the_compute_type():
         assert g.dtype == torch.float32 and torch.equal(g, u)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "mma"),
+                                        (torch.float32, "cuda_core")])
 @pytest.mark.parametrize("T,chunk,L,Lp,n_chunks", [
     (13, 128, 13, 16, 1),       # one short chunk, padded to a strip
     (128, 128, 128, 128, 1),
@@ -380,29 +521,64 @@ def test_ssd_chunked_bwd_keeps_the_compute_type():
     (50, 16, 16, 16, 4),
     (4096, 128, 128, 128, 32),  # mamba2's training sequence
 ])
-def test_bwd_plan(dtype, T, chunk, L, Lp, n_chunks):
-    """Both input types take the CUDA-core path; a chunk's rows are padded
-    to the 16-row strips; a call launches the source's five kernels."""
+def test_bwd_plan(dtype, path, T, chunk, L, Lp, n_chunks):
+    """bf16 takes the tensor-core path, float32 the CUDA-core path; a
+    chunk's rows are padded to the 16-row strips; a call launches its
+    path's kernels."""
     pl = kernel.bwd_plan(dtype, T, chunk)
-    assert (pl.path, pl.L, pl.Lp, pl.n_chunks) == ("cuda_core", L, Lp,
-                                                   n_chunks)
-    assert pl.kernels == kernel.BWD_KERNELS["cuda_core"] == (
-        "ssd_bwd_dstate", "ssd_bwd_state_passing", "ssd_bwd_chunk",
-        "ssd_bwd_group_sum", "ssd_bwd_da_sum")
+    assert (pl.path, pl.L, pl.Lp, pl.n_chunks) == (path, L, Lp, n_chunks)
+    assert pl.kernels == kernel.BWD_KERNELS[path] == {
+        "cuda_core": ("ssd_bwd_dstate", "ssd_bwd_state_passing",
+                      "ssd_bwd_chunk", "ssd_bwd_group_sum",
+                      "ssd_bwd_da_sum"),
+        "mma": ("ssd_bwd_dstate_mma", "ssd_bwd_state_passing",
+                "ssd_bwd_inter", "ssd_bwd_chunk_mma", "ssd_bwd_dda",
+                "ssd_bwd_group_sum", "ssd_bwd_da_sum")}[path]
     with pytest.raises(ValueError, match="dtype"):
         kernel.bwd_plan(torch.float16, T, chunk)
 
 
-def test_bwd_scratch():
+@pytest.mark.parametrize("dtype,parts", [(torch.float32, 64),
+                                         (torch.bfloat16, 2)],
+                         ids=["cuda_core", "mma"])
+def test_bwd_scratch(dtype, parts):
     """The scratch of mamba2's training call (B 4, T 4,096, H 64, P 64,
-    N 128: the per-head dB and dC partials are 537 MB each, the chunk
-    state gradients 268 MB)."""
-    pl = kernel.bwd_plan(torch.bfloat16, 4096, 128)
+    N 128): the CUDA-core path's per-head dB and dC partials are 537 MB
+    each, the mma path's per-slice partials (2 slices of 32 heads: 256
+    blocks) 16.8 MB; the chunk state gradients 268 MB on both."""
+    pl = kernel.bwd_plan(dtype, 4096, 128)
     n = kernel.bwd_scratch(4, 4096, 64, 64, 128, pl)
-    assert n == {"dbh": 4 * 4096 * 64 * 128, "dch": 4 * 4096 * 64 * 128,
-                 "dsc": 4 * 32 * 64 * 64 * 128, "segs": 4 * 32 * 64,
-                 "dcss": 4 * 32 * 64 * 128, "da_part": 4 * 32 * 64}
-    assert 4 * n["dbh"] == 536_870_912 and 4 * n["dsc"] == 268_435_456
+    assert kernel.bwd_slices(4, 64, 1, 32) == 2
+    want = {"dbh": 4 * 4096 * parts * 128, "dch": 4 * 4096 * parts * 128,
+            "dsc": 4 * 32 * 64 * 64 * 128, "segs": 4 * 32 * 64,
+            "dcss": 4 * 32 * 64 * 128, "da_part": 4 * 32 * 64}
+    if pl.path == "mma":        # v and the dcss share by halves of P, N
+        want.update(dcss=2 * 4 * 32 * 64 * 128, vv=2 * 4 * 32 * 64 * 128,
+                    dsin=4 * 32 * 64, colz=4 * 32 * 64 * 128,
+                    rowq=4 * 32 * 64 * 128)
+    assert n == want
+    assert 4 * n["dbh"] == {"cuda_core": 536_870_912,
+                            "mma": 16_777_216}[pl.path]
+    assert 4 * n["dsc"] == 268_435_456
+
+
+@pytest.mark.parametrize("B,H,G,n_chunks,S", [
+    (4, 64, 1, 32, 2),      # mamba2's training call: 256 blocks of 32 heads
+    (2, 64, 1, 3, 16),      # a short call: 96 blocks, 4 heads each
+    (2, 16, 2, 2, 2),       # G 2
+    (1, 6, 3, 3, 1),        # two heads a group: one slice
+])
+def test_bwd_slices(B, H, G, n_chunks, S):
+    """The mma path's slices divide the heads of a group and give 256
+    blocks, or a quarter of one a head on a smaller call."""
+    assert kernel.bwd_slices(B, H, G, n_chunks) == S
+    assert (H // G) % S == 0
+
+
+def test_bwd_terms_match_the_source():
+    """The emulation below uses the source's number of bf16 terms."""
+    src = kernel.BWD_SOURCE.read_text()
+    assert f"constexpr int kTerms = {kernel.BWD_TERMS};" in src
 
 
 def test_bwd_wrapper_rejects_cpu_tensors():
