@@ -206,7 +206,20 @@ in order; any failure ends the run with a non-zero exit code:
    settings: SSD forward launches 2 x 48 x 2 a step, backward 48 x 2, no
    flash launch, finite losses, median step, tokens/s, peak memory and
    one more step under torch.profiler (its busy share and the SSD
-   backward's device ms by launch).
+   backward's device ms by launch);
+14. the dry run and ``LotaruML`` against the card.  14a dry-runs 13e's
+   and 13h's cuts (``run_cell`` with 13e's shape and microbatches) and
+   prints model FLOPs, the dry run's FLOPs and bytes, its roofline step,
+   MFU (model FLOPs over the measured median step at the bf16 peak) and
+   its peak memory beside ``max_memory_allocated``; 14b fits
+   ``LotaruML`` from the card's own steps (``profile_local`` on the
+   card, ``fit_cell`` over full-width train steps of 4, 2 and 1 rows of
+   4,096 tokens, the median of 3 after a warm-up), prints the predicted
+   full step against 13e's / 13h's median and the simulated targets'
+   predictions, and refits on the CPU from the same runtimes, which must
+   equal the card's fit within 1e-12.  The 40-cell sweep (``python -m
+   repro_torch.launch.dryrun``) needs no card and runs as a command of
+   its own.
 
 The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``; the full report goes to
@@ -227,8 +240,14 @@ SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu"
 SSD_KERNEL_NAME = r"(ssd_\w+)(?![\w:])"   # a kernel of ssd_fwd.cu, by name
 SSD_REPLACES = "src/repro/kernels/ssd/kernel.py:27"
 
-BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
-HBM_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth, bytes/s
+sys.path.insert(0, str(SRC))
+try:
+    # the card's dense bf16 peak (FLOP/s) and HBM rate (bytes/s): the H100
+    # SXM's data-sheet figures, from the port's roofline (one source)
+    from repro_torch.analysis.roofline import HBM_BW as HBM_BYTES
+    from repro_torch.analysis.roofline import PEAK_FLOPS as BF16_FLOPS
+except ImportError:          # without the port's sources: main() says so
+    BF16_FLOPS = HBM_BYTES = None
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: SSD: 1e-5 of the reference's max |y| (and of its max |state|), as
 #: tests/test_kernels.py, in bfloat16 too: both sides upcast the same bf16
@@ -3422,16 +3441,201 @@ def run_training_phase(torch, kernel, ssd_kernel, get_config, build_model):
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the dry run and LotaruML against the card
+# ---------------------------------------------------------------------------
+#: 14b: fit_cell's partitions (FULL_BATCH / 2, / 4 and / 8 rows of FULL_SEQ
+#: tokens, one microbatch) and the steps timed at each after one warm-up
+FIT_PARTITIONS, FIT_STEPS = 3, 3
+#: 14b: the card as Lotaru's local node
+LOCAL_NODE = "local-h100"
+def dryrun_cut(arch, measured, smi):
+    """14a: the dry run of 13e's / 13h's cut (FULL_BATCH x FULL_SEQ in
+    FULL_MICRO microbatches, fp32 weights and AdamW state, bf16
+    activations, full remat) beside that run's median step and peak."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.shapes import ShapeSpec
+    rec = run_cell(arch, "train_4k",
+                   spec=ShapeSpec("train_4k", "train", FULL_SEQ, FULL_BATCH),
+                   dist={"microbatches": FULL_MICRO})
+    check(rec["status"] == "ok", f"14a: {arch}'s dry run: {rec}")
+    rf, mem = rec["roofline"], rec["memory"]
+    step_s = measured["step_ms"] / 1e3
+    mfu = rf["model_flops_total"] / (step_s * BF16_FLOPS)
+    dry_gb = mem["hbm_estimate_bytes"] / 1e9
+    gap = dry_gb / measured["peak_memory_gb"] - 1
+    print(f"  {arch}: model FLOPs {rf['model_flops_total']:.6e}, dry run "
+          f"{rf['flops_per_device']:.6e} FLOPs ("
+          + ", ".join(f"{k} {v:.4e}" for k, v in rec["flops_by_op"].items())
+          + f"), {rf['bytes_per_device']:.6e} bytes; roofline step "
+          f"{rf['step_time_s'] * 1e3:.1f} ms ({rf['bound']}-bound) against "
+          f"the measured {measured['step_ms']:.1f} ms; MFU {mfu:.4f} "
+          f"(model FLOPs / (step x {BF16_FLOPS:.3g})); peak {dry_gb:.2f} GB "
+          f"(arguments {mem['argument_bytes'] / 1e9:.2f} + step "
+          f"{mem['temp_bytes'] / 1e9:.2f}) against the measured "
+          f"{measured['peak_memory_gb']:.2f} GB ({100 * gap:+.1f}%); "
+          f"traced in {rec['trace_s']:.1f} s; {smi}", flush=True)
+    return rec, {"model_flops": rf["model_flops_total"],
+                 "flops": rf["flops_per_device"],
+                 "flops_by_op": rec["flops_by_op"],
+                 "bytes": rf["bytes_per_device"],
+                 "roofline_step_ms": rf["step_time_s"] * 1e3,
+                 "bound": rf["bound"], "measured_step_ms": measured["step_ms"],
+                 "mfu": mfu, "dryrun_peak_gb": dry_gb,
+                 "measured_peak_gb": measured["peak_memory_gb"],
+                 "peak_gap": gap, "trace_s": rec["trace_s"]}
+
+
+def local_runs(torch, cfg):
+    """14b's ``run_local(cell, f)``: ``make_train_step`` of ``cfg`` at
+    full width on the card, f x FULL_BATCH rows of FULL_SEQ tokens in one
+    microbatch, the median of FIT_STEPS timed steps after one warm-up
+    (host clock around the step and a read of its loss, as
+    ``launch.train``); and ``full_step()``, the same harness at 13e's
+    FULL_BATCH rows in FULL_MICRO microbatches.  Parameters and state are
+    drawn anew (seed 0): 13e's and 13h's were freed, and the step's time
+    does not depend on their values.  Returns (run_local, {f: seconds},
+    full_step, release)."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_defs_init
+    from repro_torch.optim import AdamWConfig, state_defs
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=FULL_STEPS)
+    held = {"params": model.init(0, device="cuda"),
+            "state": tree_defs_init(state_defs(model.param_defs, opt), None,
+                                    "cuda")}
+    measured = {}
+
+    def median_step(rows, micro):
+        step = make_train_step(model, opt, microbatches=micro)
+        batch = SyntheticLMData(cfg, seq=FULL_SEQ, global_batch=rows,
+                                seed=0, device="cuda").batch(0)
+        times = []
+        for _ in range(1 + FIT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, metrics = step(held["params"], held["state"], batch)
+            float(metrics["loss"])
+            times.append(time.perf_counter() - t0)
+        print(f"    {rows} x {FULL_SEQ} tokens in {micro} microbatch(es): "
+              f"steps {[round(1e3 * t, 1) for t in times]} ms (the first a "
+              f"warm-up), median {1e3 * sorted(times[1:])[FIT_STEPS // 2]:.1f}"
+              " ms", flush=True)
+        return sorted(times[1:])[FIT_STEPS // 2]
+
+    def run_local(cell, f):
+        measured[f] = median_step(round(f * FULL_BATCH), 1)
+        return measured[f]
+
+    def full_step():
+        return median_step(FULL_BATCH, FULL_MICRO)
+
+    def release():
+        held.clear()
+        torch.cuda.empty_cache()
+    return run_local, measured, full_step, release
+
+
+def posterior_errs(a, b) -> float:
+    """The worst rel_err between two cells' fitted models (the posterior
+    fields, or the median fallback's)."""
+    from repro_torch.core.blr import POSTERIOR_FIELDS
+    check(a.correlated == b.correlated, "14b: the gates differ")
+    errs = [rel_err([a.median, a.spread], [b.median, b.spread])]
+    if a.correlated:
+        errs += [rel_err(getattr(a.post, f).cpu(), getattr(b.post, f))
+                 for f in POSTERIOR_FIELDS]
+    return max(errs)
+
+
+def lotaru_ml_on_card(torch, records, cfgs, measured, smi):
+    """14b: ``LotaruML`` fitted from the card's own training steps: the
+    local bench ``profile_local(fast=False, device="cuda")``, the simulated
+    targets (``profile_cluster(target_nodes(), seed=13)``, as
+    examples/heterogeneous_schedule_torch.py), ``fit_cell(record,
+    run_local, n_partitions=FIT_PARTITIONS)`` for each dry-run record,
+    the predicted full step against 13e's / 13h's measured median; then
+    the same fit on the CPU from the same runtimes, which must equal the
+    card's within EST_TOL."""
+    from repro_torch.core import (LotaruML, profile_cluster, profile_local,
+                                  target_nodes)
+    local = profile_local(LOCAL_NODE, fast=False, device="cuda")
+    targets = profile_cluster(target_nodes(), seed=13)
+    print(f"  local bench ({smi}): matmul {local.matmul_gflops:.1f} GFLOP/s, "
+          f"memory {local.mem_gbps:.1f} GB/s", flush=True)
+    card = LotaruML(local, targets, device="cuda")
+    cpu = LotaruML(local, targets, device="cpu")
+    out = {"local_bench": local.to_dict()}
+    for arch, rec in records.items():
+        name = f"{rec['arch']}__{rec['shape']}"
+        run_local, runtimes, full_step, release = local_runs(torch,
+                                                            cfgs[arch])
+        card.fit_cell(rec, run_local, n_partitions=FIT_PARTITIONS)
+        same_ms = 1e3 * full_step()
+        release()
+        cpu.fit_cell(rec, lambda cell, f: runtimes[f],
+                     n_partitions=FIT_PARTITIONS)
+        mean, std = card.predict(name, LOCAL_NODE)
+        step_ms = measured[arch]["step_ms"]
+        err = mean * 1e3 / step_ms - 1
+        preds = {n: card.predict(name, n) for n in [LOCAL_NODE] + list(targets)}
+        cpu_preds = {n: cpu.predict(name, n) for n in preds}
+        worst = max([posterior_errs(card.cells[name].model,
+                                    cpu.cells[name].model)]
+                    + [rel_err(preds[n], cpu_preds[n]) for n in preds])
+        print(f"  {arch}: predicted full step {1e3 * mean:.1f} +- "
+              f"{1e3 * std:.1f} ms against the measured {step_ms:.1f} ms "
+              f"({100 * err:+.1f}%; this harness's full step {same_ms:.1f} "
+              f"ms, {100 * (mean * 1e3 / same_ms - 1):+.1f}%); simulated "
+              "targets: "
+              + ", ".join(f"{n} {1e3 * m:.1f} ms" for n, (m, _) in
+                          preds.items() if n != LOCAL_NODE)
+              + f"; the CPU's fit against the card's {worst:.3e}",
+              flush=True)
+        check(worst <= EST_TOL, f"14b: {arch}: the CPU's fit is "
+                                f"{worst:.3e} off the card's")
+        out[arch] = {"runtimes_s": {str(f): t for f, t in runtimes.items()},
+                     "predicted_ms": 1e3 * mean, "predicted_std_ms": 1e3 * std,
+                     "measured_ms": step_ms, "rel_err": err,
+                     "harness_full_step_ms": same_ms,
+                     "targets_ms": {n: 1e3 * m for n, (m, _) in preds.items()},
+                     "cpu_vs_card": worst}
+    return out
+
+
+def run_dryrun_phase(torch, get_config, training, smi):
+    """Phase 14: 14a the dry runs of 13e's and 13h's cuts, 14b LotaruML
+    from the card's steps."""
+    t0 = time.time()
+    measured = {"stablelm-1.6b": training["full_width"],
+                "mamba2-1.3b": training["ssm_full_width"]}
+    print("== phase 14a: the dry run of 13e's and 13h's cuts "
+          f"(B {FULL_BATCH} x T {FULL_SEQ} in {FULL_MICRO} microbatches)",
+          flush=True)
+    records, cuts = {}, {}
+    for arch in measured:
+        records[arch], cuts[arch] = dryrun_cut(arch, measured[arch], smi)
+    print(f"== phase 14b ({time.time() - t0:.1f} s): LotaruML from the "
+          f"card's steps ({FIT_PARTITIONS} partitions: {FULL_BATCH // 2}, "
+          f"{FULL_BATCH // 4}, {FULL_BATCH // 8} rows x {FULL_SEQ}; median "
+          f"of {FIT_STEPS} steps after a warm-up)", flush=True)
+    ml = lotaru_ml_on_card(torch, records,
+                           {a: get_config(a) for a in measured}, measured,
+                           smi)
+    return {"cuts": cuts, "lotaru_ml": ml, "seconds": time.time() - t0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch").is_dir():
+    if not (SRC / "repro_torch").is_dir() or BF16_FLOPS is None:
         print(f"chip_smoke: the port's sources are not under {SRC}",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3750,6 +3954,10 @@ def main() -> int:
     training = run_training_phase(torch, kernel, ssd_kernel, get_config,
                                   build_model)
 
+    print("== phase 14: the dry run and LotaruML against the card",
+          flush=True)
+    dryrun = run_dryrun_phase(torch, get_config, training, smi)
+
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
     main_row = next(r for r in rows if r["shape"] == "serve decode")
@@ -3845,7 +4053,7 @@ def main() -> int:
               "ml": ml, "serving_configs": configs,
               "phase12": {"moe": configs12, "encdec": encdec_run,
                           "kv_quant": kv_quant_run, "timings": rows12},
-              "training": training,
+              "training": training, "dryrun": dryrun,
               "card": smi, "seconds": time.time() - t_start}
     out_dir = ROOT / "build" / "reports"
     out_dir.mkdir(parents=True, exist_ok=True)

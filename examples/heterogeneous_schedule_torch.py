@@ -2,8 +2,8 @@
 learn task models from downsampled local runs, predict every (task, node)
 runtime + uncertainty, and gang-schedule a fan-out physical workflow
 across the heterogeneous fleet.  Also schedules the ML workload cells
-from the dry-run artifacts if present (the accelerator plane,
-``LotaruML``).
+from the port's dry-run records if present (the accelerator plane,
+``LotaruML``; ``python -m repro_torch.launch.dryrun`` writes them).
 
     PYTHONPATH=src python examples/heterogeneous_schedule_torch.py
     PYTHONPATH=src python examples/heterogeneous_schedule_torch.py --device cpu
@@ -28,7 +28,7 @@ from repro_torch.sched.simulator import (ClusterSimulator,  # noqa: E402
                                          load_dryrun_cells)
 from repro_torch.sched.workflows import INPUTS, WORKFLOWS  # noqa: E402
 
-ART = ROOT / "experiments" / "artifacts" / "dryrun"
+ART = ROOT / "experiments" / "artifacts" / "dryrun_torch"
 
 
 def main(argv=None):
@@ -81,12 +81,12 @@ def main(argv=None):
     for n in sorted(per_node):
         print(f"  {n:12s} {per_node[n]:3d} tasks")
 
-    # ---- ML plane: schedule (arch x shape) cells over pod slices ----------
-    cells = [c for c in load_dryrun_cells(ART) if c["mesh"] == "pod16x16"
+    # ---- ML plane: schedule (arch x shape) cells over accelerator nodes --
+    cells = [c for c in load_dryrun_cells(ART) if c["mesh"] == "h100x1"
              and c["shape"] == "train_4k"]
     if not cells:
-        print("\n(no dry-run artifacts under experiments/artifacts/dryrun: "
-              "the ML-plane demo needs them)")
+        print("\n(no dry-run records under experiments/artifacts/"
+              "dryrun_torch: the ML-plane demo needs them)")
         return
     ml = LotaruML(local_bench, tbenches, device=args.device)
     for c in cells:

@@ -48,6 +48,20 @@ def attention_ref(q, k, v, *, causal: bool = True, kv_len: int | None = None,
     return out.to(q.dtype)
 
 
+def attention_ref_flops(B: int, Hq: int, Sq: int, Sk: int, D: int,
+                        grads=None) -> int:
+    """The FLOPs of ``attention_ref``'s products at these shapes: the
+    scores and the weighted sum, each 2 B Hq Sq Sk D over every key
+    (masked ones too).  With ``grads`` (whether q, k and v each want a
+    gradient), those of autograd through it instead: dP = dO V^T where q
+    or k wants one, then dV, dQ and dK each where wanted."""
+    one = 2 * B * Hq * Sq * Sk * D
+    if grads is None:
+        return 2 * one
+    gq, gk, gv = grads
+    return ((gq or gk) + gv + gq + gk) * one
+
+
 def lse_ref(q, k, *, causal: bool = True, kv_len: int | None = None,
             q_offset=0) -> torch.Tensor:
     """Each query row's log-sum-exp of its scaled scores over the keys it

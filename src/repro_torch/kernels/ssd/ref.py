@@ -95,6 +95,44 @@ def ssd_chunked(x, dt, a, B_, C_, chunk: int, state0=None):
     return (y[:, :T] if pad else y), state
 
 
+def ssd_chunked_flops(Bb: int, T: int, H: int, P: int, N: int, chunk: int,
+                      grads=None, dy: bool = True,
+                      dstate: bool = False) -> int:
+    """The FLOPs of ``ssd_chunked``'s products at these shapes: per chunk
+    of L rows, the inter-chunk output and the chunk state (2 B L H P N
+    each), the scores C B^T (2 B L^2 H N) and the intra-chunk output
+    (2 B L^2 H P).
+
+    With ``grads`` (whether x, dt, a, B_, C_ and state0 each want a
+    gradient; state0 False when there is none), those of autograd through
+    it instead: each product takes one product of its size for each
+    operand that wants a gradient, where a gradient reaches its output.
+    ``dy``, ``dstate``: whether y and the final state carry one.  Chunk
+    0's state wants none unless state0 does, and the last chunk's state
+    update reaches only the final state."""
+    L = min(chunk, T)
+    n = -(-T // L)
+    u = 2 * Bb * L * H * P * N             # inter-chunk output, chunk state
+    s = 2 * Bb * L * L * H * N             # C B^T
+    w = 2 * Bb * L * L * H * P             # intra-chunk output
+    if grads is None:
+        return n * (2 * u + s + w)
+    gx, gdt, ga, gB, gC, gs0 = grads
+    gcss = gdt or ga                       # css = cumsum(dt a)
+    a_inter = gC or gcss                   # C exp(css)
+    b_state = gB or gcss                   # B exp(seg - css)
+    x_state = gx or gdt                    # x dt
+    att = gC or gB or gcss or gdt          # C B^T E dt
+    total, s_req = 0, gs0                  # s_req: the state entering
+    for c in range(n):
+        if dy:
+            total += (a_inter + s_req) * u + (gC + gB) * s + (att + gx) * w
+        if dstate or (dy and c + 1 < n):
+            total += (b_state + x_state) * u
+        s_req = s_req or b_state or x_state
+    return total
+
+
 def ssd_chunked_bwd(x, dt, a, B_, C_, chunk: int, state0, dy, dstate):
     """The gradient of ``ssd_chunked`` from explicit formulas, chunk by
     chunk: a forward pass that keeps the state entering each chunk, then a

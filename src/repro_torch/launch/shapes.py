@@ -1,10 +1,9 @@
 """Input-shape cells and concrete batches.
 
 Counterpart of ``repro.launch.shapes``: the (arch x shape) cells
-(``SHAPES``, ``cell_applicable``) and ``concrete_batch``, the small
-concrete batch of a cell's kind that tests and the smoke run feed the
-model.  ``input_specs`` (the dry run's sharded stand-ins) is not ported
-yet (ROADMAP.md, Queue A, the dry run).
+(``SHAPES``, ``cell_applicable``), ``input_specs``, the dry run's
+stand-ins for a cell's batch, and ``concrete_batch``, the small concrete
+batch of a cell's kind that tests and the smoke run feed the model.
 """
 from __future__ import annotations
 
@@ -14,6 +13,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.common import ModelConfig
+
+VLM_VISION_TOKENS = 1024     # patch-embedding stub length inside the seq budget
+AUDIO_FRAME_RATIO = 1.0      # encoder frames per "seq_len" unit (stub frontend)
+
 
 @dataclass(frozen=True)
 class ShapeSpec:
@@ -38,6 +41,41 @@ def cell_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
         return False, ("long_500k skipped: pure full-attention arch "
                        "(DESIGN.md §6)")
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, *,
+                device="meta") -> dict:
+    """Stand-ins (uninitialised tensors, on ``meta`` unless asked) for the
+    step's *batch* argument of a cell, with the JAX package's keys, shapes
+    and dtypes.  The JAX package's version also takes a mesh and sharding
+    rules; one card has neither, so they wait for more than one device
+    (ROADMAP.md, Queue A item 6)."""
+    B, T = shape.global_batch, shape.seq
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=device)
+
+    if shape.kind == "decode":
+        batch = {"tokens": spec((B, 1), torch.int32)}
+        if cfg.family == "vlm" and cfg.mrope:
+            batch["positions"] = spec((B, 1, 3), torch.int32)
+        return batch
+    if cfg.family == "encdec":
+        batch = {"src_embeds": spec((B, T, cfg.d_model), torch.bfloat16),
+                 "tokens": spec((B, T), torch.int32)}
+        text = T
+    elif cfg.family == "vlm":
+        nv = min(VLM_VISION_TOKENS, T // 4)
+        batch = {"tokens": spec((B, T - nv), torch.int32),
+                 "vision_embeds": spec((B, nv, cfg.d_model), torch.bfloat16),
+                 "positions": spec((B, T, 3), torch.int32)}
+        text = T - nv
+    else:
+        batch = {"tokens": spec((B, T), torch.int32)}
+        text = T
+    if shape.kind == "train":
+        batch["labels"] = spec((B, text), torch.int32)
+    return batch
 
 
 def concrete_batch(cfg: ModelConfig, kind: str, B: int, T: int, *,

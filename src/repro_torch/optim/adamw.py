@@ -141,8 +141,10 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded fp32 square root, as XLA and CUDA take it.
     CUDA's fp32 sqrt is; torch's vectorised CPU sqrt is not (3 of 480
     values an ulp off, measured), so a CPU tensor goes through the exact
-    double, whose root rounded once to fp32 is the correctly rounded root."""
-    if x.is_cuda:
+    double, whose root rounded once to fp32 is the correctly rounded root.
+    A meta tensor (the dry run's stand-in for the card) takes the card's
+    route."""
+    if x.device.type != "cpu":
         return torch.sqrt(x)
     return torch.sqrt(x.double()).float()
 

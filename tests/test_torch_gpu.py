@@ -1720,3 +1720,33 @@ def test_adamw_sqrt_on_the_card_equals_the_cpu_route():
     x = torch.exp(torch.empty(1 << 16).uniform_(-60, 60, generator=g))
     x = torch.cat([x, torch.tensor([0.0, 1.0, 2.0, 1e-38, 3e38])])
     assert torch.equal(_sqrt(x.cuda()).cpu(), _sqrt(x))
+
+
+def _serve_decode_example():
+    """examples/serve_decode_torch.py, imported from its path."""
+    import importlib.util
+    from pathlib import Path
+    path = (Path(__file__).resolve().parents[1] / "examples"
+            / "serve_decode_torch.py")
+    spec = importlib.util.spec_from_file_location("serve_decode_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_serve_decode_example_kernel_check(dtype):
+    """The serve twin's check: the flash kernel within tests/
+    test_kernels.py's bar of attention_ref."""
+    _need_card()
+    assert _serve_decode_example().kernel_error(dtype) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_serve_decode_example_serves_on_the_card(capsys):
+    _need_card()
+    _serve_decode_example().main([])
+    out = capsys.readouterr().out
+    assert "serve_decode OK" in out and "bfloat16" in out

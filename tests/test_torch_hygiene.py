@@ -34,7 +34,10 @@ ENTRY_POINTS = [ROOT / "chip_smoke.py",
                 ROOT / "examples" / "quickstart_torch.py",
                 ROOT / "examples" / "heterogeneous_schedule_torch.py",
                 ROOT / "examples" / "train_lm_torch.py",
-                ROOT / "scripts" / "report_trace_torch.py"]
+                ROOT / "examples" / "serve_decode_torch.py",
+                ROOT / "scripts" / "report_trace_torch.py",
+                ROOT / "scripts" / "dev_smoke_torch.py",
+                ROOT / "scripts" / "gen_roofline_md_torch.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + ENTRY_POINTS,
