@@ -219,7 +219,21 @@ in order; any failure ends the run with a non-zero exit code:
    predictions, and refits on the CPU from the same runtimes, which must
    equal the card's fit within 1e-12.  The 40-cell sweep (``python -m
    repro_torch.launch.dryrun``) needs no card and runs as a command of
-   its own.
+   its own;
+15. the linter against the card's syncs: PyTorch's sync detector
+   (``torch.cuda.set_sync_debug_mode("warn")``, through
+   ``repro_torch.analysis.syncs.trace_syncs``) records every synchronizing
+   call of the main paths at its innermost frame in the port, each run
+   after its phase's timed work: 15a two eager ticks and two graph
+   replays of phase 9b's engines (T 1,000 x N 64, 4,096 observations),
+   15b one fleet tick at W 64 x T 128 x N 16 (phase 10a), 15c a batch of
+   phase 4's stablelm-1.6b loop at 1 and at 2 new tokens (the difference
+   is one decode step), 15d one more stablelm-1.6b training step at 13e's
+   shape (through the flash kernel's autograd function).  Printed: the
+   syncs per tick or step and their sites by ``file:line``.  The run fails
+   if a sync lies in a function that the port's RA001 treats as traced, at
+   a line where the port's linter neither reports RA001 nor finds a
+   justified ``# repro_torch: ignore[RA001]``.
 
 The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``; the full report goes to
@@ -2164,11 +2178,12 @@ def tick_leaves(state):
             + [getattr(m.post, f) for f in blr.POSTERIOR_FIELDS])
 
 
-def online_tick_at_scale(torch):
+def online_tick_at_scale(torch, sync_log=None):
     """Phase 9b: one online tick at phase 8c's scale through
     ``TickEngine.observe_batch``, eager and CUDA-graphed, beside the
     legacy tick (``observe_batch`` + the dirty-row ``predict_matrix``)
-    and the same tick on the CPU, then the HEFT re-plan."""
+    and the same tick on the CPU, then the HEFT re-plan; with a
+    ``sync_log``, phase 15a's sync traces at the end."""
     import copy
     import numpy as np
     from repro_torch.data.synthetic import synthetic_dag
@@ -2247,6 +2262,13 @@ def online_tick_at_scale(torch):
     check(e_span <= HEFT_TOL, f"9b HEFT makespans {e_span:.3e} apart")
     same = float(np.mean(heft["cuda"]["assignment"]
                          == heft["cpu"]["assignment"]))
+    if sync_log is not None:
+        # phase 15a, after the timed work: two more ticks of each engine on
+        # ticks 2's and 3's streams, whose graphs are captured (replays only)
+        for name in ("eager", "graph"):
+            e = engines[name]
+            sync_log.run(f"15a tick, {name}", lambda: [
+                e.observe_batch(streams[k]) for k in (1, 2)], per=2)
 
     def rec(ticks):
         out = {"ticks": [{k: v for k, v in t.items()
@@ -2274,8 +2296,8 @@ def online_tick_at_scale(torch):
     return res
 
 
-def run_online_phase(torch, smi):
-    """Phase 9: the online loop on the card."""
+def run_online_phase(torch, smi, sync_log=None):
+    """Phase 9: the online loop on the card (and phase 15a's traces)."""
     report = {}
     print("== phase 9a: the five workflows through OnlineExecutor, card "
           "and CPU, fused and legacy, faults off and on (2 samples, 2 "
@@ -2285,7 +2307,7 @@ def run_online_phase(torch, smi):
           f"{EST_NODES} nodes, {EST_STREAM} observations (numpy seeds 1-"
           f"{TICKS + 1}, one a tick), then HEFT over synthetic_dag(100, "
           "140)", flush=True)
-    r = online_tick_at_scale(torch)
+    r = online_tick_at_scale(torch, sync_log)
     report["tick"] = r
     pe = r["profile"]["eager"]
     print(f"  {smi}; waves (moments, bias) by tick {r['waves']}; graphs "
@@ -2369,14 +2391,15 @@ def fleet_obs(W, T, N, B, seed):
     return obs
 
 
-def fleet_point(torch, W, T, N, B, bases):
+def fleet_point(torch, W, T, N, B, bases, sync_log=None):
     """One fleet point: ``bases[dev]``'s state stacked W times (as
     bench_online stacks it) on the card, on the card's (1, 1) mesh and
     on the CPU, beside W per-workflow ``tick_step`` states on the card;
     FLEET_TICKS ticks of fresh rows, each workflow predicting at its own
     size.  Every tick: the mesh's fleet equals the card's bit for bit,
     and every workflow's slice is held to its ``tick_step`` and to the
-    CPU's fleet (EST_TOL).  Then one more tick of each, profiled."""
+    CPU's fleet (EST_TOL).  Then one more tick of each, profiled, and
+    with a ``sync_log`` one more fleet tick under phase 15b's trace."""
     import numpy as np
     from repro_torch.core import build_state
     from repro_torch.core.tick import tick_step
@@ -2437,6 +2460,10 @@ def fleet_point(torch, W, T, N, B, bases):
     obs = fleet_obs(W, T, N, B, FLEET_TICKS + 1)
     prof = {"fleet": device_busy(torch, lambda: fleet_tick("cuda", obs)),
             "loop": device_busy(torch, lambda: loop_tick(obs))}
+    if sync_log is not None:
+        obs = fleet_obs(W, T, N, B, FLEET_TICKS + 2)
+        sync_log.run(f"15b fleet tick, W {W} x T {T} x N {N}",
+                     lambda: fleet_tick("cuda", obs))
     out = {"W": W, "T": T, "N": N, "batch_per_workflow": B,
            "cells": W * T * N, "rel_err": worst, "bitwise_mesh": True,
            "ticks": recs}
@@ -2451,13 +2478,14 @@ def fleet_point(torch, W, T, N, B, bases):
     return out
 
 
-def run_fleet_phase(torch, smi):
+def run_fleet_phase(torch, smi, sync_log=None):
     """Phase 10a: the fleet on the card (bench_online's sweep, then W 4
-    at phase 8c's scale)."""
+    at phase 8c's scale); phase 15b traces the sweep's last point."""
     import copy
     devs = ("cuda", "cpu")
     small = {d: synthetic_estimator(FLEET_T, FLEET_N, d) for d in devs}
-    points = [fleet_point(torch, W, FLEET_T, FLEET_N, FLEET_BATCH, small)
+    points = [fleet_point(torch, W, FLEET_T, FLEET_N, FLEET_BATCH, small,
+                          sync_log if W == FLEET_WS[-1] else None)
               for W in FLEET_WS]
     W, T, N, B = FLEET_BIG
     big = {d: synthetic_estimator(T, N, d) for d in devs}
@@ -3254,7 +3282,7 @@ def small_lm_learns(torch, build_model, make_train_step, AdamWConfig,
 
 def full_width_training(torch, kernel, other, label, bwd_kernels, train_mod,
                         make_train_step, AdamWConfig, state_defs,
-                        tree_defs_init, SyntheticLMData, cfg):
+                        tree_defs_init, SyntheticLMData, cfg, sync_log=None):
     """13e and 13h: ``train`` of ``cfg`` at full width, FULL_STEPS steps
     of FULL_BATCH x FULL_SEQ tokens in FULL_MICRO microbatches (no
     checkpoint: its state would be ~26 GB); the launches of the run of
@@ -3263,7 +3291,8 @@ def full_width_training(torch, kernel, other, label, bwd_kernels, train_mod,
     stablelm-1.6b is an attention, every layer of mamba2-1.3b a Mamba-2
     layer) and none of ``other``'s, median step, tokens/s, peak memory,
     then one more step under torch.profiler for the device-busy share and
-    the backward's device ms (``bwd_kernels``, its launches)."""
+    the backward's device ms (``bwd_kernels``, its launches); with a
+    ``sync_log``, one more step under phase 15d's trace."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
@@ -3317,6 +3346,8 @@ def full_width_training(torch, kernel, other, label, bwd_kernels, train_mod,
     print("  one more step under torch.profiler:", flush=True)
     prof = profile_steps(torch, one, 1, f"{label}_", label, launches,
                          parts=(f"{label}_bwd",) + bwd_kernels)
+    if sync_log is not None:
+        sync_log.run(f"15d train step, {cfg.arch}", lambda: one(0))
     del params, state, batch
     torch.cuda.empty_cache()
     bwd_ms = prof["parts_ms"][f"{label}_bwd"]
@@ -3332,7 +3363,8 @@ def full_width_training(torch, kernel, other, label, bwd_kernels, train_mod,
             "busy_share": busy / prof["wall_ms_per_step"]}
 
 
-def run_training_phase(torch, kernel, ssd_kernel, get_config, build_model):
+def run_training_phase(torch, kernel, ssd_kernel, get_config, build_model,
+                       sync_log=None):
     """Phase 13: 13a the flash backward against its plain version, 13b its
     timings, 13c a train step card vs CPU for TRAIN_ARCHS and TRAIN_SSM,
     13d restarts and the small LM, 13e stablelm-1.6b at full width; 13f
@@ -3406,7 +3438,7 @@ def run_training_phase(torch, kernel, ssd_kernel, get_config, build_model):
         kernel.BWD_KERNELS[kernel.bwd_plan(torch.bfloat16,
                                            cfg.resolved_head_dim())],
         train_mod, steps_mod.make_train_step, AdamWConfig, state_defs,
-        tree_defs_init, SyntheticLMData, cfg)
+        tree_defs_init, SyntheticLMData, cfg, sync_log)
     t13f = time.perf_counter()
     print(f"== phase 13f ({t13f - t0:.1f} s): SSD backward kernel against "
           f"its plain version in float64 (each gradient within {SSD_TOL:g} "
@@ -3627,6 +3659,58 @@ def run_dryrun_phase(torch, get_config, training, smi):
     return {"cuts": cuts, "lotaru_ml": ml, "seconds": time.time() - t0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the linter against the card's syncs
+# ---------------------------------------------------------------------------
+def run_sync_phase(sync_log, smi):
+    """Phase 15: the syncs that 15a-15d recorded, per tick or step and by
+    site, and the gate: no sync in a function that the port's RA001 treats
+    as traced at a line where the linter neither reports RA001 nor finds a
+    justified ``# repro_torch: ignore[RA001]``."""
+    from collections import Counter
+    from repro_torch.analysis.syncs import lint_index, missed
+    t0 = time.perf_counter()
+    index = lint_index()
+    lint_s = time.perf_counter() - t0
+    summary = sync_log.summary()
+    n_traced = sum(len(v) for v in index.traced.values())
+    print(f"  {smi}; RA001 treats {n_traced} functions in "
+          f"{sum(1 for v in index.traced.values() if v)} files of the port "
+          f"as traced ({lint_s:.1f} s to lint {len(index.files)} files)",
+          flush=True)
+    print(f"  {'path':44s} {'syncs':>6s} {'per':>4s} {'a tick/step':>11s} "
+          f"{'trace s':>8s}")
+    for label, r in summary.items():
+        print(f"  {label:44s} {r['syncs']:6d} {r['per']:4d} "
+              f"{r['syncs_per']:11.2f} {r['seconds']:8.2f}", flush=True)
+        for site, n in r["sites"].items():
+            print(f"      {n:5d}  {site}")
+    one, two = (Counter(sync_log.runs[f"15c serve batch, {k} new"]["sites"])
+                for k in (1, 2))
+    step = two - one
+    summary["15c decode step"] = {
+        "syncs": sum(step.values()), "per": 1,
+        "syncs_per": sum(step.values()),
+        "sites": {str(s): n for s, n in step.most_common()}}
+    print(f"  15c one decode step (the 2-token batch less the 1-token "
+          f"batch): {sum(step.values())} syncs: "
+          + ", ".join(f"{n} x {s}" for s, n in step.most_common()),
+          flush=True)
+    seconds = lint_s + sum(r["seconds"] for r in sync_log.runs.values())
+    print(f"  phase 15's cost: {seconds:.1f} s (the traced calls and the "
+          "lint)", flush=True)
+    for label, run in sync_log.runs.items():
+        bad = missed(run["sites"], index)
+        check(not bad, f"15 {label}: syncs in traced functions that RA001 "
+                       "neither flags nor excuses: "
+                       + ", ".join(f"{s} in {fn}" for s, fn in bad))
+    print("  gate passed: every sync in a traced function is flagged by "
+          "RA001 or covered by a justified ignore", flush=True)
+    return {"runs": summary, "seconds": seconds, "lint_seconds": lint_s,
+            "traced_functions": {p: v for p, v in index.traced.items() if v},
+            "card": smi}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3639,6 +3723,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.analysis.syncs import SyncLog
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import attention_ref, kernel, mha
@@ -3664,6 +3749,7 @@ def main() -> int:
     mbatches = {a: serve_batches(serve, c.vocab, n_requests, max_new)
                 for a, c in mcfgs.items()}
     ecfg = get_config(ENCDEC_ARCH)
+    sync_log = SyncLog()
 
     t_start = time.time()
     print("== phase 1: card", flush=True)
@@ -3763,6 +3849,13 @@ def main() -> int:
             2, 1e-4, "full width 24 layers float32, unit score scale",
             cache_dtype=torch.float32),
     }
+    print("== phase 15c (reported in phase 15): a batch of "
+          f"{serve.MAX_BATCH} requests on phase 4's loop at 1 and at 2 new "
+          "tokens, under the sync trace", flush=True)
+    for new in (1, 2):
+        reqs = serve.make_requests(cfg.vocab, serve.MAX_BATCH, new)
+        sync_log.run(f"15c serve batch, {new} new",
+                     lambda: loop.run_batch(reqs))
     del loop, summary["done"]
     torch.cuda.empty_cache()
 
@@ -3866,7 +3959,7 @@ def main() -> int:
 
     print("== phase 9: the online loop (fused tick engine and executor; "
           "float64, card against the CPU at 1e-12)", flush=True)
-    online = run_online_phase(torch, smi)
+    online = run_online_phase(torch, smi, sync_log)
 
     print("== phase 10: the multi-workflow fleet and LotaruML (float64; "
           "card against the CPU at 1e-12)", flush=True)
@@ -3875,7 +3968,7 @@ def main() -> int:
           f"then W {FLEET_BIG[0]} at T {FLEET_BIG[1]} x N {FLEET_BIG[2]} "
           f"({FLEET_BIG[3]} a workflow); {FLEET_TICKS} ticks, numpy seeds "
           f"1-{FLEET_TICKS}", flush=True)
-    fleet = run_fleet_phase(torch, smi)
+    fleet = run_fleet_phase(torch, smi, sync_log)
     print(f"== phase 10b: LotaruML, {ML_CELLS} cells x {ML_NODES} target "
           f"nodes, a {ML_STREAM}-observation observe_batch", flush=True)
     ml = run_ml_phase(torch, smi)
@@ -3952,11 +4045,15 @@ def main() -> int:
     print("== phase 13: training, the flash and SSD backward kernels",
           flush=True)
     training = run_training_phase(torch, kernel, ssd_kernel, get_config,
-                                  build_model)
+                                  build_model, sync_log)
 
     print("== phase 14: the dry run and LotaruML against the card",
           flush=True)
     dryrun = run_dryrun_phase(torch, get_config, training, smi)
+
+    print("== phase 15: the linter against the card's syncs (15a-15d, "
+          "traced after their phases' timed work)", flush=True)
+    sync_report = run_sync_phase(sync_log, smi)
 
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
@@ -4053,7 +4150,7 @@ def main() -> int:
               "ml": ml, "serving_configs": configs,
               "phase12": {"moe": configs12, "encdec": encdec_run,
                           "kv_quant": kv_quant_run, "timings": rows12},
-              "training": training, "dryrun": dryrun,
+              "training": training, "dryrun": dryrun, "syncs": sync_report,
               "card": smi, "seconds": time.time() - t_start}
     out_dir = ROOT / "build" / "reports"
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -79,7 +79,7 @@ def _bench_matmul(n: int = 512, reps: int = 8, device=None) -> float:
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        # repro: ignore[RA002] -- hardware probe measures fp32 matmul throughput; the GFLOP/s figure is defined at this width, independent of the estimator's float64 policy
+        # repro_torch: ignore[RA002] -- hardware probe measures fp32 matmul throughput; the GFLOP/s figure is defined at this width, independent of the estimator's float64 policy
         x = torch.ones((n, n), dtype=torch.float32, device=dev)
         _sync(dev)
         _ = x @ x                        # warm-up
@@ -99,7 +99,7 @@ def _bench_memory(mb: int = 256, reps: int = 8, device=None) -> float:
     pass (``1 + 1.000001 * a`` in one kernel)."""
     dev = resolve_device(device)
     n = mb * 1024 * 1024 // 4
-    # repro: ignore[RA002] -- bandwidth probe: the MB->element count above assumes 4-byte lanes, so the buffer must stay fp32 regardless of the float64 policy
+    # repro_torch: ignore[RA002] -- bandwidth probe: the MB->element count above assumes 4-byte lanes, so the buffer must stay fp32 regardless of the float64 policy
     x = torch.ones((n,), dtype=torch.float32, device=dev)
     one = torch.tensor(1.0)        # a 0-dim CPU scalar: no host->device copy
 

@@ -327,6 +327,7 @@ def _size_tensor(size, like: torch.Tensor) -> torch.Tensor:
 
 def _host_obs(obs) -> np.ndarray:
     if isinstance(obs, torch.Tensor):
+        # repro_torch: ignore[RA001] -- planned read-back: tick_step takes host data, and a tensor batch is read back once so that pack_waves can rank it on the host; the device work after it never waits
         obs = obs.detach().cpu().numpy()
     return np.asarray(obs, np.float64).reshape(-1, 8)
 

@@ -364,8 +364,8 @@ def _logits(h, params, cfg: ModelConfig):
     ``preferred_element_type=float32``: the operands are rounded to
     cfg.dtype and the product is taken in fp32, where products of bf16
     values are exact."""
-    w = unembed_matrix(params, cfg).to(cfg.dtype).float()
-    return torch.einsum("btd,dv->btv", h.to(cfg.dtype).float(), w)
+    return torch.einsum("btd,dv->btv", h.to(cfg.dtype).float(),
+                        unembed_matrix(params, cfg).to(cfg.dtype).float())
 
 
 def lm_prefill(params, cfg: ModelConfig, batch: dict, caches):

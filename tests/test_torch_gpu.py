@@ -1750,3 +1750,23 @@ def test_serve_decode_example_serves_on_the_card(capsys):
     _serve_decode_example().main([])
     out = capsys.readouterr().out
     assert "serve_decode OK" in out and "bfloat16" in out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cuda_graph", [False, True], ids=["eager", "graph"])
+def test_tick_syncs_are_seen_by_the_linter(cuda_graph):
+    """chip_smoke.py's phase-15a gate at a small T x N: every sync that
+    torch's sync detector sees in two ticks (after the warm-up or the
+    capture) lies outside RA001's traced set, or at a line RA001 flags or
+    a justified ignore covers; the tick's one copy back is among them."""
+    _need_card()
+    from repro_torch.analysis import syncs
+    from repro_torch.core.tick import TickEngine
+    est, nodes, size = _tick_estimator("cuda")
+    engine = TickEngine(est, nodes, size=size, cuda_graph=cuda_graph)
+    batch = _tick_batches(est.task_names(), nodes, size, 1)[0]
+    engine.observe_batch(batch)             # capture (graph) or warm-up
+    _, sites = syncs.trace_syncs(
+        lambda: [engine.observe_batch(batch) for _ in range(2)])
+    assert syncs.missed(sites, syncs.lint_index()) == []
+    assert sum(s.function == "_fetch" for s in sites) == 2
