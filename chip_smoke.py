@@ -125,13 +125,11 @@ in order; any failure ends the run with a non-zero exit code:
    float32 at 1e-4 x max|logit|: the full width cut to 2 layers (zamba2:
    its 2 tail layers, and one super-unit of 6 layers and the shared
    block); qwen2-vl-7b also with 64 vision embeddings on an 8 x 8 grid,
-   their M-RoPE positions and per-row decode offsets, with the init's
-   weights (measured) and at unit score variance (held to the bar: 70
-   positions of near one-hot attention, where fp32 rounding alone reaches
-   ~1e-4 with the init's weights); zamba2 also all 38
+   their M-RoPE positions and per-row decode offsets, at unit score
+   variance (70 positions of near one-hot attention, where fp32 rounding
+   alone reaches ~1e-4 with the init's weights); zamba2 also all 38
    layers and the prefill of 129 against 128 + one decode step on the
-   card and on the CPU, with the init's weights (measured) and at unit
-   score variance of the shared block (held to the bar);
+   card and on the CPU, at unit score variance of the shared block;
 12. the MoE configs, the encoder-decoder and the int8 KV cache, each model
    freed before the next.  12a qwen3-moe-30b-a3b, all 48 layers at full
    width with bf16 weights (61.1 GB), and 12b llama4-maverick-400b-a17b
@@ -142,17 +140,15 @@ in order; any failure ends the run with a non-zero exit code:
    a profile of decode steps) and the (token, k) assignments each
    prefill's routers dropped past the capacity; the card against the CPU:
    qwen3-moe at 2 layers in float32 activations (1e-4), llama4's unit in
-   bf16 at the bf16 bar (3e-2) at unit score variance, the init's gap
-   measured beside it, after reading the host's free memory (the CPU copy
-   is 37 GB).  12c seamless-m4t-large-v2 whole (24 + 24 layers, float32
+   bf16 at the bf16 bar (3e-2) at unit score variance, after reading the
+   host's free memory (the CPU copy is 37 GB).  12c seamless-m4t-large-v2 whole (24 + 24 layers, float32
    weights) through ``make_prefill_step`` / ``make_decode_step`` on
    ``concrete_batch(cfg, "prefill", 4, 256)``, 12 decode steps (flash 72
    launches a prefill, 48 a step), a profile of decode steps, the card
    against the CPU at 2 + 2 layers in float32 and the prefill of 257
-   against 256 + one decode step on the card and on the CPU, each with
-   the init's weights (measured: near one-hot attentions, where fp32
-   rounding alone passes 1e-4) and at unit score variance (held at
-   1e-4).  12d ``kv_quant`` at qwen2-7b's
+   against 256 + one decode step on the card and on the CPU, each at
+   unit score variance (held at 1e-4; with the init's near one-hot
+   attentions fp32 rounding alone passes 1e-4).  12d ``kv_quant`` at qwen2-7b's
    decode_32k cache (B 8, 32,768 positions, 4 kv heads of 128): codes and
    scales of the card equal to the CPU's, attention over the int8 cache
    within 0.05 of the float cache's (tests/test_kv_quant.py's bar), the
@@ -171,13 +167,13 @@ in order; any failure ends the run with a non-zero exit code:
    (CUDA-graph replays) at stablelm-1.6b's and qwen2-7b's training
    attention (B 4, T 4,096, causal, bf16) beside its plain version's,
    SDPA's backward (a yardstick the port never calls), the bound and the
-   forward with and without lse; 13c one train step at 2 layers of
+   forward with and without lse; 13c one train step at one layer of
    stablelm-1.6b, qwen2-7b, qwen2-vl-7b (vision embeddings),
-   qwen3-moe-30b-a3b (the aux loss) and seamless-m4t-large-v2 (2 + 2
+   qwen3-moe-30b-a3b (the aux loss) and seamless-m4t-large-v2 (1 + 1
    layers: encoder and cross-attention) at full width in float32
-   activations on the card against the CPU: loss, every gradient leaf
-   and every parameter after the AdamW step within 1e-4 x max at unit
-   score variance, the init's gap measured beside it; 13d ``train`` 6
+   activations on the card against the CPU: loss and every gradient leaf
+   within 1e-4 x max at unit score variance, and for stablelm-1.6b and
+   mamba2-1.3b every parameter after the AdamW step too; 13d ``train`` 6
    steps straight against ``train_with_restarts`` failing at step 4
    (2 layers of stablelm-1.6b, checkpoints every 2 steps under
    ``build/ckpt_restart``, removed after) at 1e-4 on the last loss, and
@@ -214,7 +210,7 @@ in order; any failure ends the run with a non-zero exit code:
    its peak memory beside ``max_memory_allocated``; 14b fits
    ``LotaruML`` from the card's own steps (``profile_local`` on the
    card, ``fit_cell`` over full-width train steps of 4, 2 and 1 rows of
-   4,096 tokens, the median of 3 after a warm-up), prints the predicted
+   4,096 tokens, one step after a warm-up), prints the predicted
    full step against 13e's / 13h's median and the simulated targets'
    predictions, and refits on the CPU from the same runtimes, which must
    equal the card's fit within 1e-12.  The 40-cell sweep (``python -m
@@ -233,13 +229,32 @@ in order; any failure ends the run with a non-zero exit code:
    syncs per tick or step and their sites by ``file:line``.  The run fails
    if a sync lies in a function that the port's RA001 treats as traced, at
    a line where the port's linter neither reports RA001 nor finds a
-   justified ``# repro_torch: ignore[RA001]``.
+   justified ``# repro_torch: ignore[RA001]``;
+16. the sharded train step (``launch.mesh``, ``launch.sharding``): 16a
+   one step of stablelm-1.6b at full width and depth (B 4 x T 4,096, one
+   microbatch, fp32 weights and AdamW state, bf16 activations, full
+   remat) through ``make_train_step`` without rules and through the (1,
+   1) ("data", "model") mesh and ``make_rules``, from the same seed and
+   batch: loss, gradients and updated weights equal bit for bit; 16b the
+   same step on a (2, 1) mesh of two processes sharing the card over
+   gloo (``mesh.spawn``), each rank drawing the global weights from the
+   seed and keeping its slice: each rank's gradient slices (read from
+   16a's gradients saved in the checkpoint format, ``restore(shardings=)``)
+   and the loss within 3e-2 x max (the models' bar at bf16 activations),
+   the flash launches of the sharded step, each rank's step ms (the
+   first step: gloo's connections are made in it), peak memory, the
+   payload of each collective and the syncs of the step beside the
+   one-device step's ms and the nvidia-smi line; 16c mamba2-1.3b at 2 layers on the same mesh against
+   its (1, 1) step, every Mamba-2 layer through the SSD kernels.
 
-The last lines are a ``kernels`` JSON object, the card's nvidia-smi line
-and ``{"ok": true, "device": {...}}``; the full report goes to
+The last lines are a ``kernels`` JSON object (phase 16's launches in each
+kernel's ``launches_by_path``), the card's nvidia-smi line and ``{"ok":
+true, "device": {...}}``; the full report goes to
 ``build/reports/chip_smoke.json``.
 """
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -1251,18 +1266,10 @@ def serve_config(torch, serve, kernel, ssd_kernel, build_model, cfg,
             one_unit, 2, 6, 2, 1e-4,
             f"{arch} full width 6 layers (one super-unit) float32", **c32)
         scaled = unit_score_scale(loop.params, cfg)
-        errs["38 layers, init weights (measured)"] = model_reference_check(
-            torch, build_model, f32, loop.params, 2, 6, 2, 1e-4,
-            f"{arch} full width 38 layers float32", check_tol=False, **c32)
         errs["38 layers, unit score scale"] = model_reference_check(
             torch, build_model, f32, scaled, 2, 6, 2, 1e-4,
             f"{arch} full width 38 layers float32, unit score scale", **c32)
         for dev in ("cuda", "cpu"):
-            errs[f"prefill 129 vs 128 + decode, init weights, {dev} "
-                 "(measured)"] = prefill_decode_consistency(
-                torch, build_model, f32, loop.params, 2, cfg.ssm.chunk, 1e-4,
-                f"{arch} full width 38 layers float32", device=dev,
-                check_tol=False)
             errs[f"prefill 129 vs 128 + decode, unit score scale, {dev}"] = \
                 prefill_decode_consistency(
                     torch, build_model, f32, scaled, 2, cfg.ssm.chunk, 1e-4,
@@ -1271,7 +1278,7 @@ def serve_config(torch, serve, kernel, ssd_kernel, build_model, cfg,
         del scaled
     elif cfg.family == "moe" and cfg.moe.every > 1:
         # one unit in bf16 (the CPU copy holds every expert): held at the
-        # bf16 bar at unit score variance, the init's gap measured beside
+        # bf16 bar at unit score variance
         need = cfg.param_count() * cfg.param_dtype.itemsize
         free = host_available_bytes()
         print(f"  {arch}: host memory available {free / 1e9:.1f} GB, the "
@@ -1279,9 +1286,6 @@ def serve_config(torch, serve, kernel, ssd_kernel, build_model, cfg,
         check(free > 1.3 * need, f"{arch}: {free / 1e9:.1f} GB of host "
                                  f"memory for a {need / 1e9:.1f} GB copy")
         what = f"{arch} full width one unit ({cfg.n_layers} layers) bfloat16"
-        errs["one unit bf16, init weights (measured)"] = \
-            model_reference_check(torch, build_model, cfg, loop.params, 2, 6,
-                                  2, 3e-2, what, check_tol=False)
         errs["one unit bf16, unit score scale"] = model_reference_check(
             torch, build_model, cfg, unit_score_scale(loop.params, cfg), 2,
             6, 2, 3e-2, what + ", unit score scale")
@@ -1294,17 +1298,12 @@ def serve_config(torch, serve, kernel, ssd_kernel, build_model, cfg,
         # 70 positions of near one-hot attention: with the init's weights
         # fp32 rounding alone moves the logits to ~1e-4 (the CPU against
         # itself in float64, tests/test_torch_families.py), so the bar is
-        # held at unit score variance and the init's gap is measured
+        # held at unit score variance
         extra, step = vision_inputs(torch, cfg, 2, 6)
         two = f32.with_(n_layers=2)
         what = (f"{arch} full width 2 layers float32, {VISION_GRID ** 2} "
                 "vision embeddings and M-RoPE positions, per-row decode "
                 "offsets")
-        errs["2 layers, vision, init weights (measured)"] = \
-            model_reference_check(
-                torch, build_model, two, first_layers(loop.params, 2), 2, 6,
-                2, 1e-4, what, extra=extra, step_extra=step, check_tol=False,
-                **c32)
         errs["2 layers, vision, unit score scale"] = model_reference_check(
             torch, build_model, two,
             unit_score_scale(first_layers(loop.params, 2), cfg), 2, 6, 2,
@@ -1466,14 +1465,10 @@ def serve_encdec(torch, kernel, shapes, steps_mod, build_model, cfg):
     # six near one-hot attentions (score std ~64): with the init's weights
     # fp32 rounding alone moves the logits past the bar (the CPU against
     # itself in float64, tests/test_torch_encdec.py), so the bar is held
-    # at unit score variance and the init's gap is measured
+    # at unit score variance
     two = f32.with_(enc_layers=2, dec_layers=2, n_layers=4)
     what = (f"{cfg.arch} full width 2 encoder + 2 decoder layers float32 (a "
             "source of 6 frames, the cross cache padded to 8)")
-    errs["2 + 2 layers, init weights (measured)"] = model_reference_check(
-        torch, build_model, two, first_encdec_layers(params, 2), 2, 6, 2,
-        1e-4, what, cache_dtype=torch.float32, extra={"src_embeds": src},
-        check_tol=False)
     errs["2 + 2 layers, unit score scale"] = model_reference_check(
         torch, build_model, two,
         unit_score_scale(first_encdec_layers(params, 2), cfg), 2, 6, 2, 1e-4,
@@ -1484,13 +1479,8 @@ def serve_encdec(torch, kernel, shapes, steps_mod, build_model, cfg):
     what = (f"{cfg.arch} full width {cfg.enc_layers} + {cfg.dec_layers} "
             f"layers float32, source {T}")
     scaled = unit_score_scale(params, cfg)
-    # on the CPU too, without the kernel: how far fp32 rounding alone
-    # moves the init's near one-hot model
+    # on the CPU too, without the kernel
     for dev in ("cuda", "cpu"):
-        errs[f"prefill {T + 1} vs {T} + decode, init weights, {dev} "
-             "(measured)"] = prefill_decode_consistency(
-            torch, build_model, f32, params, 2, T, 1e-4, what, device=dev,
-            check_tol=False, extra={"src_embeds": src})
         errs[f"prefill {T + 1} vs {T} + decode, unit score scale, {dev}"] = \
             prefill_decode_consistency(torch, build_model, f32, scaled, 2, T,
                                        1e-4, what + ", unit score scale",
@@ -2726,11 +2716,18 @@ BWD_CASES = [
 #: (13e's microbatch) and of qwen2-7b, causal bf16
 BWD_TIMED = [("stablelm-1.6b train", 4, 32, 32, 4096, 64),
              ("qwen2-7b train", 4, 28, 4, 4096, 128)]
-#: 13c: the configs trained one step at 2 layers on the card and the CPU
+#: 13c: the configs trained one step at TRAIN_LAYERS layers (the
+#: encoder-decoder: as many encoder and decoder layers) on the card and the
+#: CPU; one layer keeps the CPU side, most of the script's host time, short
+TRAIN_LAYERS = 1
 TRAIN_ARCHS = ["stablelm-1.6b", "qwen2-7b", "qwen2-vl-7b",
                "qwen3-moe-30b-a3b", "seamless-m4t-large-v2"]
 TRAIN_B, TRAIN_T = 2, 16
 TRAIN_TOL = 1e-4
+#: 13c: the configs whose AdamW step is also held card against CPU (the
+#: update is the same elementwise code for every config's leaves; a step
+#: on the CPU is most of a config's host time)
+TRAIN_STEP_ARCHS = ("stablelm-1.6b", "mamba2-1.3b")
 #: 13c: the ssm and hybrid configs and their layers (zamba2: one super-unit
 #: of 6 Mamba-2 layers and the shared attention block, and one tail layer),
 #: at T 320: the SSD scan over three chunks, the last of 64 rows
@@ -3121,32 +3118,33 @@ def copy_to(tree, device):
     return tree.to(device, copy=True)
 
 
-def two_layers(cfg):
-    """The config cut to 2 layers (the encoder-decoder: 2 + 2)."""
+def cut_depth(cfg, n=2):
+    """The config cut to ``n`` layers (the encoder-decoder: n + n)."""
     if cfg.family == "encdec":
-        return cfg.with_(n_layers=4, enc_layers=2, dec_layers=2)
-    return cfg.with_(n_layers=2)
+        return cfg.with_(n_layers=2 * n, enc_layers=n, dec_layers=n)
+    return cfg.with_(n_layers=n)
 
 
 def train_reference_check(torch, build_model, apply_updates, state_defs,
                           tree_defs_init, SyntheticLMData, AdamWConfig,
-                          leaves, unflatten, cfg, label, seq=TRAIN_T):
+                          leaves, unflatten, cfg, label, seq=TRAIN_T,
+                          with_step=True):
     """13c: loss and gradients of one batch of ``seq`` tokens on the card
     (the kernels of the path) and on the CPU (plain versions), within
-    TRAIN_TOL x each leaf's max at unit score variance (with the init's
-    weights the gap is measured and printed beside it; a config without
-    attention has no score to scale, and only that pass runs); then one
-    AdamW step from the same
-    (zero) state and the card's gradients, on the card and on the CPU:
-    every parameter after the step within TRAIN_TOL x the leaf's max.
-    The step from the CPU's gradients is measured beside it: Adam's first
-    step is ~lr x sign(g), so an element whose gradient is 0 up to the
-    two devices' rounding can land 2 lr apart.  The CPU's results are
-    compared on the card; the CPU copy of the weights is updated in place
-    by the last step (the init's weights go first)."""
+    TRAIN_TOL x each leaf's max at unit score variance (a config without
+    attention has no score to scale, and runs with the init's weights);
+    then, ``with_step``, one AdamW step from the same (zero) state and the
+    card's gradients, on the card and on the CPU: every parameter after
+    the step within TRAIN_TOL x the leaf's max.  The step from the CPU's
+    gradients is measured beside it: Adam's first step is ~lr x sign(g),
+    so an element whose gradient is 0 up to the two devices' rounding can
+    land 2 lr apart.  The CPU's results are compared on the card; the CPU
+    copy of the weights is updated in place by the step."""
     t0 = time.perf_counter()
     model = build_model(cfg)
-    base = to_device(model.init(0, device="cuda"), "cpu")
+    params = to_device(model.init(0, device="cuda"), "cpu")
+    if cfg.family != "ssm":
+        params = unit_score_scale(params, cfg)
     opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=100)
 
     def loss_and_grads(p, dev):
@@ -3172,46 +3170,48 @@ def train_reference_check(torch, build_model, apply_updates, state_defs,
     def worst(a, b):
         return max(grad_rel(x, y.to("cuda")) for x, y in zip(a, b))
 
-    out = {}
-    for weights in (("unit",) if cfg.family == "ssm" else ("init", "unit")):
-        params = unit_score_scale(base, cfg) if weights == "unit" else base
-        loss_cpu, g_cpu = loss_and_grads(params, "cpu")
-        loss_card, g_card = loss_and_grads(to_device(params, "cuda"),
-                                           "cuda")
-        check(all(bool(torch.isfinite(g).all()) for g in g_card),
-              f"{label}: non-finite gradients on the card")
-        loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
-        grad_err = worst(g_card, g_cpu)
-        row = {"loss": loss_card, "loss_rel_err": loss_err,
-               "grad_rel_err": grad_err}
-        if weights == "unit":
-            card = step(copy_to(params, "cuda"), g_card, "cuda")
-            own_err = worst(card, step(copy_to(params, "cuda"), g_cpu,
-                                       "cuda"))
-            param_err = worst(card, step(params, g_card, "cpu"))
-            row.update(param_rel_err=param_err,
-                       param_rel_err_own_grads=own_err)
-            print(f"  {label}: loss {loss_card:.5f}; card vs CPU loss "
-                  f"{loss_err:.3e}, gradients {grad_err:.3e}, parameters "
-                  f"after the step {param_err:.3e} x max (tol {TRAIN_TOL}, "
-                  "unit score variance); from each device's own gradients "
-                  f"{own_err:.3e} (measured only)", flush=True)
-            check(max(loss_err, grad_err, param_err) <= TRAIN_TOL,
-                  f"{label}: card vs CPU loss {loss_err:.3e}, gradients "
-                  f"{grad_err:.3e}, parameters after the step "
-                  f"{param_err:.3e} (tol {TRAIN_TOL})")
-            del card
-        else:
-            print(f"  {label}: with the init's weights loss {loss_err:.3e}, "
-                  f"gradients {grad_err:.3e} x max (measured only)",
-                  flush=True)
-        out[weights] = row
-        del g_cpu, g_card, params
-        torch.cuda.empty_cache()
-    del base
+    t = time.perf_counter()
+    loss_cpu, g_cpu = loss_and_grads(params, "cpu")
+    cpu_s = time.perf_counter() - t     # the CPU's gradients and step
+    loss_card, g_card = loss_and_grads(to_device(params, "cuda"), "cuda")
+    check(all(bool(torch.isfinite(g).all()) for g in g_card),
+          f"{label}: non-finite gradients on the card")
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    grad_err = worst(g_card, g_cpu)
+    out = {"loss": loss_card, "loss_rel_err": loss_err,
+           "grad_rel_err": grad_err}
+    weights = ("the init's weights" if cfg.family == "ssm"
+               else "unit score variance")
+    if with_step:
+        card = step(copy_to(params, "cuda"), g_card, "cuda")
+        own_err = worst(card, step(copy_to(params, "cuda"), g_cpu, "cuda"))
+        t = time.perf_counter()
+        after = step(params, g_card, "cpu")
+        cpu_s += time.perf_counter() - t
+        param_err = worst(card, after)
+        del after, card
+        out.update(param_rel_err=param_err, param_rel_err_own_grads=own_err)
+        print(f"  {label}: loss {loss_card:.5f}; card vs CPU loss "
+              f"{loss_err:.3e}, gradients {grad_err:.3e}, parameters after "
+              f"the step {param_err:.3e} x max (tol {TRAIN_TOL}, {weights});"
+              f" from each device's own gradients {own_err:.3e} (measured "
+              "only)", flush=True)
+    else:
+        param_err = 0.0
+        print(f"  {label}: loss {loss_card:.5f}; card vs CPU loss "
+              f"{loss_err:.3e}, gradients {grad_err:.3e} x max (tol "
+              f"{TRAIN_TOL}, {weights})", flush=True)
+    check(max(loss_err, grad_err, param_err) <= TRAIN_TOL,
+          f"{label}: card vs CPU loss {loss_err:.3e}, gradients "
+          f"{grad_err:.3e}, parameters after the step {param_err:.3e} "
+          f"(tol {TRAIN_TOL})")
+    del g_cpu, g_card, params
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
-    print(f"  {label}: {out['seconds']:.1f} s", flush=True)
+    out["cpu_seconds"] = cpu_s
+    print(f"  {label}: {out['seconds']:.1f} s ({cpu_s:.1f} s of it the "
+          "CPU's gradients" + (" and step)" if with_step else ")"),
+          flush=True)
     return out
 
 
@@ -3391,18 +3391,20 @@ def run_training_phase(torch, kernel, ssd_kernel, get_config, build_model,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = run_bwd_timings(torch, kernel, attention_bwd_ref, lse_ref, sdpa)
     print(f"== phase 13c ({time.perf_counter() - t0:.1f} s): one train "
-          f"step at 2 layers, card against CPU "
+          f"step at {TRAIN_LAYERS} layer(s), card against CPU "
           f"(B {TRAIN_B}, T {TRAIN_T}, float32 activations): "
           + ", ".join(TRAIN_ARCHS) + "; at T " + str(TRAIN_SSM_T) + ": "
           + ", ".join(f"{a} ({n} layers)" for a, n in TRAIN_SSM),
           flush=True)
     steps_check = {}
     for arch in TRAIN_ARCHS:
-        cfg = two_layers(get_config(arch)).with_(dtype=torch.float32)
+        cfg = cut_depth(get_config(arch), TRAIN_LAYERS).with_(
+            dtype=torch.float32)
         steps_check[arch] = train_reference_check(
             torch, build_model, apply_updates, state_defs, tree_defs_init,
             SyntheticLMData, AdamWConfig, leaves, unflatten, cfg,
-            f"{arch} ({cfg.param_count():,} parameters)")
+            f"{arch} ({cfg.param_count():,} parameters)",
+            with_step=arch in TRAIN_STEP_ARCHS)
     for arch, n_layers in TRAIN_SSM:
         cfg = get_config(arch).with_(n_layers=n_layers, dtype=torch.float32)
         ssd_kernel.LAUNCHES = ssd_kernel.BWD_LAUNCHES = 0
@@ -3410,20 +3412,20 @@ def run_training_phase(torch, kernel, ssd_kernel, get_config, build_model,
             torch, build_model, apply_updates, state_defs, tree_defs_init,
             SyntheticLMData, AdamWConfig, leaves, unflatten, cfg,
             f"{arch} {n_layers} layers, T {TRAIN_SSM_T} "
-            f"({cfg.param_count():,} parameters)", seq=TRAIN_SSM_T)
-        passes = 1 if cfg.family == "ssm" else 2     # init, unit
+            f"({cfg.param_count():,} parameters)", seq=TRAIN_SSM_T,
+            with_step=arch in TRAIN_STEP_ARCHS)
         fwd, bwd = ssd_kernel.LAUNCHES, ssd_kernel.BWD_LAUNCHES
         print(f"  {arch}: SSD forward launches {fwd}, backward {bwd} "
-              f"({passes} gradient passes x {n_layers} layers)", flush=True)
-        check(fwd == 2 * passes * n_layers and bwd == passes * n_layers,
+              f"(one gradient pass x {n_layers} layers)", flush=True)
+        check(fwd == 2 * n_layers and bwd == n_layers,
               f"{arch}: SSD launches forward {fwd}, backward {bwd}; expected "
-              f"{2 * passes * n_layers} and {passes * n_layers}")
+              f"{2 * n_layers} and {n_layers}")
         steps_check[arch].update(ssd_fwd_launches=fwd, ssd_bwd_launches=bwd)
     print(f"== phase 13d ({time.perf_counter() - t0:.1f} s): restarts "
           "(stablelm-1.6b, 2 layers at full width, checkpoints every 2 "
           "steps) and the small LM on the card", flush=True)
     restart = restart_check(torch, train_mod,
-                            two_layers(get_config("stablelm-1.6b")),
+                            cut_depth(get_config("stablelm-1.6b")),
                             ROOT / "build" / "ckpt_restart")
     learns = small_lm_learns(torch, build_model, steps_mod.make_train_step,
                              AdamWConfig, state_defs, tree_defs_init,
@@ -3478,7 +3480,8 @@ def run_training_phase(torch, kernel, ssd_kernel, get_config, build_model,
 # ---------------------------------------------------------------------------
 #: 14b: fit_cell's partitions (FULL_BATCH / 2, / 4 and / 8 rows of FULL_SEQ
 #: tokens, one microbatch) and the steps timed at each after one warm-up
-FIT_PARTITIONS, FIT_STEPS = 3, 3
+#: (13e's and 13h's steps spread by ~1%, so one is read)
+FIT_PARTITIONS, FIT_STEPS = 3, 1
 #: 14b: the card as Lotaru's local node
 LOCAL_NODE = "local-h100"
 def dryrun_cut(arch, measured, smi):
@@ -3652,11 +3655,329 @@ def run_dryrun_phase(torch, get_config, training, smi):
     print(f"== phase 14b ({time.time() - t0:.1f} s): LotaruML from the "
           f"card's steps ({FIT_PARTITIONS} partitions: {FULL_BATCH // 2}, "
           f"{FULL_BATCH // 4}, {FULL_BATCH // 8} rows x {FULL_SEQ}; median "
-          f"of {FIT_STEPS} steps after a warm-up)", flush=True)
+          f"of {FIT_STEPS} step(s) after a warm-up)", flush=True)
     ml = lotaru_ml_on_card(torch, records,
                            {a: get_config(a) for a in measured}, measured,
                            smi)
     return {"cuts": cuts, "lotaru_ml": ml, "seconds": time.time() - t0}
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the sharded train step on one card (two gloo processes)
+# ---------------------------------------------------------------------------
+P16_ARCH, P16_SSM = "stablelm-1.6b", ("mamba2-1.3b", 2)
+P16_SEQ, P16_BATCH = 4096, 4
+P16_TOL = 3e-2            # the models' bar at bf16 activations
+P16_TIMEOUT = 240         # seconds for the two ranks, then they are ended
+
+
+def p16_opt():
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=FULL_STEPS)
+
+
+def p16_config(get_config, arch, n_layers=0):
+    cfg = get_config(arch)
+    return cfg.with_(n_layers=n_layers) if n_layers else cfg
+
+
+def p16_counts(kernel, ssd_kernel) -> dict:
+    return {"flash_fwd": kernel.LAUNCHES, "flash_bwd": kernel.BWD_LAUNCHES,
+            "ssd_fwd": ssd_kernel.LAUNCHES, "ssd_bwd": ssd_kernel.BWD_LAUNCHES}
+
+
+def p16_reset(kernel, ssd_kernel) -> None:
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    ssd_kernel.LAUNCHES = ssd_kernel.BWD_LAUNCHES = 0
+
+
+def p16_expected(cfg) -> dict:
+    """A one-microbatch step's launches of each kernel (full remat: the
+    forward twice a layer, the backward once)."""
+    attn = cfg.family != "ssm"
+    n = cfg.n_layers
+    return {"flash_fwd": 2 * n if attn else 0, "flash_bwd": n if attn else 0,
+            "ssd_fwd": 0 if attn else 2 * n, "ssd_bwd": 0 if attn else n}
+
+
+def p16_step(torch, step, params, state, batch):
+    """One step, timed to its end on the card: (params, state, metrics,
+    ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batch)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    return params, state, m, 1e3 * (time.perf_counter() - t0)
+
+
+def traced_step(trace_syncs, fn):
+    """``(fn(), sites, native)``: ``fn()`` under the sync trace
+    (``sites``: the syncs of this thread, by site) with the process's
+    stderr read meanwhile: gloo's worker threads sync on CUDA tensors
+    outside Python, where the detector's warning goes to stderr; ``native``
+    counts those warnings."""
+    import tempfile
+    from repro_torch.analysis.syncs import SYNC_MESSAGE
+    with tempfile.TemporaryFile(mode="w+") as f:
+        sys.stderr.flush()
+        saved = os.dup(2)
+        os.dup2(f.fileno(), 2)
+        try:
+            out, sites = trace_syncs(fn)
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+        f.seek(0)
+        native = f.read().count(SYNC_MESSAGE)
+    return out, sites, native
+
+
+def sharded_worker(rank, device, runs, ref_root, out_dir):
+    """16b/16c, one rank of the (2, 1) ("data", "model") mesh on the one
+    card: for each (label, arch, n_layers) of ``runs``, the global
+    parameters drawn from seed 0 with this rank's slice kept, this rank's
+    rows of the global batch, one sharded step (timed under the sync
+    trace, its kernel launches and collective bytes counted) held to the
+    one-device step's gradient slices and loss under ``ref_root /
+    label``.  Writes ``rank<r>.json`` to ``out_dir``."""
+    from collections import Counter
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.analysis.syncs import trace_syncs
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_defs_to_specs
+    from repro_torch.optim import state_defs
+    from repro_torch.optim.adamw import leaves
+
+    mesh = make_mesh((2, 1), ("data", "model"), device=device)
+    rules = make_rules(mesh)
+    opt = p16_opt()
+    out = {}
+    for label, arch, n_layers in runs:
+        cfg = p16_config(get_config, arch, n_layers)
+        model = build_model(cfg)
+        sdefs = state_defs(model.param_defs, opt)
+        psh = sharding.tree_shardings(model.param_specs(rules), mesh)
+        ssh = sharding.tree_shardings(tree_defs_to_specs(sdefs, rules), mesh)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = sharding.init_local(model.param_defs, gen, device, psh)
+        state = sharding.init_local(sdefs, None, device, ssh)
+        batch = sharding.local_batch(
+            SyntheticLMData(cfg, seq=P16_SEQ, global_batch=P16_BATCH, seed=0,
+                            device=device).batch(0), mesh, rules)
+        step = make_train_step(model, opt, rules=rules, mesh=mesh,
+                               keep_grads=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p16_reset(kernel, ssd_kernel)
+        sharding.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (params, state, m), sites, native = traced_step(
+            trace_syncs, lambda: step(params, state, batch))
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = p16_counts(kernel, ssd_kernel)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        collective = {"bytes": dict(sharding.BYTES),
+                      "calls": dict(sharding.CALLS)}
+        gnorm = float(m["grad_norm"])
+        grads = leaves(m["grads"])
+        rows = batch["tokens"].shape[0]
+        del m, params, state, step, batch
+        ref, manifest = restore(ref_root / label, device=device,
+                                shardings={"grads": psh})
+        errs = [grad_rel(g, r) for g, r in zip(grads, leaves(ref["grads"]))]
+        ref_loss = manifest["metadata"]["loss"]
+        local_gb = sum(g.numel() * g.element_size() for g in grads) / 1e9
+        out[label] = {
+            "arch": arch, "n_layers": cfg.n_layers, "mesh": mesh.shape,
+            "coords": list(mesh.coords), "rows": rows,
+            "loss": loss, "ref_loss": ref_loss,
+            "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+            "grad_rel_err": max(errs), "grad_norm": gnorm,
+            "local_grad_gb": local_gb,
+            "step_ms": ms, "peak_memory_gb": peak_gb,
+            "collective": collective, "launches": launches,
+            "expected_launches": p16_expected(cfg),
+            "syncs": len(sites),
+            "sync_sites": {str(k): v for k, v in
+                           Counter(sites).most_common()},
+            "gloo_thread_syncs": native}
+        del grads, ref
+        torch.cuda.empty_cache()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def one_device_steps(torch, kernel, ssd_kernel, get_config, label, arch,
+                     n_layers, ref_dir, both):
+    """The one-device step of ``arch`` (seed 0, the global batch of
+    P16_BATCH x P16_SEQ): without rules and through the (1, 1) mesh with
+    ``make_rules`` (``both``: held equal bit for bit in loss, gradients
+    and updated weights), or through the (1, 1) mesh alone.  Saves the
+    last step's gradients and loss under ``ref_dir`` (the checkpoint
+    format) for the ranks of 16b/16c; returns its row."""
+    from repro_torch.checkpoint import save
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_defs_init
+    from repro_torch.optim import state_defs
+    from repro_torch.optim.adamw import leaves, unflatten
+
+    cfg = p16_config(get_config, arch, n_layers)
+    model = build_model(cfg)
+    opt = p16_opt()
+    sdefs = state_defs(model.param_defs, opt)
+    batch = SyntheticLMData(cfg, seq=P16_SEQ, global_batch=P16_BATCH, seed=0,
+                            device="cuda").batch(0)
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    ways = [("no rules", {})] if both else []
+    ways.append(("(1, 1) mesh", {"rules": make_rules(mesh), "mesh": mesh}))
+    runs = {}
+    for name, kw in ways:
+        params = model.init(0, device="cuda")
+        state = tree_defs_init(sdefs, None, "cuda")
+        step = make_train_step(model, opt, keep_grads=True, **kw)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p16_reset(kernel, ssd_kernel)
+        params, state, m, ms = p16_step(torch, step, params, state, batch)
+        runs[name] = {"loss": m["loss"], "grad_norm": m["grad_norm"],
+                      "grads": leaves(m["grads"]), "params": leaves(params),
+                      "ms": ms, "launches": p16_counts(kernel, ssd_kernel),
+                      "peak_memory_gb": torch.cuda.max_memory_allocated()
+                      / 1e9}
+        del params, state, m, step
+    expected = p16_expected(cfg)
+    for name, r in runs.items():
+        print(f"  {label} {name}: loss {float(r['loss']):.6f}, grad norm "
+              f"{float(r['grad_norm']):.6f}, step {r['ms']:.1f} ms, peak "
+              f"{r['peak_memory_gb']:.2f} GB, launches {r['launches']}",
+              flush=True)
+        check(r["launches"] == expected,
+              f"16 {label} {name}: launches {r['launches']}, expected "
+              f"{expected}")
+    row = {name: {k: (float(v) if k in ("loss", "grad_norm") else v)
+                  for k, v in r.items() if k not in ("grads", "params")}
+           for name, r in runs.items()}
+    last = runs["(1, 1) mesh"]
+    if both:
+        a = runs["no rules"]
+        same = (torch.equal(a["loss"], last["loss"])
+                and torch.equal(a["grad_norm"], last["grad_norm"])
+                and all(torch.equal(x, y) for x, y in
+                        zip(a["grads"] + a["params"],
+                            last["grads"] + last["params"])))
+        print(f"  {label}: the (1, 1) mesh step equals the step without "
+              f"rules bit for bit (loss, grad norm, {len(a['grads'])} "
+              f"gradients, the updated weights): {same}", flush=True)
+        check(same, f"16a {label}: the (1, 1) mesh step differs from the "
+                    "step without rules")
+        row["bit_for_bit"] = same
+        del a
+    t0 = time.perf_counter()
+    save(ref_dir, 0, {"grads": unflatten(model.param_defs, last["grads"])},
+         metadata={"loss": float(last["loss"])})
+    row["ref_save_s"] = time.perf_counter() - t0
+    del runs, last
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
+    """Phase 16: 16a stablelm-1.6b's one-device step without rules and
+    through the (1, 1) mesh, bit for bit; 16b the same step on a (2, 1)
+    mesh of two gloo processes sharing the card, each rank's gradient
+    slices and the loss within P16_TOL x max of 16a's; 16c mamba2-1.3b at
+    2 layers, the (2, 1) mesh against its (1, 1) step."""
+    import shutil
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "phase16"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "out").mkdir(parents=True)
+    cfg = get_config(P16_ARCH)
+    print(f"== phase 16a: {P16_ARCH} ({cfg.param_count():,} parameters, "
+          f"{cfg.n_layers} layers), one step of {P16_BATCH} x {P16_SEQ} "
+          "tokens in one microbatch (fp32 weights and AdamW state, bf16 "
+          "activations, full remat): without rules, then through the "
+          "(1, 1) mesh and make_rules", flush=True)
+    one = {P16_ARCH: one_device_steps(torch, kernel, ssd_kernel, get_config,
+                                      P16_ARCH, P16_ARCH, 0,
+                                      work / "ref" / P16_ARCH, both=True)}
+    arch, n = P16_SSM
+    print(f"  ({time.perf_counter() - t0:.1f} s) {arch} at {n} layers "
+          "through the (1, 1) mesh, the reference of 16c", flush=True)
+    one[arch] = one_device_steps(torch, kernel, ssd_kernel, get_config,
+                                 arch, arch, n, work / "ref" / arch,
+                                 both=False)
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_reserved() / 1e9
+    t_spawn = time.perf_counter()
+    print(f"== phase 16b/16c ({t_spawn - t0:.1f} s): {P16_ARCH} and {arch} "
+          f"({n} layers) on a (2, 1) (\"data\", \"model\") mesh of two "
+          "gloo processes sharing the card; each rank's gradient slices "
+          f"and the loss within {P16_TOL} x max of the one-device step "
+          f"(this process holds {held_gb:.2f} GB of the card)", flush=True)
+    spawn(sharded_worker, 2,
+          ([(P16_ARCH, P16_ARCH, 0), (arch, arch, n)], work / "ref",
+           work / "out"),
+          rendezvous=work / "rendezvous", backend="gloo", device="cuda",
+          timeout_s=P16_TIMEOUT)
+    spawn_s = time.perf_counter() - t_spawn
+    ranks = [json.loads((work / "out" / f"rank{r}.json").read_text())
+             for r in range(2)]
+    shutil.rmtree(work)
+    out = {"one_device": one, "ranks": ranks, "spawn_seconds": spawn_s,
+           "card": smi}
+    for label in (P16_ARCH, arch):
+        ms_one = one[label]["(1, 1) mesh"]["ms"]
+        print(f"  {label}: {smi}; one-device step {ms_one:.1f} ms, peak "
+              f"{one[label]['(1, 1) mesh']['peak_memory_gb']:.2f} GB",
+              flush=True)
+        for r, rank in enumerate(ranks):
+            x = rank[label]
+            moved = ", ".join(f"{k} {v / 1e9:.3f} GB in "
+                              f"{x['collective']['calls'][k]} calls"
+                              for k, v in x["collective"]["bytes"].items())
+            print(f"    rank {r} {x['coords']} ({x['rows']} rows): loss "
+                  f"{x['loss']:.6f}, loss {x['loss_rel_err']:.2e} and "
+                  f"gradient slices {x['grad_rel_err']:.2e} x max off the "
+                  f"one-device step (tol {P16_TOL}); step "
+                  f"{x['step_ms']:.1f} ms; peak "
+                  f"{x['peak_memory_gb']:.2f} GB; collectives: {moved}; "
+                  f"syncs in the step: {x['syncs']} on the step's "
+                  f"thread ({x['sync_sites']}), {x['gloo_thread_syncs']} on "
+                  f"gloo's threads (measured only); launches "
+                  f"{x['launches']}",
+                  flush=True)
+            check(x["loss_rel_err"] <= P16_TOL and x["grad_rel_err"] <= P16_TOL,
+                  f"16 {label} rank {r}: loss {x['loss_rel_err']:.3e}, "
+                  f"gradients {x['grad_rel_err']:.3e} (tol {P16_TOL})")
+            check(x["launches"] == x["expected_launches"],
+                  f"16 {label} rank {r}: launches {x['launches']}, "
+                  f"expected {x['expected_launches']}")
+        check(ranks[0][label]["loss"] == ranks[1][label]["loss"],
+              f"16 {label}: the ranks report different losses")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 16: {out['seconds']:.1f} s (the two ranks "
+          f"{spawn_s:.1f} s)", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3760,6 +4081,10 @@ def main() -> int:
                             text=True, check=True).stdout.strip().splitlines()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc {nvcc_v[-1]}, python {sys.version.split()[0]}", flush=True)
+    print(f"host: {len(os.sched_getaffinity(0))} CPUs usable of "
+          f"{os.cpu_count()}, torch threads {torch.get_num_threads()}, load "
+          f"average {' '.join(f'{x:.2f}' for x in os.getloadavg())}",
+          flush=True)
 
     print("== phase 2: build (one nvcc per source, started together)",
           flush=True)
@@ -4055,6 +4380,20 @@ def main() -> int:
           "traced after their phases' timed work)", flush=True)
     sync_report = run_sync_phase(sync_log, smi)
 
+    print("== phase 16: the sharded train step on the card (16a the "
+          "(1, 1) mesh, 16b/16c a (2, 1) mesh of two gloo processes)",
+          flush=True)
+    sharded = run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi)
+    ssm_arch = P16_SSM[0]
+
+    def p16_launches(label, key):
+        one = sharded["one_device"][label]
+        return {f"{label} one-device steps (16)":
+                    sum(r["launches"][key] for name, r in one.items()
+                        if isinstance(r, dict) and "launches" in r),
+                f"{label} sharded step, 2 ranks (16)":
+                    sum(r[label]["launches"][key] for r in sharded["ranks"])}
+
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
     main_row = next(r for r in rows if r["shape"] == "serve decode")
@@ -4063,11 +4402,13 @@ def main() -> int:
                      **{a: r["flash_launches"] for a, r in configs12.items()},
                      ENCDEC_ARCH: encdec_run["flash_launches"],
                      "stablelm-1.6b training (13e)":
-                         training["full_width"]["flash_fwd_launches"]}
+                         training["full_width"]["flash_fwd_launches"],
+                     **p16_launches(P16_ARCH, "flash_fwd")}
     ssd_by_path = {"mamba2-1.3b": ssd_launches,
                    "zamba2-1.2b": configs["zamba2-1.2b"]["ssd_launches"],
                    "mamba2-1.3b training (13h)":
-                       training["ssm_full_width"]["ssd_fwd_launches"]}
+                       training["ssm_full_width"]["ssd_fwd_launches"],
+                   **p16_launches(ssm_arch, "ssd_fwd")}
     entry = {"name": "flash_attention_fwd", "route": "cuda",
              "source": KERNEL_SOURCE, "replaces": REPLACES,
              "replaces_function": "_flash_fwd_kernel",
@@ -4101,9 +4442,11 @@ def main() -> int:
                  "source": BWD_SOURCE, "replaces": REPLACES,
                  "replaces_function": "the gradient of _flash_fwd_kernel",
                  "gradient_of": BWD_GRADIENT_OF,
-                 "launches": full["flash_bwd_launches"],
+                 "launches": full["flash_bwd_launches"]
+                 + sum(p16_launches(P16_ARCH, "flash_bwd").values()),
                  "launches_by_path": {"stablelm-1.6b training (13e)":
-                                      full["flash_bwd_launches"]},
+                                      full["flash_bwd_launches"],
+                                      **p16_launches(P16_ARCH, "flash_bwd")},
                  "max_abs_err": bwd_row["max_abs_err"],
                  "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
                  "bound_ms": bwd_row["bound_ms"],
@@ -4122,9 +4465,11 @@ def main() -> int:
         "replaces": SSD_REPLACES,
         "replaces_function": "the gradient of _ssd_kernel",
         "gradient_of": SSD_BWD_GRADIENT_OF,
-        "launches": ssm_full["ssd_bwd_launches"],
+        "launches": ssm_full["ssd_bwd_launches"]
+        + sum(p16_launches(ssm_arch, "ssd_bwd").values()),
         "launches_by_path": {"mamba2-1.3b training (13h)":
-                             ssm_full["ssd_bwd_launches"]},
+                             ssm_full["ssd_bwd_launches"],
+                             **p16_launches(ssm_arch, "ssd_bwd")},
         "max_abs_err": ssd_bwd_row["max_abs_err"],
         "ms": ssd_bwd_row["ms"], "plain_ms": ssd_bwd_row["plain_ms"],
         "bound_ms": ssd_bwd_row["bound_ms"],
@@ -4151,6 +4496,7 @@ def main() -> int:
               "phase12": {"moe": configs12, "encdec": encdec_run,
                           "kv_quant": kv_quant_run, "timings": rows12},
               "training": training, "dryrun": dryrun, "syncs": sync_report,
+              "sharded": sharded,
               "card": smi, "seconds": time.time() - t_start}
     out_dir = ROOT / "build" / "reports"
     out_dir.mkdir(parents=True, exist_ok=True)

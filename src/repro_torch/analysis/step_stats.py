@@ -25,8 +25,8 @@ dry run, where the kernels take their counting route,
   at once (storages freed are released through weakref finalizers);
   tensors that existed before (parameters, optimizer state, caches,
   the batch) are not counted.
-* ``collective_bytes``: 0 on one card.  The census of collectives comes
-  with more than one device (ROADMAP.md, Queue A item 6).
+* ``collective_bytes``: 0 on one card.  The census of collectives in
+  the dry run is ROADMAP.md Queue A item 5.
 """
 from __future__ import annotations
 

@@ -165,7 +165,7 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="single", choices=["single"],
                     help="one card (more devices: ROADMAP.md, Queue A "
-                         "item 6)")
+                         "item 5)")
     ap.add_argument("--out", default=str(ART_DIR))
     args = ap.parse_args(argv)
 

@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import AxisRules, ModelConfig, abstract_leaf
 
 VLM_VISION_TOKENS = 1024     # patch-embedding stub length inside the seq budget
 AUDIO_FRAME_RATIO = 1.0      # encoder frames per "seq_len" unit (stub frontend)
@@ -43,16 +43,32 @@ def cell_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
     return True, ""
 
 
-def input_specs(cfg: ModelConfig, shape: ShapeSpec, *,
-                device="meta") -> dict:
+def _dp_batch_spec(rules: AxisRules, global_batch: int, mesh) -> tuple:
+    """Shard batch over dp axes when divisible, else replicate."""
+    dp = 1
+    for a in rules.dp_axes:
+        dp *= mesh.shape[a]
+    if dp > 1 and global_batch % dp == 0:
+        axes = rules.dp_axes if len(rules.dp_axes) > 1 else rules.dp_axes[0]
+        return (axes,)
+    return (None,)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh=None,
+                rules: AxisRules | None = None, *, device="meta") -> dict:
     """Stand-ins (uninitialised tensors, on ``meta`` unless asked) for the
     step's *batch* argument of a cell, with the JAX package's keys, shapes
-    and dtypes.  The JAX package's version also takes a mesh and sharding
-    rules; one card has neither, so they wait for more than one device
-    (ROADMAP.md, Queue A item 6)."""
+    and dtypes.  With a ``mesh`` and ``rules`` each is a
+    ``common.Abstract`` (a ``meta`` tensor of the global shape, its spec
+    and one rank's local shape): the batch dim over the dp axes where
+    they divide it (``_dp_batch_spec``), every other dim replicated."""
     B, T = shape.global_batch, shape.seq
+    b_axes = None if mesh is None else _dp_batch_spec(rules, B, mesh)[0]
 
     def spec(shp, dtype):
+        if mesh is not None:
+            return abstract_leaf(shp, dtype,
+                                 (b_axes,) + (None,) * (len(shp) - 1), mesh)
         return torch.empty(shp, dtype=dtype, device=device)
 
     if shape.kind == "decode":

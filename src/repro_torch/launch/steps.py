@@ -5,6 +5,19 @@ jit.  ``make_train_step`` supports microbatched gradient accumulation
 (grads averaged into fp32, as the JAX package's scan over microbatches)
 and a gradient dtype.  The train step updates the parameters and the
 optimizer state in place (the JAX package donates both).
+
+On a mesh of more than one process (``launch.mesh.make_mesh``) the step
+is sharded, with the collectives GSPMD inserts for the JAX package
+written out (``launch.sharding``): parameters and AdamW state live as
+each rank's slice of ``model.param_specs(rules)``; the step gathers every
+parameter whole (leaf by leaf, before the forward: FSDP's gather, not
+layer by layer), runs the forward and backward on this rank's rows of the
+batch, sums the gradients over the dp axes and cuts them to the rank's
+slice, and updates the slices.  Ranks along a non-dp axis ("model")
+compute the same rows on the same gathered weights; tensor-parallel
+compute over "model" is ROADMAP.md Queue A item 6.  The one-device step
+is this step on a mesh of one process, where every collective has no
+other rank and does nothing.
 """
 from __future__ import annotations
 
@@ -12,21 +25,26 @@ from typing import Callable
 
 import torch
 
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import ONE_PROCESS, make_rules
 from repro_torch.models import Model
+from repro_torch.models.common import AxisRules
 from repro_torch.optim import AdamWConfig, apply_updates
 from repro_torch.optim.adamw import leaves, unflatten
 
 
-def make_train_step(model: Model, opt_cfg: AdamWConfig,
-                    microbatches: int = 1, grad_dtype=None) -> Callable:
-    """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``: loss and gradients of ``model.loss`` (each batch leaf
-    split into ``microbatches`` along dim 0, each microbatch's gradients
-    divided by their count and summed in fp32), cast to ``grad_dtype``
-    where given, then one AdamW step.  metrics: "loss", "xent", "aux"
-    (means over microbatches), "grad_norm", "lr"."""
-    def grad_fn(params, flat_p, batch):
-        loss, metrics = model.loss(params, batch)
+def _grads(model: Model, params, flat_p, batch, microbatches: int,
+           grad_dtype, count=None):
+    """(loss, metrics, grads): ``model.loss`` of ``batch`` and its
+    gradients with respect to ``flat_p`` (the leaves of ``params``), each
+    batch leaf split into ``microbatches`` along dim 0, each microbatch's
+    gradients divided by their count and summed in fp32, cast to
+    ``grad_dtype`` where given; loss and metrics are the means over the
+    microbatches.  ``count(mb)``, where given, is the token count each
+    microbatch's summed xent is divided by (``Model.loss``)."""
+    def grad_fn(mb):
+        kw = {} if count is None else {"count": count(mb)}
+        loss, metrics = model.loss(params, mb, **kw)
         # every leaf must reach the loss: autograd raises on one that does
         # not (a kernel with no backward would leave it so), rather than
         # training it with a zero gradient
@@ -36,50 +54,150 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)
 
+    if microbatches == 1:
+        return grad_fn(batch)
+    parts = {k: torch.chunk(v, microbatches, dim=0) for k, v in batch.items()}
+    if any(len(v) != microbatches
+           or v[0].shape[0] * microbatches != batch[k].shape[0]
+           for k, v in parts.items()):
+        raise ValueError(f"batch rows do not split into {microbatches} "
+                         "microbatches")
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for p in flat_p]
+    losses, metricss = [], []
+    for i in range(microbatches):
+        loss, metrics, grads = grad_fn({k: v[i] for k, v in parts.items()})
+        for a, g in zip(acc, grads):
+            a.add_(g / torch.tensor(microbatches, dtype=g.dtype,
+                                    device=g.device))
+        losses.append(loss)
+        metricss.append(metrics)
+        del grads
+    loss = torch.stack(losses).mean()
+    metrics = {k: torch.stack([m[k] for m in metricss]).mean()
+               for k in metricss[0]}
+    return loss, metrics, acc
+
+
+def _shardings_like(params, tree_sh, mesh):
+    """``tree_sh`` over the keys of ``params``: a leaf the model does not
+    define is replicated (and autograd raises for it, as for any leaf that
+    does not reach the loss)."""
+    if isinstance(params, dict):
+        sub = tree_sh if isinstance(tree_sh, dict) else {}
+        return {k: _shardings_like(v, sub.get(k), mesh)
+                for k, v in params.items()}
+    if isinstance(tree_sh, sharding.Sharding):
+        return tree_sh
+    return sharding.Sharding(mesh, (None,) * params.dim())
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig,
+                    microbatches: int = 1, grad_dtype=None,
+                    rules: AxisRules | None = None, mesh=None, *,
+                    keep_grads: bool = False) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: loss and gradients of ``model.loss`` (each batch leaf
+    split into ``microbatches`` along dim 0, each microbatch's gradients
+    divided by their count and summed in fp32), cast to ``grad_dtype``
+    where given, then one AdamW step.  metrics: "loss", "xent", "aux"
+    (means over microbatches), "grad_norm", "lr", and with
+    ``keep_grads`` "grads", the gradient tree the update used.
+
+    The step is sharded over ``mesh`` (module docstring; default
+    ``launch.mesh.ONE_PROCESS``; ``rules`` default to
+    ``launch.mesh.make_rules(mesh)``): ``params`` and ``opt_state`` are
+    this rank's slices (``launch.sharding.init_local``), ``batch`` is this
+    rank's rows of the global batch (``launch.sharding.local_batch``,
+    microbatch by microbatch), each microbatch's xent is divided by the
+    token count of the whole microbatch (its ``sum(mask)`` summed over the
+    dp axes), and the metrics are the one-device step's (loss and xent
+    summed over the dp axes; "grads" this rank's slices).  On a mesh of
+    one process every slice is the whole leaf and no collective runs: it
+    is the one-device step.  Raises for a config with MoE layers where the
+    dp axes hold more than one rank, and for int8 AdamW state on more than
+    one process."""
+    mesh = mesh or ONE_PROCESS
+    rules = rules or make_rules(mesh)
+    summed = sharding.dp_axes(mesh, rules)
+    if model.cfg.moe is not None and summed:
+        raise NotImplementedError(
+            f"{model.cfg.arch} has MoE layers, whose capacity and "
+            "load-balancing loss are computed over the batch's groups: a "
+            f"batch split over the dp axes {summed} would drop other "
+            "tokens.  MoE over groups with an all-to-all is ROADMAP.md "
+            "Queue A item 4; on a (1, k) mesh MoE runs")
+    if opt_cfg.state_dtype == "int8" and mesh.size > 1:
+        raise NotImplementedError(
+            "int8 AdamW state is coded in blocks of the flattened whole "
+            "leaf, which a rank's slice does not hold; use fp32 or bf16 "
+            "state on a mesh")
+    tree_sh = sharding.tree_shardings(model.param_specs(rules), mesh)
+
+    def count(mb):
+        labels = mb["labels"]
+        mask = mb.get("mask")
+        n = (torch.full((), float(labels.numel()), dtype=torch.float32,
+                        device=labels.device) if mask is None
+             else torch.sum(mask.float()))
+        return sharding.all_reduce(n, summed, mesh)
+
     def train_step(params, opt_state, batch):
-        flat_p = leaves(params)
-        for p in flat_p:
+        flat_local = leaves(params)
+        flat_sh = leaves(_shardings_like(params, tree_sh, mesh))
+        full = [sharding.gather(p, sh) for p, sh in zip(flat_local, flat_sh)]
+        for p in full:
             p.requires_grad_(True)
-        if microbatches > 1:
-            parts = {k: torch.chunk(v, microbatches, dim=0)
-                     for k, v in batch.items()}
-            if any(len(v) != microbatches
-                   or v[0].shape[0] * microbatches != batch[k].shape[0]
-                   for k, v in parts.items()):
-                raise ValueError(f"batch rows do not split into "
-                                 f"{microbatches} microbatches")
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in flat_p]
-            losses, metricss = [], []
-            for i in range(microbatches):
-                loss, metrics, grads = grad_fn(
-                    params, flat_p, {k: v[i] for k, v in parts.items()})
-                for a, g in zip(acc, grads):
-                    a.add_(g / torch.tensor(microbatches, dtype=g.dtype,
-                                            device=g.device))
-                losses.append(loss)
-                metricss.append(metrics)
-                del grads
-            grads = acc
-            loss = torch.stack(losses).mean()
-            metrics = {k: torch.stack([m[k] for m in metricss]).mean()
-                       for k in metricss[0]}
-        else:
-            loss, metrics, grads = grad_fn(params, flat_p, batch)
+        # a microbatch not split over dp divides by its own count
+        loss, metrics, grads = _grads(model, unflatten(params, full), full,
+                                      batch, microbatches, grad_dtype,
+                                      count if summed else None)
+        for p in flat_local:
+            p.requires_grad_(False)
+        del full
+        grads = list(grads)
+        local = []
+        for i, sh in enumerate(flat_sh):
+            local.append(sharding.reduce_grad(grads[i], sh, summed))
+            grads[i] = None        # the whole gradient goes now
+        if summed:
+            sums = sharding.all_reduce(torch.stack([loss, metrics["xent"]]),
+                                       summed, mesh)
+            loss, metrics = sums[0], {**metrics, "xent": sums[1]}
+        gnorm = torch.sqrt(sharding.sum_squares(local, flat_sh))
+        grads = unflatten(params, local)
         params, opt_state, opt_metrics = apply_updates(
-            params, unflatten(params, grads), opt_state, opt_cfg)
+            params, grads, opt_state, opt_cfg, gnorm=gnorm)
+        if keep_grads:
+            opt_metrics["grads"] = grads
         return params, opt_state, {**metrics, **opt_metrics, "loss": loss}
 
     return train_step
 
 
-def make_prefill_step(model: Model) -> Callable:
+def _unsharded(mesh, what: str) -> None:
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"{what} on a mesh of {mesh.size} processes: serving on a mesh "
+            "is ROADMAP.md Queue A item 7 (the cache specs are ported, "
+            "Model.cache_specs); serve on a mesh of one process")
+
+
+def make_prefill_step(model: Model, mesh=None) -> Callable:
+    """``prefill_step(params, batch, caches)``; raises on a mesh of more
+    than one process."""
+    _unsharded(mesh, "prefill")
+
     def prefill_step(params, batch, caches):
         return model.prefill(params, batch, caches)
     return prefill_step
 
 
-def make_decode_step(model: Model) -> Callable:
+def make_decode_step(model: Model, mesh=None) -> Callable:
+    """``decode_step(params, batch, caches, cache_index)``; raises on a
+    mesh of more than one process."""
+    _unsharded(mesh, "decode")
+
     def decode_step(params, batch, caches, cache_index: int):
         logits, caches = model.decode(params, batch, caches, cache_index)
         # torch.argmax returns the first maximal index, as jnp.argmax does

@@ -12,9 +12,10 @@ card):
   * straggler watch: each step's wall time (ending in a synchronize on the
     card) against a predictive envelope (mean + k * sigma); slow steps are
     counted.
-
-The JAX package's elastic restart onto another mesh needs more than one
-device (ROADMAP.md, Queue A item 5).
+  * elastic restart: on a ``mesh`` of more than one process every rank
+    runs ``train`` (the sharded step of ``launch.steps``); checkpoints
+    hold whole arrays, so a run resumes on a mesh of another shape, each
+    rank reading only its slices.
 """
 from __future__ import annotations
 
@@ -27,9 +28,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.data import SyntheticLMData
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import make_rules
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model
-from repro_torch.models.common import ModelConfig, is_def, tree_defs_init
+from repro_torch.models.common import (AxisRules, ModelConfig, is_def,
+                                       tree_defs_init, tree_defs_to_specs)
 from repro_torch.optim import AdamWConfig, state_defs
 
 
@@ -58,6 +62,7 @@ def _cast_like_defs(tree, defs):
 
 def train(cfg: ModelConfig, *, steps: int, seq: int, global_batch: int,
           ckpt_dir: str | Path | None = None, ckpt_every: int = 50,
+          mesh=None, rules: AxisRules | None = None,
           opt_cfg: AdamWConfig | None = None,
           fail_at_step: int | None = None,
           step_time_envelope: tuple[float, float] | None = None,
@@ -66,30 +71,52 @@ def train(cfg: ModelConfig, *, steps: int, seq: int, global_batch: int,
           device=None) -> TrainReport:
     """One training run on ``device`` (resumes from ``ckpt_dir`` if a
     checkpoint exists there).  ``microbatches`` splits each global batch
-    for gradient accumulation (``make_train_step``)."""
-    dev = resolve_device(device)
+    for gradient accumulation (``make_train_step``).
+
+    On a ``mesh`` of more than one process (``launch.mesh.make_mesh``;
+    ``rules`` default to ``make_rules(mesh)``) every rank calls ``train``
+    and computes on ``mesh.device``: each draws the global initial
+    parameters from the one seed, leaf by leaf, and keeps its slice
+    (``sharding.init_local``), draws each global batch and keeps its rows
+    (``sharding.local_batch``), and saves and restores its slices of the
+    one checkpoint.  ``losses`` and ``final_step`` are the same on every
+    rank; ``params`` are the rank's slices."""
+    sharded = mesh is not None and mesh.size > 1
+    dev = mesh.device if sharded else resolve_device(device)
     model = build_model(cfg)
     opt_cfg = opt_cfg or AdamWConfig(lr=1e-3, warmup_steps=20,
                                      total_steps=steps)
     data = SyntheticLMData(cfg, seq=seq, global_batch=global_batch,
                            seed=seed, device=dev)
-    step_fn = make_train_step(model, opt_cfg, microbatches=microbatches)
+    step_fn = make_train_step(model, opt_cfg, microbatches=microbatches,
+                              rules=rules, mesh=mesh)
     sdefs = state_defs(model.param_defs, opt_cfg)
+    shardings = None
+    if sharded:
+        rules = rules or make_rules(mesh)
+        shardings = sharding.tree_shardings(
+            {"params": model.param_specs(rules),
+             "opt": tree_defs_to_specs(sdefs, rules)}, mesh)
 
     start_step = 0
     params = opt_state = None
     ckpt = None
     if ckpt_dir is not None:
-        ckpt = AsyncCheckpointer(ckpt_dir)
+        ckpt = AsyncCheckpointer(ckpt_dir, shardings=shardings)
         if latest_step(ckpt_dir) is not None:
-            state, manifest = restore(ckpt_dir, device=dev)
+            state, manifest = restore(ckpt_dir, device=dev,
+                                      shardings=shardings)
             params = _cast_like_defs(state["params"], model.param_defs)
             opt_state = _cast_like_defs(state["opt"], sdefs)
             start_step = manifest["step"] + 1
     if params is None:
-        params = model.init(seed, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = (sharding.init_local(model.param_defs, gen, dev,
+                                      shardings["params"]) if sharded
+                  else model.init(seed, device=dev))
         gen = torch.Generator(device=dev).manual_seed(seed + 1)
-        opt_state = tree_defs_init(sdefs, gen, dev)
+        opt_state = (sharding.init_local(sdefs, gen, dev, shardings["opt"])
+                     if sharded else tree_defs_init(sdefs, gen, dev))
 
     report = TrainReport(steps_run=0, final_step=start_step)
     for step in range(start_step, steps):
@@ -98,6 +125,8 @@ def train(cfg: ModelConfig, *, steps: int, seq: int, global_batch: int,
                 ckpt.wait()
             raise InjectedFailure(f"injected node failure at step {step}")
         batch = data.batch(step)
+        if sharded:
+            batch = sharding.local_batch(batch, mesh, rules, microbatches)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -123,6 +152,7 @@ def train(cfg: ModelConfig, *, steps: int, seq: int, global_batch: int,
                   metadata={"final": True})
         ckpt.wait()
     report.params = params  # type: ignore[attr-defined]
+    report.opt_state = opt_state  # type: ignore[attr-defined]
     return report
 
 

@@ -1,19 +1,127 @@
-"""Shared model configuration and the parameter-definition tree.
+"""Shared model configuration, sharding vocabulary and the
+parameter-definition tree.
 
 Counterpart of ``repro.models.common``.  Parameters are nested dicts of
-tensors; every leaf starts as a ``ParamDef`` (shape + init rule + dtype).
-The JAX package's logical sharding axes (``AxisRules``) have no
-counterpart: the port runs on one card, where every sharding is the
-identity.
+tensors; every leaf starts as a ``ParamDef`` (shape + logical axes + init
+rule + dtype).  Logical axis names resolve to mesh axes through
+``AxisRules``, as in the JAX package; a spec is a plain tuple with one
+entry per dim (``None``, a mesh axis name or a tuple of names), equal to
+the tuple of the JAX package's ``PartitionSpec``.  ``launch/sharding.py``
+turns a spec into the slice a rank holds and the collectives of a
+sharded train step.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from dataclasses import dataclass
-from typing import Any
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Sequence
 
 import torch
+
+
+# ---------------------------------------------------------------------------
+# Logical axis vocabulary (as the JAX package's)
+# ---------------------------------------------------------------------------
+# layers    : stacked layer dimension (never sharded)
+# vocab     : embedding / output-projection vocabulary dim     -> "model"
+# embed     : d_model dim of weights                           -> fsdp axes
+# heads     : query heads                                      -> "model"
+# kv_heads  : KV heads (GQA)                                   -> "model"
+# mlp       : feed-forward hidden dim                          -> "model"
+# experts   : MoE expert dim                                   -> "model"
+# batch     : activation batch dim                             -> data axes
+# act_*     : activation dims (read by the JAX package's GSPMD; the port
+#             shards no activation yet, ROADMAP.md Queue A)
+# ssm_*     : mamba2 state dims
+DEFAULT_RULES: dict[str, Any] = {
+    "layers": None,
+    "vocab": "model",
+    "embed": "__fsdp__",      # resolved to ("data",) / ("pod","data") at mesh time
+    "embed_noshard": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "kv_seq": None,           # cache seq dim
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "batch": "__dp__",        # resolved to data axes
+    "groups": "__dp__",
+    "seq": None,
+    "act_embed": None,
+    "act_seq": "model",
+    "act_heads": "model",
+    "act_kv_heads": "model",
+    "act_mlp": "model",
+    "act_vocab": "model",
+    "embed_gather": "model",
+    "ssm_heads": "model",
+    "ssm_state": None,
+    "ssm_inner": "model",
+    "conv_dim": "model",
+}
+
+
+@dataclass(frozen=True)
+class AxisRules:
+    """Resolves logical axis names to mesh axes for a given mesh layout.
+
+    ``axis_sizes`` enables dimension-aware resolution: a sharded dim whose
+    size does not divide the mesh-axis product resolves to None
+    (replicated), as in the JAX package, which rejects uneven shardings.
+    """
+
+    fsdp_axes: tuple[str, ...] = ("data",)
+    dp_axes: tuple[str, ...] = ("data",)
+    overrides: Mapping[str, Any] = field(default_factory=dict)
+    axis_sizes: Mapping[str, int] = field(default_factory=dict)
+
+    def _mesh_axes(self, name: str):
+        table = dict(DEFAULT_RULES)
+        table.update(self.overrides)
+        mesh_axis = table.get(name, None)
+        if mesh_axis in ("__fsdp__", "__dp__"):
+            axes = self.fsdp_axes if mesh_axis == "__fsdp__" else self.dp_axes
+            mesh_axis = axes if len(axes) > 1 else (axes[0] if axes else None)
+        return mesh_axis
+
+    def _shard_count(self, mesh_axis) -> int:
+        if mesh_axis is None or not self.axis_sizes:
+            return 1
+        axes = mesh_axis if isinstance(mesh_axis, tuple) else (mesh_axis,)
+        return math.prod(self.axis_sizes.get(a, 1) for a in axes)
+
+    def resolve(self, *logical: str | None,
+                dims: Sequence[int] | None = None) -> tuple:
+        """The spec of a leaf with these logical axes (and, given
+        ``dims``, this shape)."""
+        out = []
+        for i, name in enumerate(logical):
+            mesh_axis = None if name is None else self._mesh_axes(name)
+            if dims is not None and mesh_axis is not None:
+                n = self._shard_count(mesh_axis)
+                if n > 1 and dims[i] % n != 0:
+                    mesh_axis = None     # uneven: fall back to replication
+            out.append(mesh_axis)
+        return tuple(out)
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    return {name: int(mesh.shape[name]) for name in mesh.axis_names}
+
+
+def rules_for_mesh(mesh) -> AxisRules:
+    names = mesh.axis_names
+    sizes = mesh_axis_sizes(mesh)
+    if "pod" in names:
+        return AxisRules(fsdp_axes=("pod", "data"), dp_axes=("pod", "data"),
+                         axis_sizes=sizes)
+    if "data" in names:
+        return AxisRules(fsdp_axes=("data",), dp_axes=("data",),
+                         axis_sizes=sizes)
+    # single-device / test mesh
+    return AxisRules(fsdp_axes=(), dp_axes=(), axis_sizes=sizes)
 
 
 # ---------------------------------------------------------------------------
@@ -151,11 +259,19 @@ def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
 # ---------------------------------------------------------------------------
 @dataclass
 class ParamDef:
-    """Deferred parameter: shape + init rule + dtype."""
+    """Deferred parameter: shape + logical axes + init rule + dtype.
+    ``logical_axes`` defaults to unnamed dims (replicated on any mesh)."""
     shape: tuple[int, ...]
+    logical_axes: tuple[str | None, ...] | None = None
     init: str = "normal"           # normal | zeros | ones
     scale: float = 1.0
     dtype: Any = torch.float32
+
+    def spec(self, rules: AxisRules) -> tuple:
+        axes = self.logical_axes
+        if axes is None:
+            axes = (None,) * len(self.shape)
+        return rules.resolve(*axes, dims=self.shape)
 
 
 #: float32 bytes drawn at a time for a leaf narrower than float32
@@ -214,3 +330,53 @@ def tree_map_defs(fn, defs):
 
 def tree_defs_init(defs, gen: torch.Generator, device):
     return tree_map_defs(lambda d: init_leaf(gen, d, device), defs)
+
+
+def tree_defs_to_specs(defs, rules: AxisRules):
+    return tree_map_defs(lambda d: d.spec(rules), defs)
+
+
+def local_shape(shape: Sequence[int], spec: tuple, sizes: Mapping[str, int]
+                ) -> tuple[int, ...]:
+    """The shape of one rank's slice of a ``shape`` leaf laid out by
+    ``spec`` on a mesh of axis ``sizes`` (``NamedSharding.shard_shape``)."""
+    out = []
+    for dim, entry in zip(shape, spec):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        n = math.prod(sizes[a] for a in axes)
+        if dim % n:
+            raise ValueError(f"dim {dim} does not split over {axes} ({n})")
+        out.append(dim // n)
+    return tuple(out)
+
+
+@dataclass(frozen=True)
+class Abstract:
+    """A leaf without values: ``tensor`` is a ``meta`` tensor of the global
+    shape and dtype, ``spec`` its layout and ``local_shape`` one rank's
+    slice of it (the JAX package's ``ShapeDtypeStruct`` with a
+    ``NamedSharding``)."""
+    tensor: torch.Tensor
+    spec: tuple
+    local_shape: tuple[int, ...]
+
+
+def abstract_leaf(shape, dtype, spec: tuple, mesh) -> Abstract:
+    return Abstract(torch.empty(shape, dtype=dtype, device="meta"), spec,
+                    local_shape(shape, spec, mesh_axis_sizes(mesh)))
+
+
+def tree_defs_to_abstract(defs, mesh, rules: AxisRules):
+    return tree_map_defs(
+        lambda d: abstract_leaf(d.shape, d.dtype, d.spec(rules), mesh), defs)
+
+
+def logical_constraint(x, rules: AxisRules, *logical: str | None):
+    """``x`` unchanged.  The JAX package pins an activation's sharding
+    here for GSPMD; the port's sharded step computes every activation whole
+    on each rank (parameters gathered, the batch split over the dp axes),
+    so no activation is sharded and there is nothing to pin.  Splitting
+    heads, MLP and vocab over "model" is ROADMAP.md Queue A item 6."""
+    del rules, logical
+    return x

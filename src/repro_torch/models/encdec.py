@@ -36,12 +36,14 @@ def _dec_layer_def(cfg: ModelConfig) -> dict:
 
 def encdec_def(cfg: ModelConfig) -> dict:
     return {
-        "embed": ParamDef((cfg.vocab, cfg.d_model), dtype=cfg.param_dtype),
+        "embed": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                          dtype=cfg.param_dtype),
         "enc_blocks": stack_defs(_enc_layer_def(cfg), cfg.enc_layers),
         "dec_blocks": stack_defs(_dec_layer_def(cfg), cfg.dec_layers),
         "ln_enc": norm_def(cfg),
         "ln_dec": norm_def(cfg),
-        "unembed": ParamDef((cfg.d_model, cfg.vocab), dtype=cfg.param_dtype),
+        "unembed": ParamDef((cfg.d_model, cfg.vocab), ("embed", "vocab"),
+                            dtype=cfg.param_dtype),
     }
 
 
@@ -53,8 +55,10 @@ def encdec_cache_def(cfg: ModelConfig, batch: int, max_len: int,
     hd = cfg.resolved_head_dim()
 
     def kv(T):
-        return {n: ParamDef((batch, T, cfg.n_kv_heads, hd), init="zeros",
-                            dtype=cache_dtype) for n in ("k", "v")}
+        return {n: ParamDef((batch, T, cfg.n_kv_heads, hd),
+                            ("batch", "kv_seq", "kv_heads", "head_dim"),
+                            init="zeros", dtype=cache_dtype)
+                for n in ("k", "v")}
     return {"self": stack_defs(kv(max_len), cfg.dec_layers),
             "cross": stack_defs(kv(cross_len), cfg.dec_layers)}
 
@@ -113,10 +117,11 @@ def decode_trunk(params, cfg: ModelConfig, tokens, enc_out,
     return apply_norm(params["ln_dec"], h, cfg.norm), caches
 
 
-def encdec_loss(params, cfg: ModelConfig, batch: dict):
+def encdec_loss(params, cfg: ModelConfig, batch: dict, *, count=None):
     """batch: "src_embeds" (B, T_src, d), "tokens" and "labels" (B, T),
-    optionally "mask".  Mean masked xent of the decoder's logits; the aux
-    loss is 0.  Returns (loss, {"xent", "aux"})."""
+    optionally "mask".  Mean masked xent of the decoder's logits (over
+    ``count`` tokens where given, ``chunked_xent``); the aux loss is 0.
+    Returns (loss, {"xent", "aux"})."""
     enc_out = encode(params, cfg, batch["src_embeds"])
     h, _ = decode_trunk(params, cfg, batch["tokens"], enc_out)
     labels = batch["labels"]
@@ -124,7 +129,8 @@ def encdec_loss(params, cfg: ModelConfig, batch: dict):
     mask = (torch.ones(labels.shape, dtype=torch.float32,
                        device=labels.device) if mask is None
             else mask.float())
-    loss = chunked_xent(h, unembed_matrix(params, cfg), labels, mask, cfg)
+    loss = chunked_xent(h, unembed_matrix(params, cfg), labels, mask, cfg,
+                        count)
     return loss, {"xent": loss,
                   "aux": torch.zeros((), dtype=torch.float32,
                                      device=loss.device)}

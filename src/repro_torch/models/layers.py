@@ -19,12 +19,12 @@ from .common import ModelConfig, ParamDef
 # Norms
 # ---------------------------------------------------------------------------
 def rmsnorm_def(dim: int) -> dict:
-    return {"scale": ParamDef((dim,), init="ones")}
+    return {"scale": ParamDef((dim,), ("embed_noshard",), init="ones")}
 
 
 def layernorm_def(dim: int) -> dict:
-    return {"scale": ParamDef((dim,), init="ones"),
-            "bias": ParamDef((dim,), init="zeros")}
+    return {"scale": ParamDef((dim,), ("embed_noshard",), init="ones"),
+            "bias": ParamDef((dim,), ("embed_noshard",), init="zeros")}
 
 
 def apply_norm(params: dict, x: torch.Tensor, kind: str, eps: float = 1e-6):
@@ -95,14 +95,21 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 def attention_def(cfg: ModelConfig) -> dict:
     hd = cfg.resolved_head_dim()
     pd = cfg.param_dtype
-    d = {"wq": ParamDef((cfg.d_model, cfg.n_heads, hd), dtype=pd),
-         "wk": ParamDef((cfg.d_model, cfg.n_kv_heads, hd), dtype=pd),
-         "wv": ParamDef((cfg.d_model, cfg.n_kv_heads, hd), dtype=pd),
-         "wo": ParamDef((cfg.n_heads, hd, cfg.d_model), dtype=pd)}
+    d = {"wq": ParamDef((cfg.d_model, cfg.n_heads, hd),
+                         ("embed", "heads", "head_dim"), dtype=pd),
+         "wk": ParamDef((cfg.d_model, cfg.n_kv_heads, hd),
+                         ("embed", "kv_heads", "head_dim"), dtype=pd),
+         "wv": ParamDef((cfg.d_model, cfg.n_kv_heads, hd),
+                         ("embed", "kv_heads", "head_dim"), dtype=pd),
+         "wo": ParamDef((cfg.n_heads, hd, cfg.d_model),
+                         ("heads", "head_dim", "embed"), dtype=pd)}
     if cfg.qkv_bias:
-        d["bq"] = ParamDef((cfg.n_heads, hd), init="zeros", dtype=pd)
-        d["bk"] = ParamDef((cfg.n_kv_heads, hd), init="zeros", dtype=pd)
-        d["bv"] = ParamDef((cfg.n_kv_heads, hd), init="zeros", dtype=pd)
+        d["bq"] = ParamDef((cfg.n_heads, hd), ("heads", "head_dim"),
+                           init="zeros", dtype=pd)
+        d["bk"] = ParamDef((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"),
+                           init="zeros", dtype=pd)
+        d["bv"] = ParamDef((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"),
+                           init="zeros", dtype=pd)
     return d
 
 
@@ -194,13 +201,14 @@ def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     shared expert's is ``d_ff_expert``)."""
     f, pd = d_ff or cfg.d_ff, cfg.param_dtype
     if cfg.act == "swiglu":
-        return {"wg": ParamDef((cfg.d_model, f), dtype=pd),
-                "wu": ParamDef((cfg.d_model, f), dtype=pd),
-                "wd": ParamDef((f, cfg.d_model), dtype=pd)}
-    return {"w1": ParamDef((cfg.d_model, f), dtype=pd),
-            "b1": ParamDef((f,), init="zeros", dtype=pd),
-            "w2": ParamDef((f, cfg.d_model), dtype=pd),
-            "b2": ParamDef((cfg.d_model,), init="zeros", dtype=pd)}
+        return {"wg": ParamDef((cfg.d_model, f), ("embed", "mlp"), dtype=pd),
+                "wu": ParamDef((cfg.d_model, f), ("embed", "mlp"), dtype=pd),
+                "wd": ParamDef((f, cfg.d_model), ("mlp", "embed"), dtype=pd)}
+    return {"w1": ParamDef((cfg.d_model, f), ("embed", "mlp"), dtype=pd),
+            "b1": ParamDef((f,), ("mlp",), init="zeros", dtype=pd),
+            "w2": ParamDef((f, cfg.d_model), ("mlp", "embed"), dtype=pd),
+            "b2": ParamDef((cfg.d_model,), ("embed_noshard",), init="zeros",
+                           dtype=pd)}
 
 
 def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig):

@@ -25,14 +25,15 @@ def mamba2_def(cfg: ModelConfig) -> dict:
     proj_out = 2 * di + 2 * s.n_groups * s.d_state + H   # z, x, B, C, dt
     pd, f32 = cfg.param_dtype, torch.float32
     return {
-        "in_proj": ParamDef((d, proj_out), dtype=pd),
-        "conv_w": ParamDef((s.d_conv, conv_ch), scale=0.5, dtype=pd),
-        "conv_b": ParamDef((conv_ch,), init="zeros", dtype=pd),
-        "A_log": ParamDef((H,), init="zeros", dtype=f32),
-        "D": ParamDef((H,), init="ones", dtype=f32),
-        "dt_bias": ParamDef((H,), init="zeros", dtype=f32),
-        "norm_w": ParamDef((di,), init="ones", dtype=pd),
-        "out_proj": ParamDef((di, d), dtype=pd),
+        "in_proj": ParamDef((d, proj_out), ("embed", "ssm_inner"), dtype=pd),
+        "conv_w": ParamDef((s.d_conv, conv_ch), (None, "conv_dim"), scale=0.5,
+                           dtype=pd),
+        "conv_b": ParamDef((conv_ch,), ("conv_dim",), init="zeros", dtype=pd),
+        "A_log": ParamDef((H,), ("ssm_heads",), init="zeros", dtype=f32),
+        "D": ParamDef((H,), ("ssm_heads",), init="ones", dtype=f32),
+        "dt_bias": ParamDef((H,), ("ssm_heads",), init="zeros", dtype=f32),
+        "norm_w": ParamDef((di,), ("ssm_inner",), init="ones", dtype=pd),
+        "out_proj": ParamDef((di, d), ("ssm_inner", "embed"), dtype=pd),
     }
 
 

@@ -15,7 +15,8 @@ import torch
 from .. import resolve_device
 from . import encdec as _encdec
 from . import transformer as _tf
-from .common import ModelConfig, tree_defs_init
+from .common import (AxisRules, ModelConfig, tree_defs_init,
+                     tree_defs_to_abstract, tree_defs_to_specs)
 
 
 @dataclass(frozen=True)
@@ -29,6 +30,17 @@ class Model:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return tree_defs_init(self.param_defs, gen, dev)
+
+    def param_specs(self, rules: AxisRules):
+        """The spec of each parameter (a tuple per leaf, one entry per
+        dim), as the JAX package's ``PartitionSpec`` tree."""
+        return tree_defs_to_specs(self.param_defs, rules)
+
+    def abstract_params(self, mesh, rules: AxisRules):
+        """Each parameter as ``common.Abstract``: a ``meta`` tensor of the
+        global shape with its spec and one rank's local shape on
+        ``mesh``."""
+        return tree_defs_to_abstract(self.param_defs, mesh, rules)
 
     def cache_defs(self, batch: int, max_len: int, cross_len: int = 0,
                    cache_dtype=torch.bfloat16):
@@ -59,11 +71,25 @@ class Model:
         defs = self.cache_defs(batch, max_len, cross_len, cache_dtype)
         return tree_defs_init(defs, None, dev)
 
-    def loss(self, params, batch: dict):
-        """(loss, {"xent", "aux"}): ``encdec_loss`` or ``lm_loss``."""
+    def cache_specs(self, rules: AxisRules, batch: int, max_len: int,
+                    cross_len: int = 0, cache_dtype=torch.bfloat16):
+        defs = self.cache_defs(batch, max_len, cross_len, cache_dtype)
+        return tree_defs_to_specs(defs, rules)
+
+    def abstract_caches(self, mesh, rules: AxisRules, batch: int,
+                        max_len: int, cross_len: int = 0,
+                        cache_dtype=torch.bfloat16):
+        defs = self.cache_defs(batch, max_len, cross_len, cache_dtype)
+        return tree_defs_to_abstract(defs, mesh, rules)
+
+    def loss(self, params, batch: dict, *, count=None):
+        """(loss, {"xent", "aux"}): ``encdec_loss`` or ``lm_loss``.
+        ``count``: the token count the summed xent is divided by (default:
+        this batch's ``sum(mask)``); a sharded step passes the count of
+        the global batch, so that the ranks' losses sum to its loss."""
         if self.cfg.family == "encdec":
-            return _encdec.encdec_loss(params, self.cfg, batch)
-        return _tf.lm_loss(params, self.cfg, batch)
+            return _encdec.encdec_loss(params, self.cfg, batch, count=count)
+        return _tf.lm_loss(params, self.cfg, batch, count=count)
 
     def prefill(self, params, batch: dict, caches):
         if self.cfg.family == "encdec":

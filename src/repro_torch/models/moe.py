@@ -33,10 +33,14 @@ from .layers import apply_mlp, mlp_def
 
 def moe_def(cfg: ModelConfig) -> dict:
     m, pd = cfg.moe, cfg.param_dtype
-    d = {"router": ParamDef((cfg.d_model, m.n_experts), scale=0.1, dtype=pd),
-         "wg": ParamDef((m.n_experts, cfg.d_model, m.d_ff_expert), dtype=pd),
-         "wu": ParamDef((m.n_experts, cfg.d_model, m.d_ff_expert), dtype=pd),
-         "wd": ParamDef((m.n_experts, m.d_ff_expert, cfg.d_model), dtype=pd)}
+    d = {"router": ParamDef((cfg.d_model, m.n_experts), ("embed", "experts"),
+                             scale=0.1, dtype=pd),
+         "wg": ParamDef((m.n_experts, cfg.d_model, m.d_ff_expert),
+                         ("experts", "embed", "expert_mlp"), dtype=pd),
+         "wu": ParamDef((m.n_experts, cfg.d_model, m.d_ff_expert),
+                         ("experts", "embed", "expert_mlp"), dtype=pd),
+         "wd": ParamDef((m.n_experts, m.d_ff_expert, cfg.d_model),
+                         ("experts", "expert_mlp", "embed"), dtype=pd)}
     if m.shared_expert:
         d["shared"] = mlp_def(cfg, d_ff=m.d_ff_expert)
     return d

@@ -46,8 +46,10 @@ def norm_def(cfg: ModelConfig) -> dict:
 def stack_defs(defs, n: int):
     """Add a leading stacked 'layers' dim to every ParamDef leaf."""
     return tree_map_defs(
-        lambda d: ParamDef((n,) + d.shape, init=d.init, scale=d.scale,
-                           dtype=d.dtype), defs)
+        lambda d: ParamDef((n,) + d.shape,
+                           ("layers",) + (d.logical_axes
+                                          or (None,) * len(d.shape)),
+                           init=d.init, scale=d.scale, dtype=d.dtype), defs)
 
 
 def _index_tree(tree, j: int):
@@ -110,12 +112,14 @@ def hybrid_tail_layers(cfg: ModelConfig) -> int:
 
 def lm_def(cfg: ModelConfig) -> dict:
     d: dict[str, Any] = {
-        "embed": ParamDef((cfg.vocab, cfg.d_model), dtype=cfg.param_dtype),
+        "embed": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                          dtype=cfg.param_dtype),
         "blocks": stack_defs(scan_unit_def(cfg), n_scan_units(cfg)),
         "ln_f": norm_def(cfg),
     }
     if not cfg.tie_embeddings:
-        d["unembed"] = ParamDef((cfg.d_model, cfg.vocab), dtype=cfg.param_dtype)
+        d["unembed"] = ParamDef((cfg.d_model, cfg.vocab), ("embed", "vocab"),
+                                dtype=cfg.param_dtype)
     if cfg.family == "hybrid":
         d["shared_attn"] = _dense_layer_def(cfg)
         tail = hybrid_tail_layers(cfg)
@@ -129,19 +133,23 @@ def lm_def(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 def _kv_def(cfg: ModelConfig, batch: int, max_len: int, cache_dtype) -> dict:
     hd = cfg.resolved_head_dim()
-    return {"k": ParamDef((batch, max_len, cfg.n_kv_heads, hd), init="zeros",
-                          dtype=cache_dtype),
-            "v": ParamDef((batch, max_len, cfg.n_kv_heads, hd), init="zeros",
-                          dtype=cache_dtype)}
+    return {"k": ParamDef((batch, max_len, cfg.n_kv_heads, hd),
+                          ("batch", "kv_seq", "kv_heads", "head_dim"),
+                          init="zeros", dtype=cache_dtype),
+            "v": ParamDef((batch, max_len, cfg.n_kv_heads, hd),
+                          ("batch", "kv_seq", "kv_heads", "head_dim"),
+                          init="zeros", dtype=cache_dtype)}
 
 
 def _ssm_cache_def(cfg: ModelConfig, batch: int, cache_dtype) -> dict:
     s = cfg.ssm
     conv_ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
     H = s.n_ssm_heads(cfg.d_model)
-    return {"conv": ParamDef((batch, s.d_conv - 1, conv_ch), init="zeros",
+    return {"conv": ParamDef((batch, s.d_conv - 1, conv_ch),
+                             ("batch", None, "conv_dim"), init="zeros",
                              dtype=cache_dtype),
             "state": ParamDef((batch, H, s.head_dim, s.d_state),
+                              ("batch", "ssm_heads", None, None),
                               init="zeros",
                               dtype=torch.promote_types(cache_dtype,
                                                         torch.float32))}
@@ -397,8 +405,9 @@ def _xent_chunk(hx, w, lx, mx):
     return torch.sum((lse - ll) * mx), torch.sum(mx)
 
 
-def chunked_xent(h, w_out, labels, mask, cfg: ModelConfig):
-    """h: (B, T, d) -> mean masked token xent (fp32).  Logits exist one
+def chunked_xent(h, w_out, labels, mask, cfg: ModelConfig, count=None):
+    """h: (B, T, d) -> mean masked token xent (fp32): the summed xent over
+    ``count`` (default ``sum(mask)``), at least 1.  Logits exist one
     chunk of ``cfg.xent_chunk`` tokens at a time; T is padded to whole
     chunks (padding masked out), and each chunk is recomputed in the
     backward unless ``cfg.remat`` is "none", as the JAX package's
@@ -419,14 +428,15 @@ def chunked_xent(h, w_out, labels, mask, cfg: ModelConfig):
         sl = slice(i * C, (i + 1) * C)
         t, c = body(h[:, sl], w, labels[:, sl], mask[:, sl])
         tot, cnt = tot + t, cnt + c
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot / torch.clamp(cnt if count is None else count, min=1.0)
 
 
-def lm_loss(params, cfg: ModelConfig, batch: dict):
+def lm_loss(params, cfg: ModelConfig, batch: dict, *, count=None):
     """Mean next-token xent over ``batch["labels"]`` (masked by
-    ``batch["mask"]`` where given) plus ``AUX_LOSS_COEF`` x the MoE aux
-    loss.  vlm: over the text region after the vision embeddings.
-    Returns (loss, {"xent", "aux"})."""
+    ``batch["mask"]`` where given; the sum over ``count`` tokens where
+    given, ``chunked_xent``) plus ``AUX_LOSS_COEF`` x the MoE aux loss.
+    vlm: over the text region after the vision embeddings.  Returns
+    (loss, {"xent", "aux"})."""
     h, _, aux = trunk(params, cfg, batch)
     labels = batch["labels"]
     mask = batch.get("mask")
@@ -435,5 +445,6 @@ def lm_loss(params, cfg: ModelConfig, batch: dict):
             else mask.float())
     if cfg.family == "vlm" and "vision_embeds" in batch:
         h = h[:, batch["vision_embeds"].shape[1]:]
-    loss = chunked_xent(h, unembed_matrix(params, cfg), labels, mask, cfg)
+    loss = chunked_xent(h, unembed_matrix(params, cfg), labels, mask, cfg,
+                        count)
     return loss + AUX_LOSS_COEF * aux, {"xent": loss, "aux": aux}

@@ -89,26 +89,33 @@ def state_defs(param_defs, cfg: AdamWConfig):
         def mk(d: ParamDef):
             nblk = -(-math.prod(d.shape) // _BLK)
             return {
-                "m_q": ParamDef((nblk, _BLK), init="zeros", dtype=torch.int8),
-                "m_s": ParamDef((nblk, 1), init="ones", dtype=torch.float32),
-                "v_q": ParamDef((nblk, _BLK), init="zeros", dtype=torch.int8),
-                "v_s": ParamDef((nblk, 1), init="ones", dtype=torch.float32),
+                "m_q": ParamDef((nblk, _BLK), (None, None), init="zeros",
+                                dtype=torch.int8),
+                "m_s": ParamDef((nblk, 1), (None, None), init="ones",
+                                dtype=torch.float32),
+                "v_q": ParamDef((nblk, _BLK), (None, None), init="zeros",
+                                dtype=torch.int8),
+                "v_s": ParamDef((nblk, 1), (None, None), init="ones",
+                                dtype=torch.float32),
             }
     elif cfg.state_dtype in ("fp32", "bf16"):
         dt = torch.bfloat16 if cfg.state_dtype == "bf16" else torch.float32
 
         def mk(d: ParamDef):
-            out = {"m": ParamDef(d.shape, init="zeros", dtype=dt),
-                   "v": ParamDef(d.shape, init="zeros", dtype=dt)}
+            out = {"m": ParamDef(d.shape, d.logical_axes, init="zeros",
+                                 dtype=dt),
+                   "v": ParamDef(d.shape, d.logical_axes, init="zeros",
+                                 dtype=dt)}
             if cfg.master_fp32:
-                out["master"] = ParamDef(d.shape, init=d.init, scale=d.scale,
+                out["master"] = ParamDef(d.shape, d.logical_axes,
+                                         init=d.init, scale=d.scale,
                                          dtype=torch.float32)
             return out
     else:
         raise ValueError(f"state_dtype {cfg.state_dtype!r} is not fp32, "
                          "bf16 or int8")
     return {"mv": tree_map_defs(mk, param_defs),
-            "step": ParamDef((), init="zeros", dtype=torch.int32)}
+            "step": ParamDef((), (), init="zeros", dtype=torch.int32)}
 
 
 def leaves(tree) -> list:
@@ -184,13 +191,16 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: AdamWConfig):
+def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None):
     """One AdamW step on ``params`` with ``grads`` (trees of the same
-    keys), in place.  Returns (params, state, metrics {"grad_norm",
-    "lr"})."""
+    keys), in place, each leaf alone.  ``gnorm``, the norm clipping sees,
+    defaults to ``global_norm(grads)``; a sharded step, whose trees hold
+    its slices, passes the whole gradient's.  Returns (params, state,
+    metrics {"grad_norm", "lr"})."""
     step = state["step"]
     dev = step.device
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     if cfg.clip_norm > 0:
         scale = torch.clamp(_f32(cfg.clip_norm, dev) / (gnorm + 1e-9),
                             max=1.0)

@@ -1770,3 +1770,80 @@ def test_tick_syncs_are_seen_by_the_linter(cuda_graph):
         lambda: [engine.observe_batch(batch) for _ in range(2)])
     assert syncs.missed(sites, syncs.lint_index()) == []
     assert sum(s.function == "_fetch" for s in sites) == 2
+
+
+def _sharded_card_worker(rank, device, inputs, out):
+    """One rank of a (2, 1) ("data", "model") mesh on the one card: a
+    sharded step from the given whole weights; the gathered gradients,
+    the loss and the kernel launches to ``out`` (rank 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_defs_to_specs
+    from repro_torch.optim import AdamWConfig, state_defs
+    from repro_torch.optim.adamw import leaves, unflatten
+    params, batch = torch.load(inputs)
+    cfg = _small("stablelm-1.6b").with_(dtype=torch.bfloat16)
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    mesh = make_mesh((2, 1), ("data", "model"), device=device)
+    rules = make_rules(mesh)
+    psh = sharding.tree_shardings(model.param_specs(rules), mesh)
+    sdefs = state_defs(model.param_defs, opt)
+    ssh = sharding.tree_shardings(tree_defs_to_specs(sdefs, rules), mesh)
+    local = unflatten(params, [sharding.shard(x.to(device), sh).clone()
+                               for x, sh in zip(leaves(params),
+                                                leaves(psh))])
+    state = sharding.init_local(sdefs, None, device, ssh)
+    step = make_train_step(model, opt, rules=rules, mesh=mesh,
+                           keep_grads=True)
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    _, _, m = step(local, state, sharding.local_batch(
+        {k: v.to(device) for k, v in batch.items()}, mesh, rules))
+    launches = (kernel.LAUNCHES, kernel.BWD_LAUNCHES)
+    grads = [sharding.gather(g, sh).cpu()
+             for g, sh in zip(leaves(m["grads"]), leaves(psh))]
+    if rank == 0:
+        torch.save({"loss": float(m["loss"]), "grads": grads,
+                    "launches": launches}, out)
+
+
+@pytest.mark.gpu
+def test_sharded_step_of_two_processes_on_the_card(tmp_path):
+    """chip_smoke.py's phase 16b at the widened stablelm smoke size with
+    bf16 activations: two gloo processes share the card as a (2, 1) mesh;
+    the loss and the gathered gradients within 3e-2 x max of the
+    one-device step on the card (the models' bar at bf16), every
+    attention through the flash kernels (forward twice a layer under full
+    remat, backward once)."""
+    _need_card()
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_defs_init
+    from repro_torch.optim import AdamWConfig, state_defs
+    from repro_torch.optim.adamw import leaves
+    cfg = _small("stablelm-1.6b").with_(dtype=torch.bfloat16)
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    params = _unit_scores(model.init(0, device="cpu"),
+                          cfg.resolved_head_dim() ** -0.5)
+    batch = SyntheticLMData(cfg, seq=64, global_batch=4, seed=2,
+                            device="cpu").batch(0)
+    torch.save((params, batch), tmp_path / "inputs.pt")
+    state = tree_defs_init(state_defs(model.param_defs, opt), None, "cuda")
+    _, _, m = make_train_step(model, opt, keep_grads=True)(
+        _to(params, "cuda"), state, _to(batch, "cuda"))
+    spawn(_sharded_card_worker, 2, (tmp_path / "inputs.pt",
+                                    tmp_path / "out.pt"),
+          rendezvous=tmp_path / "rendezvous", backend="gloo", device="cuda",
+          timeout_s=300)
+    out = torch.load(tmp_path / "out.pt")
+    assert out["launches"] == (2 * cfg.n_layers, cfg.n_layers)
+    assert abs(out["loss"] - float(m["loss"])) <= 3e-2 * abs(float(m["loss"]))
+    for a, b in zip(out["grads"], leaves(m["grads"])):
+        _grad_close(a, b.cpu(), 3e-2, "grads")
