@@ -245,7 +245,16 @@ in order; any failure ends the run with a non-zero exit code:
    first step: gloo's connections are made in it), peak memory, the
    payload of each collective and the syncs of the step beside the
    one-device step's ms and the nvidia-smi line; 16c mamba2-1.3b at 2 layers on the same mesh against
-   its (1, 1) step, every Mamba-2 layer through the SSD kernels.
+   its (1, 1) step, every Mamba-2 layer through the SSD kernels; 16d the
+   multi-workflow fleet (``online.fleet``, no kernel, float64) in the same
+   two ranks: 64 workflows of phase 10a's big point (T 1,000 x N 64, 1,024
+   observations a workflow a tick, with bias decay and empirical-Bayes
+   pooling), sharded over the (2, 1) and (1, 2) ("wf", "task") meshes,
+   predicted and ticked 4 times; each rank's slices of every output and
+   leaf, and ``fleet_gather``'s whole matrices, within 1e-12 of the same
+   ticks of the one-process card fleet, which the parent runs before the
+   spawn; printed: a tick's host and CUDA-event ms, its collective payload
+   and calls, the gather's ms and bytes, peak memory, bit for bit or not.
 
 The last lines are a ``kernels`` JSON object (phase 16's launches in each
 kernel's ``launches_by_path``), the card's nvidia-smi line and ``{"ok":
@@ -1646,10 +1655,11 @@ def device_busy(torch, fn):
             "host_top": host[:10]}
 
 
-def synthetic_estimator(n_tasks, n_nodes, device, seed=0):
+def synthetic_estimator(n_tasks, n_nodes, device, seed=0, **bias):
     """benchmarks/bench_predict.py's ``_synthetic_estimator``, built from
     the port: T tasks fitted from seeded samples (70% size-correlated, the
-    rest flat) over N synthetic node benches."""
+    rest flat) over N synthetic node benches; ``bias``: the estimator's
+    bias settings (default: its defaults)."""
     import numpy as np
     from repro_torch.core import LotaruEstimator, fit_task
     from repro_torch.core.estimator import FittedTask
@@ -1669,7 +1679,7 @@ def synthetic_estimator(n_tasks, n_nodes, device, seed=0):
             io_read_mbps=float(rng.uniform(100, 900)),
             io_write_mbps=float(rng.uniform(100, 900)),
             link_gbps=float(rng.uniform(0, 100)))
-    est = LotaruEstimator(local, benches, device=device)
+    est = LotaruEstimator(local, benches, device=device, **bias)
     n_part = 8
     for i in range(n_tasks):
         sizes = np.geomspace(1.0, 256.0, n_part) * rng.uniform(0.5, 2.0)
@@ -3734,14 +3744,155 @@ def traced_step(trace_syncs, fn):
     return out, sites, native
 
 
-def sharded_worker(rank, device, runs, ref_root, out_dir):
+#: 16d: phase 10a's big point at W 64 (FLEET_BIG's T x N and its
+#: observations a workflow, each workflow at its own size), with bias decay
+#: and empirical-Bayes pooling, so that the sharded tick has its two
+#: per-workflow sums to complete over "task"; on each ("wf", "task") mesh
+#: of phase 16's two ranks
+P16_FLEET_W = 64
+P16_FLEET_BIAS = {"bias_decay": 0.97, "bias_empirical_bayes": True}
+P16_FLEET_MESHES = ((2, 1), (1, 2))
+
+
+def p16_fleet():
+    """16d's global fleet, built on the CPU from seed 0 (the same bits in
+    every process), and the workflows' sizes."""
+    import numpy as np
+    from repro_torch.core import build_state
+    from repro_torch.online.fleet import stack_states
+    _, T, N, _ = FLEET_BIG
+    base = synthetic_estimator(T, N, "cpu", **P16_FLEET_BIAS)
+    state = build_state(base, list(base.target_benches))[0]
+    return (stack_states([state] * P16_FLEET_W),
+            FLEET_SIZE * np.linspace(0.5, 1.5, P16_FLEET_W))
+
+
+def fleet_leaves(fleet) -> dict:
+    """Every tensor leaf of a fleet (or every spec of ``fleet_pspecs``),
+    by name."""
+    from repro_torch.core import blr
+    st, m = fleet.state, fleet.state.model
+    out = {"moments": m.stats.moments, "correlated": m.correlated,
+           "median": m.median, "spread": m.spread,
+           **{f: getattr(m.post, f) for f in blr.POSTERIOR_FIELDS}}
+    for f in ("factors", "node_cols", "bias_counts", "bias_log_sum",
+              "bias_log_sq", "rel_succ", "rel_fail"):
+        out[f] = getattr(st, f)
+    out["t_count"], out["n_count"] = fleet.t_count, fleet.n_count
+    return out
+
+
+def fleet_ticks(torch, fleet, sizes, on_tick=None):
+    """``fleet_predict``, then FLEET_TICKS timed ticks of ``fleet_obs``
+    (seeds 1-4): (fleet, the (mean, std) of each, a row a tick: host and
+    CUDA-event ms, and what ``on_tick`` returns)."""
+    from repro_torch.online.fleet import fleet_predict, fleet_tick_step
+    _, T, N, B = FLEET_BIG
+    outs = [fleet_predict(fleet, sizes)]
+    ticks = []
+    for k in range(FLEET_TICKS):
+        obs = fleet_obs(P16_FLEET_W, T, N, B, k + 1)
+        (fleet, m, s), host, dev = timed(
+            torch, lambda: fleet_tick_step(fleet, obs, sizes), "cuda")
+        ticks.append({"host_ms": host, "device_ms": dev,
+                      **(on_tick() if on_tick else {})})
+        outs.append((m, s))
+    return fleet, outs, ticks
+
+
+def fleet_reference(torch, path):
+    """16d's reference, run by the parent before the spawn: the global
+    fleet placed whole on the card's (1, 1) mesh, its predict and ticks
+    (``fleet_ticks``); the outputs and the final leaves saved to ``path``
+    for the ranks.  Returns its row."""
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.online.fleet import shard_fleet
+    whole, sizes = p16_fleet()
+    fleet = shard_fleet(whole, make_fleet_mesh(device="cuda:0"))
+    del whole
+    torch.cuda.reset_peak_memory_stats()
+    fleet, outs, ticks = fleet_ticks(torch, fleet, sizes)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.save({"outs": [(m.cpu(), s.cpu()) for m, s in outs],
+                "leaves": {k: v.cpu() for k, v in
+                           fleet_leaves(fleet).items()}}, path)
+    return {"ticks": ticks, "steady_host_ms": steady(ticks, "host_ms"),
+            "steady_device_ms": steady(ticks, "device_ms"),
+            "peak_memory_gb": peak_gb}
+
+
+def fleet_on_meshes(torch, device, ref_path):
+    """16d in one rank: for each of P16_FLEET_MESHES, the global fleet
+    (``p16_fleet``) sharded over the two ranks, predicted and ticked as the
+    parent's reference (``fleet_ticks``), then the last tick's matrices
+    read back whole (``fleet_gather``).  Every output and final leaf of the
+    rank is held to its slice of the reference, the gathered matrices to
+    the whole (``rel_err``; bit for bit or not); each tick's collective
+    payload and calls, the gather's ms and bytes and the peak memory are
+    recorded.  Returns a row a mesh."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.online.fleet import (fleet_gather, fleet_pspecs,
+                                          shard_fleet)
+    ref = torch.load(ref_path, mmap=True)
+    whole, sizes = p16_fleet()
+    rows = []
+    for shape in P16_FLEET_MESHES:
+        mesh = make_fleet_mesh(wf=shape[0], task=shape[1], device=device)
+        specs = fleet_leaves(fleet_pspecs(whole, mesh))
+
+        def cut(x, spec):
+            return x[sharding.Sharding(mesh, spec).slices(x.shape)]
+
+        def counts():
+            out = {"bytes": dict(sharding.BYTES),
+                   "calls": dict(sharding.CALLS)}
+            sharding.reset_counts()
+            return out
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fleet = shard_fleet(whole, mesh)
+        sharding.reset_counts()
+        fleet, outs, ticks = fleet_ticks(torch, fleet, sizes, counts)
+        gathered, gather_ms, gather_dev_ms = timed(
+            torch, lambda: fleet_gather(outs[-1][0], fleet), "cuda")
+        gather = counts()
+        gathered = (gathered, fleet_gather(outs[-1][1], fleet))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        pairs = [(a, cut(b, ("wf", "task")))
+                 for out, ref_out in zip(outs, ref["outs"])
+                 for a, b in zip(out, ref_out)]
+        pairs += [(leaf, cut(ref["leaves"][name], specs[name]))
+                  for name, leaf in fleet_leaves(fleet).items()]
+        whole_pairs = list(zip(gathered, ref["outs"][-1]))
+        rows.append({
+            "mesh": list(shape), "coords": list(mesh.coords),
+            "local_shape": list(fleet.state.factors.shape), "ticks": ticks,
+            "steady_host_ms": steady(ticks, "host_ms"),
+            "steady_device_ms": steady(ticks, "device_ms"),
+            "gather_ms": gather_ms, "gather_device_ms": gather_dev_ms,
+            "gather_bytes": gather["bytes"], "gather_calls": gather["calls"],
+            "peak_memory_gb": peak_gb,
+            "rel_err": max(rel_err(a.cpu(), b) for a, b in pairs),
+            "gather_rel_err": max(rel_err(a.cpu(), b)
+                                  for a, b in whole_pairs),
+            "bit_for_bit": all(torch.equal(a.cpu(), b)
+                               for a, b in pairs + whole_pairs)})
+        del fleet, outs, gathered, pairs, whole_pairs
+    return rows
+
+
+def sharded_worker(rank, device, runs, ref_root, out_dir, fleet_ref):
     """16b/16c, one rank of the (2, 1) ("data", "model") mesh on the one
     card: for each (label, arch, n_layers) of ``runs``, the global
     parameters drawn from seed 0 with this rank's slice kept, this rank's
     rows of the global batch, one sharded step (timed under the sync
     trace, its kernel launches and collective bytes counted) held to the
     one-device step's gradient slices and loss under ``ref_root /
-    label``.  Writes ``rank<r>.json`` to ``out_dir``."""
+    label``; then 16d, the fleet on the ("wf", "task") meshes of the two
+    ranks against the reference ``fleet_ref`` (``fleet_on_meshes``).
+    Writes ``rank<r>.json`` to ``out_dir``."""
     from collections import Counter
 
     import torch
@@ -3819,6 +3970,7 @@ def sharded_worker(rank, device, runs, ref_root, out_dir):
             "gloo_thread_syncs": native}
         del grads, ref
         torch.cuda.empty_cache()
+    out["fleet"] = fleet_on_meshes(torch, device, fleet_ref)
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
 
 
@@ -3899,12 +4051,52 @@ def one_device_steps(torch, kernel, ssd_kernel, get_config, label, arch,
     return row
 
 
+def print_fleet_mesh(fleet, smi):
+    """16d's lines, and its gate: every rank's slices and the gathered
+    matrices within EST_TOL of the one-process reference."""
+    _, T, N, B = FLEET_BIG
+    one = fleet["one_process"]
+    print(f"== phase 16d: the fleet, W {P16_FLEET_W} x T {T} x N {N}, "
+          f"{B:,} observations a workflow a tick, on the ("
+          "\"wf\", \"task\") meshes of the two ranks; " + smi, flush=True)
+    print(f"  one process, the card's (1, 1) mesh (the reference): a tick "
+          f"{one['steady_host_ms']:.3f} ms host, "
+          f"{one['steady_device_ms']:.3f} ms CUDA events (first "
+          f"{one['ticks'][0]['host_ms']:.3f} / "
+          f"{one['ticks'][0]['device_ms']:.3f}); peak "
+          f"{one['peak_memory_gb']:.3f} GB", flush=True)
+    for i, shape in enumerate(P16_FLEET_MESHES):
+        for r, rows in enumerate(fleet["ranks"]):
+            x = rows[i]
+            moved = ", ".join(f"{k} {v:,} B in {x['ticks'][-1]['calls'][k]}"
+                              for k, v in x["ticks"][-1]["bytes"].items())
+            gathered = ", ".join(f"{k} {v:,} B in {x['gather_calls'][k]}"
+                                 for k, v in x["gather_bytes"].items())
+            print(f"  {tuple(shape)} rank {r} {tuple(x['coords'])}, slice "
+                  f"{tuple(x['local_shape'])}: a tick "
+                  f"{x['steady_host_ms']:.3f} ms host, "
+                  f"{x['steady_device_ms']:.3f} ms CUDA events (first "
+                  f"{x['ticks'][0]['host_ms']:.3f} / "
+                  f"{x['ticks'][0]['device_ms']:.3f}); collectives a tick: "
+                  f"{moved or 'none'}; fleet_gather {x['gather_ms']:.3f} ms "
+                  f"host, {x['gather_device_ms']:.3f} ms events, "
+                  f"{gathered or 'none'}; peak {x['peak_memory_gb']:.3f} GB; "
+                  f"slices {x['rel_err']:.3e}, gathered "
+                  f"{x['gather_rel_err']:.3e} off the reference (tol "
+                  f"{EST_TOL}); bit for bit: {x['bit_for_bit']}", flush=True)
+            check(x["rel_err"] <= EST_TOL and x["gather_rel_err"] <= EST_TOL,
+                  f"16d {tuple(shape)} rank {r}: slices {x['rel_err']:.3e}, "
+                  f"gathered {x['gather_rel_err']:.3e} (tol {EST_TOL})")
+
+
 def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     """Phase 16: 16a stablelm-1.6b's one-device step without rules and
     through the (1, 1) mesh, bit for bit; 16b the same step on a (2, 1)
     mesh of two gloo processes sharing the card, each rank's gradient
     slices and the loss within P16_TOL x max of 16a's; 16c mamba2-1.3b at
-    2 layers, the (2, 1) mesh against its (1, 1) step."""
+    2 layers, the (2, 1) mesh against its (1, 1) step; 16d the fleet on
+    the (2, 1) and (1, 2) ("wf", "task") meshes of the same two ranks
+    against the one-process card fleet (``fleet_reference``)."""
     import shutil
     from repro_torch.launch.mesh import spawn
     t0 = time.perf_counter()
@@ -3926,6 +4118,12 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     one[arch] = one_device_steps(torch, kernel, ssd_kernel, get_config,
                                  arch, arch, n, work / "ref" / arch,
                                  both=False)
+    _, T, N, B = FLEET_BIG
+    print(f"  ({time.perf_counter() - t0:.1f} s) 16d's reference: the fleet "
+          f"of W {P16_FLEET_W} x T {T} x N {N} ({P16_FLEET_BIAS}), "
+          f"{B:,} observations a workflow a tick, on the card's (1, 1) "
+          "mesh", flush=True)
+    fleet_one = fleet_reference(torch, work / "fleet_ref.pt")
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_reserved() / 1e9
     t_spawn = time.perf_counter()
@@ -3936,7 +4134,7 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
           f"(this process holds {held_gb:.2f} GB of the card)", flush=True)
     spawn(sharded_worker, 2,
           ([(P16_ARCH, P16_ARCH, 0), (arch, arch, n)], work / "ref",
-           work / "out"),
+           work / "out", work / "fleet_ref.pt"),
           rendezvous=work / "rendezvous", backend="gloo", device="cuda",
           timeout_s=P16_TIMEOUT)
     spawn_s = time.perf_counter() - t_spawn
@@ -3974,6 +4172,9 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
                   f"expected {x['expected_launches']}")
         check(ranks[0][label]["loss"] == ranks[1][label]["loss"],
               f"16 {label}: the ranks report different losses")
+    out["fleet"] = {"one_process": fleet_one,
+                    "ranks": [r["fleet"] for r in ranks]}
+    print_fleet_mesh(out["fleet"], smi)
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 16: {out['seconds']:.1f} s (the two ranks "
           f"{spawn_s:.1f} s)", flush=True)
@@ -4381,7 +4582,8 @@ def main() -> int:
     sync_report = run_sync_phase(sync_log, smi)
 
     print("== phase 16: the sharded train step on the card (16a the "
-          "(1, 1) mesh, 16b/16c a (2, 1) mesh of two gloo processes)",
+          "(1, 1) mesh, 16b/16c a (2, 1) mesh of two gloo processes), and "
+          "the fleet on the two processes' (\"wf\", \"task\") meshes (16d)",
           flush=True)
     sharded = run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi)
     ssm_arch = P16_SSM[0]

@@ -97,13 +97,21 @@ def pack_waves(obs, n_cols: int, n_rows: int = 0
             int(rank_b.max(initial=-1)) + 1)
 
 
-def _sigma_r(meta, counts, log_sum, log_sq):
+def _local(*tensors):
+    """The reduction hook of a workflow held whole by one process: each
+    per-workflow sum is already the workflow's (the identity)."""
+    return tensors
+
+
+def _sigma_r(meta, counts, log_sum, log_sq, reduce=_local):
     """Device twin of ``BiasModel.effective_sigma_r`` over W stacked
     (W, T, Nb) bias grids — the fixed ``sigma_r``, or, per workflow as a
     (W, 1, 1) tensor, the pooled empirical spread of that workflow's
     observed log-residuals (floored) once any of its pairs has two
     observations.  Each workflow pools its own grid only, so one
-    workflow's residuals never move another's posterior."""
+    workflow's residuals never move another's posterior.  ``reduce``
+    completes the per-workflow sums and the flag over the task rows that
+    other processes hold (the sharded fleet's; default: none)."""
     if not meta.empirical_bayes:
         return meta.sigma_r
     mask = counts >= 2
@@ -111,9 +119,10 @@ def _sigma_r(meta, counts, log_sum, log_sq):
     ss = torch.where(mask, log_sq - log_sum ** 2 / safe_n, 0.0).sum(
         (1, 2), keepdim=True)
     dof = torch.where(mask, counts - 1.0, 0.0).sum((1, 2), keepdim=True)
+    seen = mask.flatten(1).any(1).reshape(-1, 1, 1)
+    ss, dof, seen = reduce(ss, dof, seen)
     s = torch.sqrt(torch.clamp_min(ss, 0.0) / torch.clamp_min(dof, 1.0))
     pooled = torch.clamp_min(s, BiasModel.SIGMA_R_FLOOR)
-    seen = mask.flatten(1).any(1).reshape(-1, 1, 1)
     return torch.where(seen, pooled, meta.sigma_r)
 
 
@@ -148,12 +157,14 @@ def _lift(state: EstimatorState) -> EstimatorState:
         rel_fail=state.rel_fail[None], meta=state.meta)
 
 
-def _fold_predict(model, state, counts, log_sum, log_sq, size):
+def _fold_predict(model, state, counts, log_sum, log_sq, size,
+                  reduce=_local):
     """Full (W, T, N) factor-scaled predictive of W stacked states, each
     at its own input size (``size`` is (W,)), with the bias posterior
     folded in — device twin of ``_scaled_matrix_core`` +
     ``_fold_bias_matrix`` (point-scale the mean, delta-method-widen the
-    std, inert where unobserved or outside the bias universe)."""
+    std, inert where unobserved or outside the bias universe).
+    ``reduce``: as ``_sigma_r``'s."""
     meta = state.meta
     W, T, N = state.factors.shape
     mean_t, std_t = predict_task_batch(
@@ -162,7 +173,7 @@ def _fold_predict(model, state, counts, log_sum, log_sq, size):
     std = std_t.reshape(W, T, 1) * state.factors
     if not meta.bias_correction:
         return mean, std
-    sr = _sigma_r(meta, counts, log_sum, log_sq)
+    sr = _sigma_r(meta, counts, log_sum, log_sq, reduce)
     lam = 1.0 / meta.tau0 ** 2 + counts / sr ** 2
     mu = log_sum / (sr ** 2 * lam)
     v = 1.0 / lam
@@ -179,7 +190,8 @@ def _fold_predict(model, state, counts, log_sum, log_sq, size):
 
 
 def _stacked_tick_core(state: EstimatorState, obs, size,
-                       host_deadjust: bool, waves: tuple[int, int]):
+                       host_deadjust: bool, waves: tuple[int, int],
+                       reduce=_local):
     """One fused tick of W stacked workflows on device tensors.  Every
     leaf of ``state`` carries a leading (W,) axis; ``obs`` is the (W, B,
     10) batch of ``pack_waves`` (float64, on the state's device), ``size``
@@ -191,7 +203,13 @@ def _stacked_tick_core(state: EstimatorState, obs, size,
     col`` in the bias scatter, so each wave is one ``index_add_`` for the
     whole fleet and stays order-exact; the two reductions over a
     workflow's whole state — the empirical-Bayes ``sigma_r`` and the
-    decay trigger — are taken per workflow.  Updates the leaves in place
+    decay trigger — are taken per workflow, and completed by ``reduce``
+    (``reduce(*tensors)`` returns each (W, ...) tensor summed, a bool one
+    OR-ed, over the processes that hold the workflows' other task rows;
+    the default is the identity: the workflows are whole here).  It is
+    called the same number of times in the same order on every process,
+    whatever its rows received: the sequence depends on ``state.meta``
+    alone.  Updates the leaves in place
     and returns ``(state, mean, std, y_local)``: the refreshed (W, T, N)
     estimate matrices and the (W, B) local-equivalent runtimes that
     entered the model (input order).  Every shape depends on (W, B, T,
@@ -223,7 +241,7 @@ def _stacked_tick_core(state: EstimatorState, obs, size,
     elif meta.bias_correction:
         # tick-START bias point estimates (the same values the legacy
         # path reads via ``BiasModel.point`` before updating anything)
-        sr0 = _sigma_r(meta, counts, log_sum, log_sq)
+        sr0 = _sigma_r(meta, counts, log_sum, log_sq, reduce)
         if isinstance(sr0, torch.Tensor):
             sr0 = sr0.reshape(W)[wid]
         n0 = counts[wid, rows, safe_b]
@@ -280,7 +298,7 @@ def _stacked_tick_core(state: EstimatorState, obs, size,
             # one update is one forgetting step: decay fires iff the tick
             # contributes any residual to the workflow, exactly like
             # ``BiasModel.update``
-            fire = resid_ok.reshape(W, B).any(1).reshape(1, W, 1)
+            fire, = reduce(resid_ok.reshape(W, B).any(1).reshape(1, W, 1))
             stats = torch.where(fire, stats * meta.decay, stats)
         slot = WT * n_bias                     # the scratch slot
         ws = torch.zeros((3, slot + 1), dtype=dt, device=dev)
@@ -302,7 +320,8 @@ def _stacked_tick_core(state: EstimatorState, obs, size,
     for name in ("correlated", "median", "spread"):
         dst = getattr(model, name)
         dst.copy_(getattr(new_model, name).reshape(dst.shape))
-    mean, std = _fold_predict(model, state, counts, log_sum, log_sq, size)
+    mean, std = _fold_predict(model, state, counts, log_sum, log_sq, size,
+                              reduce)
     return state, mean, std, y.reshape(W, B)
 
 

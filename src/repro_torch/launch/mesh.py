@@ -12,8 +12,9 @@ and the one-device train step is the step on such a mesh
 card a rank and "gloo" for the CPU or for ranks that share a card.
 
 The fleet mesh (``make_fleet_mesh``) is the ("wf", "task") mesh of the
-multi-workflow estimator fleet (``repro_torch.online.fleet``); one card
-is the (1, 1) mesh.
+multi-workflow estimator fleet (``repro_torch.online.fleet``): a ``Mesh``
+of the group's processes where the group holds more than one, else a
+``FleetMesh`` of this process's devices; one card is the (1, 1) mesh.
 """
 from __future__ import annotations
 
@@ -231,13 +232,27 @@ class FleetMesh:
 
 
 def make_fleet_mesh(*, wf: int | None = None, task: int = 1,
-                    device=None) -> FleetMesh:
+                    device=None) -> FleetMesh | Mesh:
     """("wf", "task") mesh for the multi-workflow estimator fleet:
-    workflows go over "wf", task rows over "task".  ``device`` (``None``:
-    every CUDA card, raising without one; ``"cuda:k"`` that card alone;
-    ``"cpu"`` the host) gives the devices; ``wf`` defaults to all of them
-    after the "task" axis takes ``task``.  On one card this is the (1, 1)
-    mesh, on which ``shard_fleet`` places the fleet whole."""
+    workflows go over "wf", task rows over "task".
+
+    With a default process group of more than one process, a ``Mesh`` of
+    the group's processes (``make_mesh``, rank-major, one process a
+    place): ``wf`` defaults to the world size over ``task``, and it
+    raises unless ``wf * task`` is the world size; the rank computes on
+    ``device`` (``make_mesh``'s default: its current card).  Otherwise a
+    ``FleetMesh`` of this process's devices: ``device`` (``None``: every
+    CUDA card, raising without one; ``"cuda:k"`` that card alone;
+    ``"cpu"`` the host), ``wf`` defaulting to all of them after the
+    "task" axis takes ``task``.  On one card this is the (1, 1) mesh, on
+    which ``shard_fleet`` places the fleet whole."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        world = dist.get_world_size()
+        if world % task != 0:
+            raise ValueError(f"{world} processes not divisible by "
+                             f"task={task}")
+        return make_mesh((world // task if wf is None else wf, task),
+                         ("wf", "task"), device=device)
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         devices = [torch.device("cuda", k)

@@ -8,14 +8,17 @@ dim over ("pod", "data") is cut into pod x data pieces, the pod index
 major).  Rank (i, j, ...) holds piece ``index`` of each dim; a leaf is
 replicated along every axis its spec does not name.
 
-This module does four things: it cuts a leaf to a rank's slice
+This module does five things: it cuts a leaf to a rank's slice
 (``shard``, ``slices``), gathers a leaf from the slices (``gather``),
 sums a gradient over the data-parallel axes and cuts it to the rank's
 slice (``reduce_grad``: a reduce-scatter along a dim the spec shards over
 a summed axis, an all-reduce over a summed axis the spec does not name,
-a plain cut over any other axis), and makes a sum of squares over
+a plain cut over any other axis), makes a sum of squares over
 sharded leaves count each element once (``sum_squares``: a leaf
-replicated along an axis contributes from index 0 of that axis only).
+replicated along an axis contributes from index 0 of that axis only),
+and sums a few small tensors and flags over one axis in one call
+(``sum_over``: the multi-workflow fleet's per-workflow reductions over
+"task").
 
 The backend is the process group's (``mesh.init_process_group``): gloo
 on the CPU and for ranks that share a card, NCCL for one card a rank.
@@ -135,6 +138,23 @@ def all_reduce(t: torch.Tensor, axes, mesh) -> torch.Tensor:
             dist.all_reduce(t, group=mesh.group(a))
             _count("all_reduce", t)
     return t
+
+
+def sum_over(tensors, axis: str, mesh) -> tuple[torch.Tensor, ...]:
+    """``tensors`` summed over the mesh axis ``axis`` in one counted
+    all-reduce (``all_reduce`` of their float64 concatenation), each
+    returned in its own shape and dtype; a bool tensor is a flag, true
+    where it is true on any rank of the axis.  Along an axis of one rank
+    the tensors come back as they are, and nothing is launched."""
+    if mesh.shape[axis] == 1:
+        return tuple(tensors)
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+    all_reduce(flat, (axis,), mesh)
+    out = []
+    for part, t in zip(flat.split([t.numel() for t in tensors]), tensors):
+        part = part.reshape(t.shape)
+        out.append(part > 0 if t.dtype == torch.bool else part.to(t.dtype))
+    return tuple(out)
 
 
 def reduce_grad(g: torch.Tensor, sh: Sharding, summed: tuple[str, ...]

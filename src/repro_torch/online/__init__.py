@@ -10,11 +10,13 @@ estimator states in one batched tick.
 from .buffer import Observation, ObservationBuffer
 from .executor import (CensoredRun, ExecutionTrace, OnlineExecutor, TaskRun,
                        fanout_chain_dag, run_static_and_online)
-from .fleet import (FleetState, fleet_predict, fleet_slice, fleet_tick_step,
-                    pad_obs, pad_state, shard_fleet, stack_states)
+from .fleet import (FleetState, fleet_gather, fleet_predict, fleet_slice,
+                    fleet_tick_step, pad_obs, pad_state, shard_fleet,
+                    stack_states)
 
 __all__ = ["Observation", "ObservationBuffer", "CensoredRun",
            "ExecutionTrace", "OnlineExecutor", "TaskRun",
            "fanout_chain_dag", "run_static_and_online", "FleetState",
-           "fleet_predict", "fleet_slice", "fleet_tick_step", "pad_obs",
-           "pad_state", "shard_fleet", "stack_states"]
+           "fleet_gather", "fleet_predict", "fleet_slice",
+           "fleet_tick_step", "pad_obs", "pad_state", "shard_fleet",
+           "stack_states"]

@@ -20,8 +20,18 @@ trigger) are taken per workflow.
 Placement: ``repro_torch.launch.mesh.make_fleet_mesh`` builds a ``("wf",
 "task")`` mesh and ``shard_fleet`` places the stacked leaves on it.  One
 card is the (1, 1) mesh: every leaf goes whole to that device, bit for
-bit the unsharded fleet.  A mesh of more than one device is not ported
-(``shard_fleet`` raises ``NotImplementedError``).
+bit the unsharded fleet.  Over a process group the mesh is a
+``launch.mesh.Mesh`` of processes, and each rank keeps the slice of every
+leaf that ``fleet_pspecs`` gives it (workflows over "wf", task rows over
+"task"); the ``FleetState`` records the mesh (``mesh``), from which its
+first workflow and first task row follow (``_placement``).  Every rank
+passes the same global observations and sizes; a rank ticks the
+observations of its own rows, and the two sums over a workflow's whole
+state (the ``sigma_r`` pooling and the decay trigger) are completed over
+"task" (``launch.sharding.sum_over``), so every rank's slice is the
+unsharded fleet's slice up to the order of those sums.  ``fleet_gather``
+reads the whole (W, T, N) output back on every rank.  A one-process
+mesh of several devices is not ported (``shard_fleet`` raises).
 
 Padding values are chosen inert, not just ignored: padded observation
 rows carry ``valid = 0`` (the tick sends them to a scratch slot, so every
@@ -32,7 +42,7 @@ universe (``node_cols = -1``).  Consumers slice real cells back out with
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -40,8 +50,11 @@ import torch
 from repro_torch.core.blr import (POSTERIOR_FIELDS, BatchedTaskModel,
                                   BLRPosterior, OnlineStats, _to_device)
 from repro_torch.core.state import EstimatorState
-from repro_torch.core.tick import (_fold_predict, _host_obs, _size_tensor,
-                                   _stacked_tick_core, pack_waves)
+from repro_torch.core.tick import (_fold_predict, _host_obs, _local,
+                                   _size_tensor, _stacked_tick_core,
+                                   pack_waves)
+from repro_torch.launch.mesh import FleetMesh
+from repro_torch.launch.sharding import Sharding, gather, shard, sum_over
 
 #: columns of one packed observation row (see ``core.tick``)
 OBS_WIDTH = 8
@@ -53,11 +66,15 @@ class FleetState:
 
     ``state``'s tensor leaves all carry a leading ``(W,)`` axis;
     ``t_count`` / ``n_count`` record how many task rows / node columns of
-    each workflow's padded envelope are real.
+    each workflow's padded envelope are real.  ``mesh`` is the process
+    mesh (``launch.mesh.Mesh``) of a fleet that ``shard_fleet`` spread
+    over processes, whose every leaf is then this rank's slice; ``None``
+    for a fleet held whole by this process.
     """
     state: EstimatorState
     t_count: torch.Tensor    # (W,) int32 real task rows per workflow
     n_count: torch.Tensor    # (W,) int32 real node columns per workflow
+    mesh: object = None
 
 
 def _map_leaves(fn, *states: EstimatorState) -> EstimatorState:
@@ -180,6 +197,41 @@ def stack_states(states) -> FleetState:
     return FleetState(state=stacked, t_count=t_count, n_count=n_count)
 
 
+def _placement(fleet: FleetState, sizes):
+    """This process's part of a fleet call: the sizes of its workflows,
+    the first workflow and first task row it holds (its mesh coordinates
+    times its local extents; 0 on a whole fleet) and the tick core's
+    reduction hook (on a process mesh, each per-workflow sum and flag
+    completed over the ranks of "task" in one all-reduce)."""
+    size = _size_tensor(sizes, fleet.state.factors).reshape(-1)
+    if fleet.mesh is None:
+        return size, 0, 0, _local
+    mesh = fleet.mesh
+    W, T = fleet.state.factors.shape[:2]
+    w0, t0 = mesh.index("wf") * W, mesh.index("task") * T
+    return (size[w0:w0 + W], w0, t0,
+            lambda *tensors: sum_over(tensors, "task", mesh))
+
+
+def _route_obs(obs: np.ndarray, t0: int, T: int) -> np.ndarray:
+    """Of a (W, B, 8) block, the valid observations whose task row lies
+    in [t0, t0 + T), re-based to local rows and kept in input order: each
+    workflow's at the front of its row of the result, cut to the longest
+    (at least one row) and padded with ``valid = 0`` rows.  An
+    observation's wave ranks among its row's are those it had in the
+    whole block, since a row's observations all stay or all go."""
+    rows = obs[..., 0]
+    keep = (obs[..., 7] > 0) & (rows >= t0) & (rows < t0 + T)
+    n = keep.sum(1)
+    b = max(n.max(initial=0), 1)
+    order = np.argsort(~keep, axis=1, kind="stable")[:, :b]
+    out = np.take_along_axis(obs, order[..., None], 1)
+    live = np.arange(b) < n[:, None]
+    out[..., 0] = np.where(live, out[..., 0] - t0, 0.0)
+    out[..., 7] = np.where(live, out[..., 7], 0.0)
+    return out
+
+
 def fleet_tick_step(fleet: FleetState, obs, sizes):
     """One fused tick for every workflow at once, in one batched pass.
 
@@ -191,26 +243,51 @@ def fleet_tick_step(fleet: FleetState, obs, sizes):
     bias (``host_deadjust=False``, as the JAX package's fleet does).
     Returns ``(fleet', mean, std)`` with (W, T, N) estimate matrices; the
     fleet's leaves are updated in place (the counterpart of the JAX
-    package's buffer donation), so ``fleet'`` holds the same tensors."""
+    package's buffer donation), so ``fleet'`` holds the same tensors.
+
+    On a sharded fleet every rank passes the whole (W, B, 8) block and
+    the (W,) sizes; the rank ticks its workflows' observations of its
+    own task rows and returns its (W_local, T_local, N) matrices.  It is
+    collective where the mesh's "task" axis has more than one rank (the
+    ``sigma_r`` sums and the decay flag are all-reduced over it): every
+    rank calls it, whatever its rows receive."""
     st = fleet.state
     W, T, N = st.factors.shape
-    packed, wm, wb = pack_waves(_host_obs(obs).reshape(W, -1, OBS_WIDTH),
-                                N, T)
+    size, w0, t0, reduce = _placement(fleet, sizes)
+    rows = _host_obs(obs)
+    if fleet.mesh is None:
+        rows = rows.reshape(W, -1, OBS_WIDTH)
+    else:
+        rows = _route_obs(rows.reshape(W * fleet.mesh.shape["wf"], -1,
+                                       OBS_WIDTH)[w0:w0 + W], t0, T)
+    packed, wm, wb = pack_waves(rows, N, T)
     new, mean, std, _y = _stacked_tick_core(
-        st, _to_device(packed, st.device, torch.float64),
-        _size_tensor(sizes, st.factors).reshape(W), False, (wm, wb))
-    return (FleetState(state=new, t_count=fleet.t_count,
-                       n_count=fleet.n_count), mean, std)
+        st, _to_device(packed, st.device, torch.float64), size, False,
+        (wm, wb), reduce)
+    return replace(fleet, state=new), mean, std
 
 
 def fleet_predict(fleet: FleetState, sizes):
     """(W, T, N) estimate matrices of every workflow at its own size,
     without absorbing anything — the tick-zero twin of
-    ``fleet_tick_step``'s (mean, std) outputs."""
+    ``fleet_tick_step``'s (mean, std) outputs.  On a sharded fleet: the
+    rank's (W_local, T_local, N) slice from the (W,) sizes, collective as
+    ``fleet_tick_step`` is."""
     st = fleet.state
+    size, _w0, _t0, reduce = _placement(fleet, sizes)
     return _fold_predict(st.model, st, st.bias_counts, st.bias_log_sum,
-                         st.bias_log_sq,
-                         _size_tensor(sizes, st.factors).reshape(-1))
+                         st.bias_log_sq, size, reduce)
+
+
+def fleet_gather(arr, fleet: FleetState):
+    """The whole (W, T, N) fleet output on every rank, from this rank's
+    (W_local, T_local, N) slice ``arr`` of a sharded fleet: gathered over
+    "task", then over "wf".  Collective: every rank of the fleet's mesh
+    calls it.  On a fleet held whole by this process: ``arr`` itself."""
+    if fleet.mesh is None:
+        return arr
+    arr = gather(arr, Sharding(fleet.mesh, (None, "task")))
+    return gather(arr, Sharding(fleet.mesh, _WF))
 
 
 def pad_obs(obs_rows, batch: int) -> np.ndarray:
@@ -230,9 +307,17 @@ def pad_obs(obs_rows, batch: int) -> np.ndarray:
 
 def fleet_slice(arr, fleet: FleetState, w: int) -> np.ndarray:
     """Workflow ``w``'s real (unpadded) cells of a (W, T, N) fleet
-    output, as a host array."""
-    t = int(fleet.t_count[w])
-    n = int(fleet.n_count[w])
+    output, as a host array.  On a sharded fleet ``arr`` is this rank's
+    slice and ``w`` a workflow of the whole fleet: the output and the
+    counts are gathered first (``fleet_gather``), so there the call is
+    collective, and every rank of the mesh makes it."""
+    t_count, n_count = fleet.t_count, fleet.n_count
+    if fleet.mesh is not None:
+        arr = fleet_gather(arr, fleet)
+        wf = Sharding(fleet.mesh, _WF)
+        t_count, n_count = gather(t_count, wf), gather(n_count, wf)
+    t = int(t_count[w])
+    n = int(n_count[w])
     a = arr[w][:t, :n]
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
@@ -269,12 +354,16 @@ def shard_fleet(fleet: FleetState, mesh) -> FleetState:
     """Lay a stacked fleet out over ``mesh``.
 
     Axis extents must divide the mesh ("wf" | W, "task" | T) — raises
-    with the offending extents otherwise.  A (1, 1) mesh (one device)
-    places every leaf whole on that device: a copy that owns its leaves,
-    bit for bit the unsharded fleet.  A mesh of more than one device
-    raises ``NotImplementedError``.
+    with the offending extents otherwise.  A (1, 1) ``FleetMesh`` (one
+    device) places every leaf whole on that device: a copy that owns its
+    leaves, bit for bit the unsharded fleet.  A ``FleetMesh`` of more than
+    one device raises ``NotImplementedError``.  Over a process mesh
+    (``launch.mesh.Mesh``, from ``make_fleet_mesh`` in a process group)
+    every rank passes the same whole fleet and keeps, on the mesh's
+    device, a copy of its slice of each leaf (``fleet_pspecs``,
+    ``launch.sharding.Sharding.slices``); the result records the mesh.
     """
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    sizes = mesh.shape
     w = int(fleet.t_count.shape[0])
     t = int(fleet.state.model.median.shape[-1])
     if "wf" in sizes and w % sizes["wf"] != 0:
@@ -283,16 +372,26 @@ def shard_fleet(fleet: FleetState, mesh) -> FleetState:
     if "task" in sizes and t % sizes["task"] != 0:
         raise ValueError(f"fleet T={t} not divisible by mesh task axis "
                          f"({sizes['task']})")
-    if mesh.devices.size != 1:
-        raise NotImplementedError(
-            f"shard_fleet over a {tuple(mesh.devices.shape)} mesh: a fleet "
-            "spread over more than one device is not ported; one card is "
-            "the (1, 1) mesh")
-    dev = mesh.devices.flat[0]
+    specs = fleet_pspecs(fleet, mesh)
+    if isinstance(mesh, FleetMesh):
+        if mesh.devices.size != 1:
+            raise NotImplementedError(
+                f"shard_fleet over a {tuple(mesh.devices.shape)} mesh: a "
+                "fleet spread over more than one device of one process is "
+                "not ported; spread it over processes (make_fleet_mesh in "
+                "a process group), or use one card, the (1, 1) mesh")
+        dev, held = mesh.devices.flat[0], None
 
-    def place(x):
-        return x.to(dev, copy=True)
+        def place(x, spec):
+            return x.to(dev, copy=True)
+    else:
+        dev, held = mesh.device, mesh
 
-    return FleetState(state=_map_leaves(place, fleet.state),
-                      t_count=place(fleet.t_count),
-                      n_count=place(fleet.n_count))
+        def place(x, spec):
+            return shard(x, Sharding(mesh, spec)).to(
+                dev, copy=True, memory_format=torch.contiguous_format)
+
+    return FleetState(state=_map_leaves(place, fleet.state, specs.state),
+                      t_count=place(fleet.t_count, specs.t_count),
+                      n_count=place(fleet.n_count, specs.n_count),
+                      mesh=held)

@@ -1847,3 +1847,71 @@ def test_sharded_step_of_two_processes_on_the_card(tmp_path):
     assert abs(out["loss"] - float(m["loss"])) <= 3e-2 * abs(float(m["loss"]))
     for a, b in zip(out["grads"], leaves(m["grads"])):
         _grad_close(a, b.cpu(), 3e-2, "grads")
+
+
+_MESH_T_COUNTS = (5, 14, 8, 12)
+
+
+def _fleet_mesh_card_worker(rank, device, out):
+    """One rank of a (1, 2) ("wf", "task") fleet mesh on the one card:
+    ``_fleet_states``' fleet, its predict and four ticks of
+    ``_fleet_obs``; each output's local slice and the last tick's gathered
+    matrices to ``out`` (a file a rank)."""
+    import numpy as np
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.online.fleet import (fleet_gather, fleet_predict,
+                                          fleet_tick_step, shard_fleet,
+                                          stack_states)
+    states, size = _fleet_states(device, _MESH_T_COUNTS)
+    sizes = np.array([size, 0.5 * size, size, 2.0 * size])
+    mesh = make_fleet_mesh(wf=1, task=2, device=device)
+    fleet = shard_fleet(stack_states(states), mesh)
+    N = fleet.state.factors.shape[2]
+    outs = [fleet_predict(fleet, sizes)]
+    for tick in range(4):
+        fleet, m, s = fleet_tick_step(
+            fleet, _fleet_obs(_MESH_T_COUNTS, N, size, tick), sizes)
+        outs.append((m, s))
+    whole = [fleet_gather(x, fleet).cpu() for x in outs[-1]]
+    torch.save({"coords": mesh.coords, "device": str(m.device),
+                "outs": [(m.cpu(), s.cpu()) for m, s in outs],
+                "whole": whole, "calls": dict(sharding.CALLS)},
+               f"{out}{rank}.pt")
+
+
+@pytest.mark.gpu
+def test_fleet_on_a_process_mesh_on_the_card(tmp_path):
+    """chip_smoke.py's phase 16d at the test size: two gloo processes
+    share the card as a (1, 2) ("wf", "task") fleet mesh; each rank's
+    slices of the predict and of four ticks, and the gathered matrices,
+    within 1e-12 of the one-process card fleet."""
+    _need_card()
+    import numpy as np
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.online.fleet import (fleet_predict, fleet_tick_step,
+                                          stack_states)
+    states, size = _fleet_states("cuda", _MESH_T_COUNTS)
+    sizes = np.array([size, 0.5 * size, size, 2.0 * size])
+    fleet = stack_states(states)
+    N = fleet.state.factors.shape[2]
+    ref = [fleet_predict(fleet, sizes)]
+    for tick in range(4):
+        fleet, m, s = fleet_tick_step(
+            fleet, _fleet_obs(_MESH_T_COUNTS, N, size, tick), sizes)
+        ref.append((m, s))
+    spawn(_fleet_mesh_card_worker, 2, (tmp_path / "rank",),
+          rendezvous=tmp_path / "rendezvous", backend="gloo", device="cuda",
+          timeout_s=300)
+    T = fleet.state.factors.shape[1]
+    for r in range(2):
+        out = torch.load(tmp_path / f"rank{r}.pt")
+        assert out["device"].startswith("cuda")
+        t0 = out["coords"][1] * T // 2
+        rows = slice(t0, t0 + T // 2)
+        for (m, s), (rm, rs) in zip(out["outs"], ref):
+            _est_close(m, rm[:, rows].cpu())
+            _est_close(s, rs[:, rows].cpu())
+        _est_close(out["whole"][0], ref[-1][0].cpu())
+        _est_close(out["whole"][1], ref[-1][1].cpu())
+        assert out["calls"].get("all_reduce", 0) > 0
