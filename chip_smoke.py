@@ -254,13 +254,26 @@ in order; any failure ends the run with a non-zero exit code:
    leaf, and ``fleet_gather``'s whole matrices, within 1e-12 of the same
    ticks of the one-process card fleet, which the parent runs before the
    spawn; printed: a tick's host and CUDA-event ms, its collective payload
-   and calls, the gather's ms and bytes, peak memory, bit for bit or not.
+   and calls, the gather's ms and bytes, peak memory, bit for bit or not;
+   16e (after 16d, in the same two ranks) MoE over groups and experts:
+   qwen3-moe-30b-a3b at full width (d_model 2,048, 128 experts, top-8,
+   expert d_ff 768, vocab 151,936) and TRAIN_LAYERS layer, fp32 weights
+   and bf16 activations, one step of 4 x 4,096 tokens at ``moe_groups``
+   2 (S 8,192, C 640) on the (2, 1) mesh (a group a rank) and the (1, 2)
+   mesh (64 experts a rank, their outputs all-gathered over "model"),
+   each rank's loss and gradient slices within 3e-2 x max of the
+   one-process card step at the same groups, which the parent saves
+   before the spawn; printed: each rank's step ms and peak, its gathered
+   bytes (expert leaves and the rest), its exchange bytes, the flash
+   launches, the worst gradient leaf, bit for bit or not (measured
+   only).
 
 The last lines are a ``kernels`` JSON object (phase 16's launches in each
 kernel's ``launches_by_path``), the card's nvidia-smi line and ``{"ok":
 true, "device": {...}}``; the full report goes to
 ``build/reports/chip_smoke.json``.
 """
+import gc
 import json
 import math
 import os
@@ -1165,8 +1178,8 @@ def count_drops(moe, loop):
     route, prefill = moe.route, loop.prefill
     counts, inside = [], [False]
 
-    def counting_route(params, xg, cfg):
-        out = route(params, xg, cfg)
+    def counting_route(*args):
+        out = route(*args)
         if inside[0]:
             counts[-1].append((~out[3]).sum())
         return out
@@ -3679,6 +3692,16 @@ P16_ARCH, P16_SSM = "stablelm-1.6b", ("mamba2-1.3b", 2)
 P16_SEQ, P16_BATCH = 4096, 4
 P16_TOL = 3e-2            # the models' bar at bf16 activations
 P16_TIMEOUT = 240         # seconds for the two ranks, then they are ended
+#: 16e: qwen3-moe at full width and TRAIN_LAYERS layer(s), a microbatch
+#: of P16_BATCH x P16_SEQ tokens in P16_MOE_GROUPS groups (S 8,192, C
+#: 640), on a (2, 1) mesh (a group a rank) and a (1, 2) mesh (64 of the
+#: 128 experts a rank); fp32 weights and bf16 activations, as 16a-16c
+#: (with bf16 weights each rank's gradient is a bf16 partial sum: the
+#: (2, 1) mesh's gradients were 4.96e-2 x max off the one-process step on
+#: the card, past the models' bar)
+P16_MOE = "qwen3-moe-30b-a3b"
+P16_MOE_GROUPS = 2
+P16_MOE_MESHES = ((2, 1), (1, 2))
 
 
 def p16_opt():
@@ -3688,6 +3711,8 @@ def p16_opt():
 
 def p16_config(get_config, arch, n_layers=0):
     cfg = get_config(arch)
+    if arch == P16_MOE:
+        cfg = cfg.with_(moe_groups=P16_MOE_GROUPS)
     return cfg.with_(n_layers=n_layers) if n_layers else cfg
 
 
@@ -3708,6 +3733,14 @@ def p16_expected(cfg) -> dict:
     n = cfg.n_layers
     return {"flash_fwd": 2 * n if attn else 0, "flash_bwd": n if attn else 0,
             "ssd_fwd": 0 if attn else 2 * n, "ssd_bwd": 0 if attn else n}
+
+
+def leaf_paths(tree, prefix=""):
+    """Each leaf's key path, "a/b/c", in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix]
 
 
 def p16_step(torch, step, params, state, batch):
@@ -3884,15 +3917,16 @@ def fleet_on_meshes(torch, device, ref_path):
 
 
 def sharded_worker(rank, device, runs, ref_root, out_dir, fleet_ref):
-    """16b/16c, one rank of the (2, 1) ("data", "model") mesh on the one
-    card: for each (label, arch, n_layers) of ``runs``, the global
-    parameters drawn from seed 0 with this rank's slice kept, this rank's
-    rows of the global batch, one sharded step (timed under the sync
-    trace, its kernel launches and collective bytes counted) held to the
-    one-device step's gradient slices and loss under ``ref_root /
-    label``; then 16d, the fleet on the ("wf", "task") meshes of the two
-    ranks against the reference ``fleet_ref`` (``fleet_on_meshes``).
-    Writes ``rank<r>.json`` to ``out_dir``."""
+    """16b/16c/16e, one rank of a ("data", "model") mesh of the two
+    processes on the one card: for each (label, arch, n_layers, mesh
+    shape, reference) of ``runs``, the global parameters drawn from seed
+    0 with this rank's slice kept, this rank's rows of the global batch,
+    one sharded step (timed under the sync trace, its kernel launches and
+    collective bytes counted) held to the one-device step's gradient
+    slices and loss under ``ref_root / reference``; then 16d, the fleet
+    on the ("wf", "task") meshes of the two ranks against the reference
+    ``fleet_ref`` (``fleet_on_meshes``).  Writes ``rank<r>.json`` to
+    ``out_dir``."""
     from collections import Counter
 
     import torch
@@ -3912,11 +3946,16 @@ def sharded_worker(rank, device, runs, ref_root, out_dir, fleet_ref):
     from repro_torch.optim import state_defs
     from repro_torch.optim.adamw import leaves
 
-    mesh = make_mesh((2, 1), ("data", "model"), device=device)
-    rules = make_rules(mesh)
+    meshes = {}
     opt = p16_opt()
     out = {}
-    for label, arch, n_layers in runs:
+    for label, arch, n_layers, shape, ref_label in runs:
+        shape = tuple(shape)
+        if shape not in meshes:       # every rank forms them in one order
+            meshes[shape] = make_mesh(shape, ("data", "model"),
+                                      device=device)
+        mesh = meshes[shape]
+        rules = make_rules(mesh)
         cfg = p16_config(get_config, arch, n_layers)
         model = build_model(cfg)
         sdefs = state_defs(model.param_defs, opt)
@@ -3948,11 +3987,17 @@ def sharded_worker(rank, device, runs, ref_root, out_dir, fleet_ref):
         gnorm = float(m["grad_norm"])
         grads = leaves(m["grads"])
         rows = batch["tokens"].shape[0]
+        # this rank's slice of an expert leaf: E/tp experts
+        wg = (list(m["grads"]["blocks"]["moe_layer"]["moe"]["wg"].shape)
+              if cfg.moe is not None else None)
         del m, params, state, step, batch
-        ref, manifest = restore(ref_root / label, device=device,
+        ref, manifest = restore(ref_root / ref_label, device=device,
                                 shardings={"grads": psh})
         errs = [grad_rel(g, r) for g, r in zip(grads, leaves(ref["grads"]))]
+        worst = max(range(len(errs)), key=errs.__getitem__)
         ref_loss = manifest["metadata"]["loss"]
+        same = loss == ref_loss and all(
+            torch.equal(g, r) for g, r in zip(grads, leaves(ref["grads"])))
         local_gb = sum(g.numel() * g.element_size() for g in grads) / 1e9
         out[label] = {
             "arch": arch, "n_layers": cfg.n_layers, "mesh": mesh.shape,
@@ -3960,7 +4005,9 @@ def sharded_worker(rank, device, runs, ref_root, out_dir, fleet_ref):
             "loss": loss, "ref_loss": ref_loss,
             "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
             "grad_rel_err": max(errs), "grad_norm": gnorm,
-            "local_grad_gb": local_gb,
+            "worst_leaf": leaf_paths(model.param_defs)[worst],
+            "local_grad_gb": local_gb, "bit_for_bit": same,
+            "expert_leaf_slice": wg,
             "step_ms": ms, "peak_memory_gb": peak_gb,
             "collective": collective, "launches": launches,
             "expected_launches": p16_expected(cfg),
@@ -3969,6 +4016,7 @@ def sharded_worker(rank, device, runs, ref_root, out_dir, fleet_ref):
                            Counter(sites).most_common()},
             "gloo_thread_syncs": native}
         del grads, ref
+        gc.collect()          # the step's reference cycles hold tensors
         torch.cuda.empty_cache()
     out["fleet"] = fleet_on_meshes(torch, device, fleet_ref)
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
@@ -4047,6 +4095,9 @@ def one_device_steps(torch, kernel, ssd_kernel, get_config, label, arch,
          metadata={"loss": float(last["loss"])})
     row["ref_save_s"] = time.perf_counter() - t0
     del runs, last
+    # the step leaves reference cycles (its tensors among them) for the
+    # collector: free them before the card is handed to the ranks
+    gc.collect()
     torch.cuda.empty_cache()
     return row
 
@@ -4089,6 +4140,58 @@ def print_fleet_mesh(fleet, smi):
                   f"gathered {x['gather_rel_err']:.3e} (tol {EST_TOL})")
 
 
+def print_moe_meshes(one, ranks, labels, cfg, smi):
+    """16e's lines, and its gate: each rank's loss and gradient slices
+    within P16_TOL x max of the one-process step, its expert leaves'
+    slices E/tp experts, its flash launches those of a step."""
+    E = cfg.moe.n_experts
+    ms = one["(1, 1) mesh"]["ms"]
+    print(f"== phase 16e: {P16_MOE} at full width, {cfg.n_layers} layer(s), "
+          f"fp32 weights, bf16 activations, {E} experts top-"
+          f"{cfg.moe.top_k}, moe_groups "
+          f"{P16_MOE_GROUPS}, {P16_BATCH} x {P16_SEQ} tokens; {smi}",
+          flush=True)
+    print(f"  one process (the reference): step {ms:.1f} ms, peak "
+          f"{one['(1, 1) mesh']['peak_memory_gb']:.2f} GB, launches "
+          f"{one['(1, 1) mesh']['launches']}", flush=True)
+    for label in labels:
+        for r, rank in enumerate(ranks):
+            x = rank[label]
+            moved, calls = x["collective"]["bytes"], x["collective"]["calls"]
+            tp = x["mesh"]["model"]
+            print(f"  {label} rank {r} {tuple(x['coords'])} ({x['rows']} "
+                  f"rows, expert leaf slice {x['expert_leaf_slice']}): step "
+                  f"{x['step_ms']:.1f} ms, peak {x['peak_memory_gb']:.2f} "
+                  f"GB; gathered: expert leaves "
+                  f"{moved.get('all_gather_experts', 0) / 1e9:.3f} GB, the "
+                  f"rest {moved.get('all_gather', 0) / 1e9:.3f} GB; "
+                  f"exchange {moved.get('exchange', 0) / 1e9:.3f} GB in "
+                  f"{calls.get('exchange', 0)} calls; all collectives (B) "
+                  f"{moved}; loss "
+                  f"{x['loss']:.6f}, loss {x['loss_rel_err']:.2e} and "
+                  f"gradient slices {x['grad_rel_err']:.2e} x max off the "
+                  f"one-process step (tol {P16_TOL}; the worst leaf "
+                  f"{x['worst_leaf']}); bit for bit: "
+                  f"{x['bit_for_bit']} (measured only); flash launches "
+                  f"fwd {x['launches']['flash_fwd']}, bwd "
+                  f"{x['launches']['flash_bwd']}", flush=True)
+            check(x["loss_rel_err"] <= P16_TOL
+                  and x["grad_rel_err"] <= P16_TOL,
+                  f"16e {label} rank {r}: loss {x['loss_rel_err']:.3e}, "
+                  f"gradients {x['grad_rel_err']:.3e} (tol {P16_TOL})")
+            check(x["expert_leaf_slice"][1] == E // tp,
+                  f"16e {label} rank {r}: expert slice "
+                  f"{x['expert_leaf_slice']}, expected {E // tp} experts")
+            check(x["launches"] == x["expected_launches"],
+                  f"16e {label} rank {r}: launches {x['launches']}, "
+                  f"expected {x['expected_launches']}")
+            check((moved.get("exchange", 0) > 0) == (tp > 1),
+                  f"16e {label} rank {r}: exchange "
+                  f"{moved.get('exchange', 0)} B on a mesh of tp {tp}")
+        check(ranks[0][label]["loss"] == ranks[1][label]["loss"],
+              f"16e {label}: the ranks report different losses")
+
+
 def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     """Phase 16: 16a stablelm-1.6b's one-device step without rules and
     through the (1, 1) mesh, bit for bit; 16b the same step on a (2, 1)
@@ -4096,7 +4199,10 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     slices and the loss within P16_TOL x max of 16a's; 16c mamba2-1.3b at
     2 layers, the (2, 1) mesh against its (1, 1) step; 16d the fleet on
     the (2, 1) and (1, 2) ("wf", "task") meshes of the same two ranks
-    against the one-process card fleet (``fleet_reference``)."""
+    against the one-process card fleet (``fleet_reference``); 16e
+    qwen3-moe at full width on the (2, 1) and (1, 2) meshes of the same
+    ranks against its one-process step at ``moe_groups`` 2
+    (``print_moe_meshes``)."""
     import shutil
     from repro_torch.launch.mesh import spawn
     t0 = time.perf_counter()
@@ -4124,6 +4230,17 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
           f"{B:,} observations a workflow a tick, on the card's (1, 1) "
           "mesh", flush=True)
     fleet_one = fleet_reference(torch, work / "fleet_ref.pt")
+    moe_cfg = p16_config(get_config, P16_MOE, TRAIN_LAYERS)
+    print(f"  ({time.perf_counter() - t0:.1f} s) 16e's reference: {P16_MOE} "
+          f"at {TRAIN_LAYERS} layer(s) ({moe_cfg.param_count():,} "
+          f"parameters, fp32 weights, bf16 activations, "
+          f"{moe_cfg.moe.n_experts} experts, top-"
+          f"{moe_cfg.moe.top_k}, moe_groups {P16_MOE_GROUPS}) through the "
+          "(1, 1) mesh", flush=True)
+    one[P16_MOE] = one_device_steps(torch, kernel, ssd_kernel, get_config,
+                                    P16_MOE, P16_MOE, TRAIN_LAYERS,
+                                    work / "ref" / P16_MOE, both=False)
+    gc.collect()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_reserved() / 1e9
     t_spawn = time.perf_counter()
@@ -4131,12 +4248,29 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
           f"({n} layers) on a (2, 1) (\"data\", \"model\") mesh of two "
           "gloo processes sharing the card; each rank's gradient slices "
           f"and the loss within {P16_TOL} x max of the one-device step "
-          f"(this process holds {held_gb:.2f} GB of the card)", flush=True)
-    spawn(sharded_worker, 2,
-          ([(P16_ARCH, P16_ARCH, 0), (arch, arch, n)], work / "ref",
-           work / "out", work / "fleet_ref.pt"),
-          rendezvous=work / "rendezvous", backend="gloo", device="cuda",
-          timeout_s=P16_TIMEOUT)
+          f"(this process holds {held_gb:.2f} GB of the card, "
+          f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB of it are free)",
+          flush=True)
+    moe_runs = [(f"{P16_MOE} {shape}", P16_MOE, TRAIN_LAYERS, shape, P16_MOE)
+                for shape in P16_MOE_MESHES]
+    # two ranks share the card, each near 30 GB at 16b's peak: freed
+    # blocks of one size must serve the next sizes, or the cache's
+    # fragments take the pair past the card (a chip run ran out with 4.65
+    # GB reserved but unallocated in a rank)
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        spawn(sharded_worker, 2,
+              ([(P16_ARCH, P16_ARCH, 0, (2, 1), P16_ARCH),
+                (arch, arch, n, (2, 1), arch)] + moe_runs, work / "ref",
+               work / "out", work / "fleet_ref.pt"),
+              rendezvous=work / "rendezvous", backend="gloo", device="cuda",
+              timeout_s=P16_TIMEOUT)
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
     spawn_s = time.perf_counter() - t_spawn
     ranks = [json.loads((work / "out" / f"rank{r}.json").read_text())
              for r in range(2)]
@@ -4175,6 +4309,8 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     out["fleet"] = {"one_process": fleet_one,
                     "ranks": [r["fleet"] for r in ranks]}
     print_fleet_mesh(out["fleet"], smi)
+    print_moe_meshes(one[P16_MOE], ranks, [r[0] for r in moe_runs],
+                     moe_cfg, smi)
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 16: {out['seconds']:.1f} s (the two ranks "
           f"{spawn_s:.1f} s)", flush=True)
@@ -4582,9 +4718,10 @@ def main() -> int:
     sync_report = run_sync_phase(sync_log, smi)
 
     print("== phase 16: the sharded train step on the card (16a the "
-          "(1, 1) mesh, 16b/16c a (2, 1) mesh of two gloo processes), and "
-          "the fleet on the two processes' (\"wf\", \"task\") meshes (16d)",
-          flush=True)
+          "(1, 1) mesh, 16b/16c a (2, 1) mesh of two gloo processes), "
+          "the fleet on the two processes' (\"wf\", \"task\") meshes (16d), "
+          "and MoE over groups and experts on their (2, 1) and (1, 2) "
+          "meshes (16e)", flush=True)
     sharded = run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi)
     ssm_arch = P16_SSM[0]
 
@@ -4596,6 +4733,15 @@ def main() -> int:
                 f"{label} sharded step, 2 ranks (16)":
                     sum(r[label]["launches"][key] for r in sharded["ranks"])}
 
+    def p16e_launches(key):
+        one = sharded["one_device"][P16_MOE]["(1, 1) mesh"]["launches"]
+        rows = {f"{P16_MOE} one-device step (16e)": one[key]}
+        for shape in P16_MOE_MESHES:
+            label = f"{P16_MOE} {shape}"
+            rows[f"{label} sharded step, 2 ranks (16e)"] = sum(
+                r[label]["launches"][key] for r in sharded["ranks"])
+        return rows
+
     serve_errs = [c["max_abs_err"] for c in checks
                   if c["serve"] and c["dtype"] == "bfloat16"]
     main_row = next(r for r in rows if r["shape"] == "serve decode")
@@ -4605,7 +4751,8 @@ def main() -> int:
                      ENCDEC_ARCH: encdec_run["flash_launches"],
                      "stablelm-1.6b training (13e)":
                          training["full_width"]["flash_fwd_launches"],
-                     **p16_launches(P16_ARCH, "flash_fwd")}
+                     **p16_launches(P16_ARCH, "flash_fwd"),
+                     **p16e_launches("flash_fwd")}
     ssd_by_path = {"mamba2-1.3b": ssd_launches,
                    "zamba2-1.2b": configs["zamba2-1.2b"]["ssd_launches"],
                    "mamba2-1.3b training (13h)":
@@ -4645,10 +4792,12 @@ def main() -> int:
                  "replaces_function": "the gradient of _flash_fwd_kernel",
                  "gradient_of": BWD_GRADIENT_OF,
                  "launches": full["flash_bwd_launches"]
-                 + sum(p16_launches(P16_ARCH, "flash_bwd").values()),
+                 + sum(p16_launches(P16_ARCH, "flash_bwd").values())
+                 + sum(p16e_launches("flash_bwd").values()),
                  "launches_by_path": {"stablelm-1.6b training (13e)":
                                       full["flash_bwd_launches"],
-                                      **p16_launches(P16_ARCH, "flash_bwd")},
+                                      **p16_launches(P16_ARCH, "flash_bwd"),
+                                      **p16e_launches("flash_bwd")},
                  "max_abs_err": bwd_row["max_abs_err"],
                  "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
                  "bound_ms": bwd_row["bound_ms"],

@@ -29,6 +29,7 @@ import torch
 from repro_torch.analysis.roofline import HBM_BYTES, Roofline, model_flops
 from repro_torch.analysis.step_stats import step_stats
 from repro_torch.configs import get_config, list_archs
+from repro_torch.launch.mesh import ONE_PROCESS, make_rules
 from repro_torch.launch.shapes import (SHAPES, ShapeSpec, cell_applicable,
                                        input_specs)
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
@@ -85,10 +86,21 @@ def _nbytes(*trees) -> int:
     return total
 
 
+def _moe_groups_for(cfg, mesh, rules) -> int:
+    """The reference's MoE groups on a mesh: one a data-parallel rank (the
+    product of the rules' dp axes; 1 on the one card)."""
+    dp = 1
+    for a in rules.dp_axes:
+        dp *= mesh.shape[a]
+    return dp
+
+
 def _cell_config(arch: str, dist: dict):
-    """The arch's full config under a distribution's settings (one card:
-    one MoE group)."""
-    cfg = get_config(arch).with_(moe_groups=1)
+    """The arch's full config under a distribution's settings, its MoE
+    groups those of the one card's mesh (``_moe_groups_for``)."""
+    cfg = get_config(arch)
+    cfg = cfg.with_(moe_groups=_moe_groups_for(cfg, ONE_PROCESS,
+                                               make_rules(ONE_PROCESS)))
     if dist.get("param_dtype") == "bf16":
         cfg = cfg.with_(param_dtype=torch.bfloat16)
     if "capacity_factor" in dist and cfg.moe is not None:

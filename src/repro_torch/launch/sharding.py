@@ -100,25 +100,71 @@ def shard(x: torch.Tensor, sh: Sharding) -> torch.Tensor:
     return x[sh.slices(x.shape)]
 
 
-def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, dim: int, group, n: int,
+                kind: str = "all_gather") -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
     out = torch.cat(parts, dim=dim)
-    _count("all_gather", out)
+    _count(kind, out)
     return out
 
 
-def gather(x: torch.Tensor, sh: Sharding) -> torch.Tensor:
+def gather(x: torch.Tensor, sh: Sharding, kind: str = "all_gather"
+           ) -> torch.Tensor:
     """The whole leaf from each rank's slice ``x`` (``x`` itself where
     no axis of the spec has more than one rank).  Along a dim over several
-    axes the minor axis is gathered first, then the next."""
+    axes the minor axis is gathered first, then the next.  The all-gathers
+    are counted under ``kind``."""
     for d, entry in enumerate(sh.spec):
         for a in reversed(axes_of(entry)):
             n = sh.mesh.shape[a]
             if n > 1:
-                x = _all_gather(x, d, sh.mesh.group(a), n)
+                x = _all_gather(x, d, sh.mesh.group(a), n, kind)
     return x
+
+
+class ExpertSlice(torch.autograd.Function):
+    """The MoE's dispatch onto this rank's experts: ``apply(x, mesh,
+    axis)`` is this rank's piece of dim 0 of ``x`` along ``axis`` (x
+    whole and alike on the axis's ranks; no traffic).  The backward
+    all-gathers the pieces' gradients over ``axis`` (counted as
+    "exchange"): every rank gets the whole gradient of ``x``, the
+    one-process bits in the one-process order, and sums no partial
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        n = x.shape[0] // mesh.shape[axis]
+        return x.narrow(0, mesh.index(axis) * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.mesh, ctx.axis
+        return (_all_gather(g, 0, mesh.group(axis), mesh.shape[axis],
+                            "exchange"), None, None)
+
+
+class ExpertGather(torch.autograd.Function):
+    """The MoE's exchange of expert outputs: ``apply(y, mesh, axis)``
+    all-gathers this rank's experts' outputs ``y`` (dim 0) over ``axis``
+    (counted as "exchange"), so that every rank combines all K outputs of
+    each of its tokens.  The backward is the rank's own piece of the
+    gradient: what follows runs alike on the axis's ranks, so a
+    reduce-scatter would add up identical copies of one gradient."""
+
+    @staticmethod
+    def forward(ctx, y, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_gather(y, 0, mesh.group(axis), mesh.shape[axis],
+                           "exchange")
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.mesh, ctx.axis
+        n = g.shape[0] // mesh.shape[axis]
+        return g.narrow(0, mesh.index(axis) * n, n).contiguous(), None, None
 
 
 def _reduce_scatter(g: torch.Tensor, dim: int, group, n: int, index: int

@@ -15,9 +15,13 @@ layer by layer), runs the forward and backward on this rank's rows of the
 batch, sums the gradients over the dp axes and cuts them to the rank's
 slice, and updates the slices.  Ranks along a non-dp axis ("model")
 compute the same rows on the same gathered weights; tensor-parallel
-compute over "model" is ROADMAP.md Queue A item 6.  The one-device step
-is this step on a mesh of one process, where every collective has no
-other rank and does nothing.
+compute over "model" is ROADMAP.md Queue A item 6.  The MoE layers are
+the exception (``models.moe``): their token groups are split over the dp
+axes and their experts over "model", so the expert leaves are gathered
+over the fsdp axes only, each rank computing its own experts, and their
+gradients come out of the backward already cut to the rank's experts.
+The one-device step is this step on a mesh of one process, where every
+collective has no other rank and does nothing.
 """
 from __future__ import annotations
 
@@ -28,22 +32,25 @@ import torch
 from repro_torch.launch import sharding
 from repro_torch.launch.mesh import ONE_PROCESS, make_rules
 from repro_torch.models import Model
-from repro_torch.models.common import AxisRules
+from repro_torch.models.common import AxisRules, tree_map_defs
+from repro_torch.models.moe import is_expert_leaf, shards_for
 from repro_torch.optim import AdamWConfig, apply_updates
 from repro_torch.optim.adamw import leaves, unflatten
 
 
 def _grads(model: Model, params, flat_p, batch, microbatches: int,
-           grad_dtype, count=None):
+           grad_dtype, count=None, **loss_kw):
     """(loss, metrics, grads): ``model.loss`` of ``batch`` and its
     gradients with respect to ``flat_p`` (the leaves of ``params``), each
     batch leaf split into ``microbatches`` along dim 0, each microbatch's
     gradients divided by their count and summed in fp32, cast to
     ``grad_dtype`` where given; loss and metrics are the means over the
     microbatches.  ``count(mb)``, where given, is the token count each
-    microbatch's summed xent is divided by (``Model.loss``)."""
+    microbatch's summed xent is divided by; ``loss_kw`` go to
+    ``Model.loss`` too."""
     def grad_fn(mb):
-        kw = {} if count is None else {"count": count(mb)}
+        kw = dict(loss_kw) if count is None else {**loss_kw,
+                                                  "count": count(mb)}
         loss, metrics = model.loss(params, mb, **kw)
         # every leaf must reach the loss: autograd raises on one that does
         # not (a kernel with no backward would leave it so), rather than
@@ -79,17 +86,27 @@ def _grads(model: Model, params, flat_p, batch, microbatches: int,
     return loss, metrics, acc
 
 
-def _shardings_like(params, tree_sh, mesh):
-    """``tree_sh`` over the keys of ``params``: a leaf the model does not
-    define is replicated (and autograd raises for it, as for any leaf that
-    does not reach the loss)."""
+def _like(params, tree, missing):
+    """``tree`` over the keys of ``params``, ``missing(leaf)`` at a leaf
+    the model does not define (replicated: autograd raises for it, as for
+    any leaf that does not reach the loss)."""
     if isinstance(params, dict):
-        sub = tree_sh if isinstance(tree_sh, dict) else {}
-        return {k: _shardings_like(v, sub.get(k), mesh)
-                for k, v in params.items()}
-    if isinstance(tree_sh, sharding.Sharding):
-        return tree_sh
-    return sharding.Sharding(mesh, (None,) * params.dim())
+        sub = tree if isinstance(tree, dict) else {}
+        return {k: _like(v, sub.get(k), missing) for k, v in params.items()}
+    return missing(params) if tree is None or isinstance(tree, dict) \
+        else tree
+
+
+def _compute_spec(d, rules: AxisRules, experts: tuple[str, ...]) -> tuple:
+    """The layout a leaf is gathered to for the forward: its spec, less
+    the expert axes ``experts`` on an expert leaf (``moe.is_expert_leaf``),
+    which stays this rank's experts."""
+    spec = list(d.spec(rules))
+    if is_expert_leaf(d):
+        i = d.logical_axes.index("experts")
+        kept = tuple(a for a in sharding.axes_of(spec[i]) if a not in experts)
+        spec[i] = kept or None
+    return tuple(spec)
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
@@ -111,28 +128,43 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     rank's rows of the global batch (``launch.sharding.local_batch``,
     microbatch by microbatch), each microbatch's xent is divided by the
     token count of the whole microbatch (its ``sum(mask)`` summed over the
-    dp axes), and the metrics are the one-device step's (loss and xent
-    summed over the dp axes; "grads" this rank's slices).  On a mesh of
+    dp axes), and the metrics are the one-device step's (loss, xent and
+    aux summed over the dp axes; "grads" this rank's slices).  On a mesh of
     one process every slice is the whole leaf and no collective runs: it
-    is the one-device step.  Raises for a config with MoE layers where the
-    dp axes hold more than one rank, and for int8 AdamW state on more than
-    one process."""
+    is the one-device step.
+
+    With MoE layers, ``cfg.moe_groups`` groups a microbatch are split over
+    the dp ranks and the experts over "model" (``models.moe``): each rank
+    holds, gathers and computes E/tp experts of each expert leaf, and its
+    aux loss is its share of the microbatch's.  The step raises where
+    ``moe_groups`` (0 read as one group) is not a multiple of the dp
+    ranks, and, when called, where a microbatch's token count falls back
+    to one group while dp > 1.  It raises too for int8 AdamW state on more
+    than one process."""
     mesh = mesh or ONE_PROCESS
     rules = rules or make_rules(mesh)
     summed = sharding.dp_axes(mesh, rules)
-    if model.cfg.moe is not None and summed:
-        raise NotImplementedError(
-            f"{model.cfg.arch} has MoE layers, whose capacity and "
-            "load-balancing loss are computed over the batch's groups: a "
-            f"batch split over the dp axes {summed} would drop other "
-            "tokens.  MoE over groups with an all-to-all is ROADMAP.md "
-            "Queue A item 4; on a (1, k) mesh MoE runs")
+    experts = ()
+    if model.cfg.moe is not None:
+        axis = shards_for(model.cfg, rules, mesh).expert_axis
+        experts = (axis,) if axis else ()
     if opt_cfg.state_dtype == "int8" and mesh.size > 1:
         raise NotImplementedError(
             "int8 AdamW state is coded in blocks of the flattened whole "
             "leaf, which a rank's slice does not hold; use fp32 or bf16 "
             "state on a mesh")
     tree_sh = sharding.tree_shardings(model.param_specs(rules), mesh)
+    # the layout of the forward's leaves: the expert leaves stay this
+    # rank's experts (gathered over the fsdp axes only), the rest whole
+    compute_sh = sharding.tree_shardings(tree_map_defs(
+        lambda d: _compute_spec(d, rules, experts), model.param_defs), mesh)
+    # the expert leaves' gathers are counted apart
+    gather_kinds = tree_map_defs(
+        lambda d: "all_gather_experts" if is_expert_leaf(d) else "all_gather",
+        model.param_defs)
+
+    def replicated(p):
+        return sharding.Sharding(mesh, (None,) * p.dim())
 
     def count(mb):
         labels = mb["labels"]
@@ -144,26 +176,40 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
 
     def train_step(params, opt_state, batch):
         flat_local = leaves(params)
-        flat_sh = leaves(_shardings_like(params, tree_sh, mesh))
-        full = [sharding.gather(p, sh) for p, sh in zip(flat_local, flat_sh)]
+        flat_sh = leaves(_like(params, tree_sh, replicated))
+        flat_csh = leaves(_like(params, compute_sh, replicated))
+        kinds = leaves(_like(params, gather_kinds, lambda p: "all_gather"))
+        full = [sharding.gather(p, csh, kind)
+                for p, csh, kind in zip(flat_local, flat_csh, kinds)]
         for p in full:
             p.requires_grad_(True)
         # a microbatch not split over dp divides by its own count
         loss, metrics, grads = _grads(model, unflatten(params, full), full,
                                       batch, microbatches, grad_dtype,
-                                      count if summed else None)
+                                      count if summed else None,
+                                      rules=rules, mesh=mesh)
         for p in flat_local:
             p.requires_grad_(False)
         del full
         grads = list(grads)
         local = []
-        for i, sh in enumerate(flat_sh):
-            local.append(sharding.reduce_grad(grads[i], sh, summed))
+        for i, csh in enumerate(flat_csh):
+            # an expert gradient is already this rank's experts: only its
+            # dp sum and its fsdp cut are left (the layout it was gathered
+            # to)
+            local.append(sharding.reduce_grad(grads[i], csh, summed))
             grads[i] = None        # the whole gradient goes now
         if summed:
-            sums = sharding.all_reduce(torch.stack([loss, metrics["xent"]]),
-                                       summed, mesh)
-            loss, metrics = sums[0], {**metrics, "xent": sums[1]}
+            # each rank's loss, xent and aux are its shares (the MoE's aux
+            # too, models.moe): their dp sums are the batch's, the aux
+            # counted once, not once a rank; so are the gradients' sums
+            sums = sharding.all_reduce(
+                torch.stack([loss, metrics["xent"], metrics["aux"]]),
+                summed, mesh)
+            loss = sums[0]
+            metrics = {**metrics, "xent": sums[1], "aux": sums[2]}
+        # each element of a leaf once, from the layout it lives in: an
+        # expert leaf's slices along "model" are different experts
         gnorm = torch.sqrt(sharding.sum_squares(local, flat_sh))
         grads = unflatten(params, local)
         params, opt_state, opt_metrics = apply_updates(

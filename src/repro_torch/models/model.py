@@ -82,14 +82,18 @@ class Model:
         defs = self.cache_defs(batch, max_len, cross_len, cache_dtype)
         return tree_defs_to_abstract(defs, mesh, rules)
 
-    def loss(self, params, batch: dict, *, count=None):
+    def loss(self, params, batch: dict, *, count=None, rules=None,
+             mesh=None):
         """(loss, {"xent", "aux"}): ``encdec_loss`` or ``lm_loss``.
         ``count``: the token count the summed xent is divided by (default:
         this batch's ``sum(mask)``); a sharded step passes the count of
-        the global batch, so that the ranks' losses sum to its loss."""
+        the global batch and its ``rules`` and ``mesh`` (the MoE layers'
+        groups and experts, ``moe.apply_moe``), so that the ranks' losses,
+        xents and aux losses sum to the batch's over the dp axes."""
         if self.cfg.family == "encdec":
             return _encdec.encdec_loss(params, self.cfg, batch, count=count)
-        return _tf.lm_loss(params, self.cfg, batch, count=count)
+        return _tf.lm_loss(params, self.cfg, batch, count=count, rules=rules,
+                           mesh=mesh)
 
     def prefill(self, params, batch: dict, caches):
         if self.cfg.family == "encdec":

@@ -225,17 +225,21 @@ def _apply_dense_layer(p, h, cfg, positions, cache, cache_index):
     return h, cache
 
 
-def _apply_moe_layer(p, h, cfg, positions, cache, cache_index):
-    """Attention, then the MoE in place of the MLP.  Returns (h, aux)."""
+def _apply_moe_layer(p, h, cfg, positions, cache, cache_index, rules=None,
+                     mesh=None):
+    """Attention, then the MoE in place of the MLP (on ``mesh`` where
+    given: ``apply_moe``).  Returns (h, aux)."""
     a, _ = self_attention(p["attn"], apply_norm(p["ln1"], h, cfg.norm),
                           cfg, causal=True, positions=positions,
                           cache=cache, cache_index=cache_index)
     h = h + a
-    mo, aux = apply_moe(p["moe"], apply_norm(p["ln2"], h, cfg.norm), cfg)
+    mo, aux = apply_moe(p["moe"], apply_norm(p["ln2"], h, cfg.norm), cfg,
+                        rules, mesh)
     return h + mo, aux
 
 
-def _apply_moe_unit(p, h, cfg, positions, cache, cache_index):
+def _apply_moe_unit(p, h, cfg, positions, cache, cache_index, rules=None,
+                    mesh=None):
     """The unit's ``every - 1`` dense layers, then its MoE layer (the JAX
     package's ``_apply_unit`` order).  Returns (h, the MoE layer's aux
     loss)."""
@@ -244,7 +248,8 @@ def _apply_moe_unit(p, h, cfg, positions, cache, cache_index):
         h, _ = _apply_dense_layer(p[key], h, cfg, positions,
                                   _sub(cache, key), cache_index)
     return _apply_moe_layer(p["moe_layer"], h, cfg, positions,
-                            _sub(cache, "moe_layer"), cache_index)
+                            _sub(cache, "moe_layer"), cache_index, rules,
+                            mesh)
 
 
 def _sub(cache, key):
@@ -317,12 +322,15 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def trunk(params, cfg: ModelConfig, batch: dict, caches: dict | None = None,
-          cache_index: int = 0, decode: bool = False):
+          cache_index: int = 0, decode: bool = False, *,
+          rules=None, mesh=None):
     """Embed + all blocks (+ the hybrid's tail) + final norm.  With
     ``caches`` they are updated in place; without (training), each unit
     runs under ``_remat``.  ``decode`` takes the Mamba-2 layers'
-    one-token recurrence.  Returns (h, caches, aux): aux is the sum of the
-    MoE units' load-balancing losses (0 in the other families)."""
+    one-token recurrence.  ``rules`` and ``mesh`` go to ``apply_moe`` (a
+    sharded step's: this rank's rows and expert slices).  Returns (h,
+    caches, aux): aux is the sum of the MoE units' load-balancing losses
+    (0 in the other families; on a mesh this rank's share)."""
     _check_family(cfg)
     h = _embed_inputs(params, cfg, batch)
     B, T = h.shape[0], h.shape[1]
@@ -339,7 +347,8 @@ def trunk(params, cfg: ModelConfig, batch: dict, caches: dict | None = None,
                                       positions, cache, cache_index,
                                       decode), zero
         if cfg.family == "moe":
-            return _apply_moe_unit(p, h, cfg, positions, cache, cache_index)
+            return _apply_moe_unit(p, h, cfg, positions, cache, cache_index,
+                                   rules, mesh)
         return _apply_dense_layer(p, h, cfg, positions, cache,
                                   cache_index)[0], zero
 
@@ -431,13 +440,14 @@ def chunked_xent(h, w_out, labels, mask, cfg: ModelConfig, count=None):
     return tot / torch.clamp(cnt if count is None else count, min=1.0)
 
 
-def lm_loss(params, cfg: ModelConfig, batch: dict, *, count=None):
+def lm_loss(params, cfg: ModelConfig, batch: dict, *, count=None,
+            rules=None, mesh=None):
     """Mean next-token xent over ``batch["labels"]`` (masked by
     ``batch["mask"]`` where given; the sum over ``count`` tokens where
     given, ``chunked_xent``) plus ``AUX_LOSS_COEF`` x the MoE aux loss.
-    vlm: over the text region after the vision embeddings.  Returns
-    (loss, {"xent", "aux"})."""
-    h, _, aux = trunk(params, cfg, batch)
+    vlm: over the text region after the vision embeddings.  ``rules``,
+    ``mesh``: ``trunk``'s.  Returns (loss, {"xent", "aux"})."""
+    h, _, aux = trunk(params, cfg, batch, rules=rules, mesh=mesh)
     labels = batch["labels"]
     mask = batch.get("mask")
     mask = (torch.ones(labels.shape, dtype=torch.float32,

@@ -291,3 +291,22 @@ def test_long_500k_skips_the_full_attention_archs(arch):
     rec = run_cell(arch, "long_500k")
     subquadratic = rec["family"] in ("ssm", "hybrid")
     assert rec["status"] == ("ok" if subquadratic else "skip")
+
+
+@pytest.mark.parametrize("shape,axes,groups", [
+    ((1, 1, 1), ("pod", "data", "model"), 1),
+    ((16, 16), ("data", "model"), 16),
+    ((2, 16, 16), ("pod", "data", "model"), 32)])
+def test_moe_groups_are_the_dp_ranks_and_one_on_the_card(shape, axes,
+                                                         groups):
+    """``_moe_groups_for`` is the reference's rule (the product of the dp
+    axes): 1 on the one card's mesh, so every MoE cell keeps one group
+    and its record."""
+    from repro_torch.launch.dryrun import (ARCH_DIST, _cell_config,
+                                           _moe_groups_for)
+    from repro_torch.launch.mesh import Mesh, make_rules
+    mesh = Mesh(axes, shape, (0,) * len(shape))
+    for arch in ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b"):
+        cfg = _cell_config(arch, ARCH_DIST[arch])
+        assert _moe_groups_for(cfg, mesh, make_rules(mesh)) == groups
+        assert cfg.moe_groups == 1

@@ -1915,3 +1915,90 @@ def test_fleet_on_a_process_mesh_on_the_card(tmp_path):
         _est_close(out["whole"][0], ref[-1][0].cpu())
         _est_close(out["whole"][1], ref[-1][1].cpu())
         assert out["calls"].get("all_reduce", 0) > 0
+
+
+def _moe_mesh_card_worker(rank, device, inputs, out):
+    """One rank of a (1, 2) ("data", "model") mesh on the one card: a
+    sharded step of the widened qwen3-moe smoke config (bf16 activations)
+    from the given whole weights, each rank computing 4 of its 8 experts;
+    the gathered gradients, the loss, the local expert slices, the
+    exchange's payload and the kernel launches to ``out`` (rank 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_defs_to_specs
+    from repro_torch.optim import AdamWConfig, state_defs
+    from repro_torch.optim.adamw import leaves, unflatten
+    params, batch = torch.load(inputs)
+    cfg = _small("qwen3-moe-30b-a3b").with_(dtype=torch.bfloat16)
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    mesh = make_mesh((1, 2), ("data", "model"), device=device)
+    rules = make_rules(mesh)
+    psh = sharding.tree_shardings(model.param_specs(rules), mesh)
+    sdefs = state_defs(model.param_defs, opt)
+    ssh = sharding.tree_shardings(tree_defs_to_specs(sdefs, rules), mesh)
+    local = unflatten(params, [sharding.shard(x.to(device), sh).clone()
+                               for x, sh in zip(leaves(params),
+                                                leaves(psh))])
+    state = sharding.init_local(sdefs, None, device, ssh)
+    step = make_train_step(model, opt, rules=rules, mesh=mesh,
+                           keep_grads=True)
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    sharding.reset_counts()
+    _, _, m = step(local, state, sharding.local_batch(
+        {k: v.to(device) for k, v in batch.items()}, mesh, rules))
+    launches = (kernel.LAUNCHES, kernel.BWD_LAUNCHES)
+    grads = [sharding.gather(g, sh).cpu()
+             for g, sh in zip(leaves(m["grads"]), leaves(psh))]
+    if rank == 0:
+        torch.save({"loss": float(m["loss"]), "grads": grads,
+                    "launches": launches,
+                    "experts": tuple(local["blocks"]["moe_layer"]["moe"]
+                                     ["wg"].shape),
+                    "exchange": sharding.BYTES.get("exchange", 0)}, out)
+
+
+@pytest.mark.gpu
+def test_moe_on_a_process_mesh_on_the_card(tmp_path):
+    """chip_smoke.py's phase 16e at the test size: two gloo processes
+    share the card as a (1, 2) ("data", "model") mesh and take a step of
+    the widened qwen3-moe smoke config with bf16 activations, each rank
+    holding and computing 4 of the 8 experts and all-gathering their
+    outputs over "model"; the loss and the gathered gradients within 3e-2
+    x max of the one-process step on the card (the models' bar at bf16),
+    every attention through the flash kernels."""
+    _need_card()
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_defs_init
+    from repro_torch.optim import AdamWConfig, state_defs
+    from repro_torch.optim.adamw import leaves
+    cfg = _small("qwen3-moe-30b-a3b").with_(dtype=torch.bfloat16)
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    params = _unit_scores(model.init(0, device="cpu"),
+                          cfg.resolved_head_dim() ** -0.5)
+    batch = SyntheticLMData(cfg, seq=64, global_batch=4, seed=2,
+                            device="cpu").batch(0)
+    torch.save((params, batch), tmp_path / "inputs.pt")
+    state = tree_defs_init(state_defs(model.param_defs, opt), None, "cuda")
+    _, _, m = make_train_step(model, opt, keep_grads=True)(
+        _to(params, "cuda"), state, _to(batch, "cuda"))
+    spawn(_moe_mesh_card_worker, 2, (tmp_path / "inputs.pt",
+                                     tmp_path / "out.pt"),
+          rendezvous=tmp_path / "rendezvous", backend="gloo", device="cuda",
+          timeout_s=300)
+    out = torch.load(tmp_path / "out.pt")
+    E = cfg.moe.n_experts
+    assert out["experts"][1] == E // 2
+    assert out["exchange"] > 0
+    assert out["launches"] == (2 * cfg.n_layers, cfg.n_layers)
+    assert abs(out["loss"] - float(m["loss"])) <= 3e-2 * abs(float(m["loss"]))
+    for a, b in zip(out["grads"], leaves(m["grads"])):
+        _grad_close(a, b.cpu(), 3e-2, "grads")

@@ -266,9 +266,10 @@ def _mesh_of(dims):
 
 
 def test_serving_on_a_mesh_and_moe_over_dp_raise():
-    """Serving on a mesh of more than one process and a MoE config with
-    the batch split over dp raise, naming the ROADMAP item; MoE on a
-    (1, k) mesh and serving on a (1, 1) mesh build."""
+    """Serving on a mesh of more than one process raises, naming the
+    ROADMAP item, and so does a MoE config whose groups (``moe_groups``
+    0: one) do not split over the dp ranks; MoE at ``moe_groups`` = dp,
+    MoE on a (1, k) mesh and serving on a (1, 1) mesh build."""
     cfg = smoke_config("qwen3-moe-30b-a3b")
     model = build_model(cfg)
     opt = AdamWConfig()
@@ -276,8 +277,10 @@ def test_serving_on_a_mesh_and_moe_over_dp_raise():
         with pytest.raises(NotImplementedError, match="Queue A item 7"):
             make(model, mesh=_mesh_of((2, 1)))
         make(model, mesh=_mesh_of((1, 1)))
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(ValueError, match="a multiple of 2"):
         make_train_step(model, opt, mesh=_mesh_of((2, 1)))
+    make_train_step(build_model(cfg.with_(moe_groups=2)), opt,
+                    mesh=_mesh_of((2, 1)))
     make_train_step(model, opt, mesh=_mesh_of((1, 2)))
     dense = build_model(smoke_config("qwen2-7b"))
     with pytest.raises(NotImplementedError, match="int8"):

@@ -15,9 +15,12 @@ within 180 s):
   tests/test_torch_train.py; ``grad_norm`` to the port's one-device step
   within 1e-6 relative; the updated weights to the port's one-device
   AdamW fed the same (gathered) gradients, at 1e-6 x max.
-* two processes: MoE on a (2, 1) mesh raises; on a (1, 2) mesh it runs,
-  its loss and gathered gradients equal to the one-device step bit for
-  bit (no dp sum: each rank cuts the same whole gradient).
+* two processes: MoE at ``moe_groups`` 0 (one group) on a (2, 1) mesh
+  raises, one group not splitting over two dp ranks
+  (tests/test_torch_moe_mesh.py runs MoE over groups); on a (1, 2) mesh
+  it runs, each rank computing its 4 of the 8 experts, its loss and
+  gathered gradients equal to the one-device step bit for bit (no dp
+  sum).
 * a (2, 2) mesh trains 3 steps and fails before the third; its last
   checkpoint restores through the one-process ``restore`` and onto a
   (1, 1) mesh bit for bit equal to the gathered state, and a one-process
@@ -111,7 +114,7 @@ def _moe_worker(rank, device, inputs, out):
     try:
         make_train_step(model, OPT, rules=make_rules(wide), mesh=wide)
         raised = ""
-    except NotImplementedError as e:
+    except ValueError as e:
         raised = str(e)
     mesh = make_mesh((1, 2), ("data", "model"), device=device)
     rules = make_rules(mesh)
@@ -262,7 +265,7 @@ def test_moe_raises_over_dp_and_runs_over_model(tmp_path):
     _run(tmp_path, _moe_worker, 2, tmp_path / "inputs.pt",
          tmp_path / "out.pt")
     out = torch.load(tmp_path / "out.pt")
-    assert "Queue A item 4" in out["raised"]
+    assert "do not split over the 2 ranks" in out["raised"]
     one = make_train_step(model, OPT, keep_grads=True)
     _, _, m = one(_copy(params), _zero_state(model), batch)
     assert torch.equal(out["loss"], m["loss"])
