@@ -267,9 +267,39 @@ in order; any failure ends the run with a non-zero exit code:
    bytes (expert leaves and the rest), its exchange bytes, the flash
    launches, the worst gradient leaf, bit for bit or not (measured
    only).
+17. serving on a ("data", "model") mesh (``make_prefill_step`` /
+   ``make_decode_step`` and ``ServeLoop`` with ``rules`` and ``mesh``):
+   17a the flash kernel at qwen2-7b's head counts on a rank of tp 2 (14
+   query heads, 2 KV heads, D 128) and the SSD kernel at mamba2-1.3b's
+   (32 heads), every prefill and decode call of their serve batches,
+   against the plain versions; 17b the one-process serve on the card of
+   qwen2-7b (28 layers, bf16 activations), mamba2-1.3b (48 layers at
+   float32 activations: at bf16 one process's serve of 2 rows lies ~0.1
+   x max of the logits from its serve of 4; and 2
+   layers at bf16) at full width with bf16 weights (seed 0, attention at
+   unit score variance as in phase 6: at the init's scores 28 layers
+   carry any rounding difference to the size of the logits), 8 requests
+   of 4-16 prompt tokens and 12 new tokens (seed 0), greedy, its tokens
+   and logits saved, and its serve of each batch's first two rows (how
+   far a change of batch shape alone moves them, printed; for qwen2-7b
+   one batch's, through cuBLAS's order of sums for ``wk`` at 26 rows:
+   ``scripts/serve_mesh_probe_torch.py``); 17c two gloo processes
+   sharing the card serve them, qwen2-7b on the (1, 2) and (2, 1) meshes
+   and mamba2-1.3b on (1, 2), each rank holding its serving copies of
+   the weights and caches, the 17b tokens fed back: each rank's logits
+   within 3e-2 x max of 17b's at every step, its flash and SSD launches
+   (counted from 0 over that serve) those of its forwards, a decode
+   step's collectives 2 x n_layers "tp_sum" (mamba2: n_layers "tp_sum"
+   and "norm_sum"), one "embed_sum" and one "argmax" at tp 2 and none at
+   tp 1, its weights and caches at most 0.55 of one process's at tp 2;
+   then the queue served again by the rank's ``ServeLoop`` itself;
+   printed: per rank the weights and caches held, prefill and decode step
+   ms, peak memory, the collectives by kind, greedy tokens equal to 17b's
+   (measured only).
 
-The last lines are a ``kernels`` JSON object (phase 16's launches in each
-kernel's ``launches_by_path``), the card's nvidia-smi line and ``{"ok":
+The last lines are a ``kernels`` JSON object (phase 16's and 17's
+launches in each kernel's ``launches_by_path``), the card's nvidia-smi
+line and ``{"ok":
 true, "device": {...}}``; the full report goes to
 ``build/reports/chip_smoke.json``.
 """
@@ -277,6 +307,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -681,8 +712,9 @@ def model_reference_check(torch, build_model, cfg, params, B, T, steps, tol,
     extra = extra or {}
     n = T + (extra["vision_embeds"].shape[1] if "vision_embeds" in extra
              else 0)
-    logits = {}
+    logits, seconds = {}, {}
     for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
         p = to_device(params, dev)
         caches = model.init_caches(B, n + steps, device=dev, **cache_kw)
         with torch.inference_mode():
@@ -699,6 +731,7 @@ def model_reference_check(torch, build_model, cfg, params, B, T, steps, tol,
                 outs.append(out.float().cpu())
         logits[dev] = outs
         del p, caches
+        seconds[dev] = time.perf_counter() - t0
     worst = 0.0
     for a, b in zip(logits["cuda"], logits["cpu"]):
         check(bool(torch.isfinite(a).all()), f"{label}: non-finite logits")
@@ -708,7 +741,8 @@ def model_reference_check(torch, build_model, cfg, params, B, T, steps, tol,
               f"{label}: card vs CPU logits differ by {rel:.3e} "
               f"x max|logit| (tol {tol})")
     print(f"  {label}: card vs CPU logits max err {worst:.3e} x max|logit| "
-          f"({'tol' if check_tol else 'measured only; the bar is'} {tol})",
+          f"({'tol' if check_tol else 'measured only; the bar is'} {tol}; "
+          f"card {seconds['cuda']:.1f} s, CPU {seconds['cpu']:.1f} s)",
           flush=True)
     return worst
 
@@ -1096,6 +1130,7 @@ def prefill_decode_consistency(torch, build_model, cfg, params, B, T, tol,
     (``device="cpu"``) the same check runs without the kernel and shows
     how far fp32 rounding alone moves it.  ``extra``: more prefill inputs
     (the encoder-decoder's source frames), the same for both prefills."""
+    t0 = time.perf_counter()
     model = build_model(cfg)
     params = to_device(params, device)
     extra = {k: v.to(device) for k, v in (extra or {}).items()}
@@ -1116,8 +1151,8 @@ def prefill_decode_consistency(torch, build_model, cfg, params, B, T, tol,
     rel = float((full - dec).abs().max() / full.abs().max())
     print(f"  {label}, {device}: prefill {T + 1} against prefill {T} + 1 "
           f"decode step: {rel:.3e} x max|logit| "
-          f"({'tol' if check_tol else 'measured only; the bar is'} {tol})",
-          flush=True)
+          f"({'tol' if check_tol else 'measured only; the bar is'} {tol}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
     check(rel <= tol or not check_tol,
           f"{label}, {device}: {rel:.3e} x max|logit| (tol {tol})")
     return rel
@@ -1287,17 +1322,24 @@ def serve_config(torch, serve, kernel, ssd_kernel, build_model, cfg,
             torch, build_model, f32.with_(n_layers=cfg.hybrid_attn_every),
             one_unit, 2, 6, 2, 1e-4,
             f"{arch} full width 6 layers (one super-unit) float32", **c32)
+        # two super-units and the tail: the shared block read by a second
+        # unit over its own cache, at a third of the 38 layers' CPU time;
+        # the card's prefill-against-decode check keeps all 38
+        every = cfg.hybrid_attn_every
+        deep = f32.with_(n_layers=cfg.n_layers
+                         - (cfg.n_layers // every - 2) * every)
         scaled = unit_score_scale(loop.params, cfg)
-        errs["38 layers, unit score scale"] = model_reference_check(
-            torch, build_model, f32, scaled, 2, 6, 2, 1e-4,
-            f"{arch} full width 38 layers float32, unit score scale", **c32)
-        for dev in ("cuda", "cpu"):
+        two = unit_score_scale(first_layers(loop.params, 2), cfg)
+        what = f"{arch} full width {{}} layers float32, unit score scale"
+        errs[f"{deep.n_layers} layers, unit score scale"] = \
+            model_reference_check(torch, build_model, deep, two, 2, 6, 2,
+                                  1e-4, what.format(deep.n_layers), **c32)
+        for dev, c, p in (("cuda", f32, scaled), ("cpu", deep, two)):
             errs[f"prefill 129 vs 128 + decode, unit score scale, {dev}"] = \
                 prefill_decode_consistency(
-                    torch, build_model, f32, scaled, 2, cfg.ssm.chunk, 1e-4,
-                    f"{arch} full width 38 layers float32, unit score scale",
-                    device=dev)
-        del scaled
+                    torch, build_model, c, p, 2, cfg.ssm.chunk, 1e-4,
+                    what.format(c.n_layers), device=dev)
+        del scaled, two
     elif cfg.family == "moe" and cfg.moe.every > 1:
         # one unit in bf16 (the CPU copy holds every expert): held at the
         # bf16 bar at unit score variance
@@ -4318,6 +4360,414 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 17: serving on a ("data", "model") mesh (two gloo processes)
+# ---------------------------------------------------------------------------
+#: (arch, n_layers (0: the config's), activation dtype, mesh shape) of
+#: the ranks' serves.  mamba2-1.3b's 48 layers at bf16 activations carry
+#: rounding to ~0.1 x max of the logits (one process at 2 rows against 4:
+#: ``scripts/serve_mesh_probe_torch.py``), past any bar, so they run at
+#: float32 activations, and the bf16 path at 2 layers
+P17_RUNS = (("qwen2-7b", 0, "bfloat16", (1, 2)),
+            ("qwen2-7b", 0, "bfloat16", (2, 1)),
+            ("mamba2-1.3b", 0, "float32", (1, 2)),
+            ("mamba2-1.3b", 2, "bfloat16", (1, 2)))
+P17_TOL = 3e-2            # the models' bar at bf16 activations
+P17_TIMEOUT = 300         # seconds for the two ranks, then they are ended
+P17_REQUESTS, P17_NEW = 8, 12
+P17_HELD = 0.55           # at most this share of one process's weights
+P17_DEVICE = "cuda"
+
+
+def p17_config(get_config, arch, n_layers=0, dtype="bfloat16"):
+    """``arch`` at full width with bf16 weights and ``dtype``
+    activations, cut to ``n_layers`` where given."""
+    import torch
+    cfg = get_config(arch).with_(param_dtype=torch.bfloat16,
+                                 dtype=getattr(torch, dtype))
+    return cfg.with_(n_layers=n_layers) if n_layers else cfg
+
+
+def p17_key(arch, n_layers, dtype) -> str:
+    return f"{arch} {n_layers or 'all'} layers {dtype}"
+
+
+def p17_batches(torch, serve, cfg):
+    """The token batches ``serve.main`` forms for P17_REQUESTS requests
+    (prompts of 4-16 tokens, numpy seed 0), left-padded with token 0 as
+    ``ServeLoop.run_batch`` pads them, on the card."""
+    import numpy as np
+    out = []
+    for reqs in serve.batched(serve.make_requests(cfg.vocab, P17_REQUESTS,
+                                                  P17_NEW)):
+        T = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((len(reqs), T), np.int64)
+        for i, r in enumerate(reqs):
+            toks[i, T - len(r.prompt):] = r.prompt
+        out.append(torch.from_numpy(toks).to(P17_DEVICE))
+    return out
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def p17_serve(torch, sharding, model, prefill, decode, params, toks,
+              forced=None, rules=None, mesh=None):
+    """One batch: the prefill, then P17_NEW decode steps fed ``forced``
+    (the reference's tokens, whole-batch rows) where given, else the
+    greedy tokens.  On ``mesh`` this rank's rows, cache slices and vocab
+    slice.  Returns the last-position logits (fp32, on the CPU) and the
+    greedy tokens of every call, the prefill's and each step's ms (host
+    clock, synchronised), the cache bytes and the collectives of the last
+    step."""
+    from collections import Counter
+    B, T = toks.shape
+    rows = sharding.serve_rows(mesh, rules, B)
+    tp = sharding.model_axis(mesh, rules)
+    caches = model.init_caches(B, T + P17_NEW, device=P17_DEVICE,
+                               rules=rules, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": rows.take(toks)}, caches,
+                             rows)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    tok = sharding.greedy(logits[:, -1], tp, model.cfg.vocab)
+    out = {"logits": [logits[:, -1].float().cpu()], "tokens": [tok.cpu()],
+           "prefill_ms": prefill_ms, "step_ms": []}
+    for s in range(P17_NEW):
+        if forced is not None:
+            tok = rows.take(forced[s].to(P17_DEVICE))
+        calls, moved = Counter(sharding.CALLS), Counter(sharding.BYTES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, logits, caches = decode(params, {"tokens": tok[:, None]},
+                                     caches, T + s, rows)
+        torch.cuda.synchronize()
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["logits"].append(logits[:, -1].float().cpu())
+        out["tokens"].append(tok.cpu())
+    out["step_calls"] = dict(Counter(sharding.CALLS) - calls)
+    out["step_bytes"] = dict(Counter(sharding.BYTES) - moved)
+    out["cache_bytes"] = tree_bytes(caches)
+    out["rows"] = (rows.start, rows.count)
+    return out
+
+
+def p17_reset(kernel, ssd_kernel, sharding):
+    kernel.LAUNCHES = ssd_kernel.LAUNCHES = 0
+    sharding.reset_counts()
+
+
+def serving_reference(torch, kernel, ssd_kernel, serve, get_config, arch,
+                      n_layers, dtype, path):
+    """The one-process serve of ``arch`` on the card (weights from seed 0
+    at unit score variance, ``unit_score_scale``; greedy tokens), saved
+    to ``path`` (each batch's tokens and logits) for the ranks; returns
+    its row, with ``floor``: how far the same process's serve of each
+    batch's first half of the rows, fed the same tokens, lies from it
+    (max |difference| over the whole batch's max |logit|): what a change
+    of batch shape alone moves."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    cfg = p17_config(get_config, arch, n_layers, dtype)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # unit score variance, as phases 6 and 16 hold deep models: at the
+    # init's scores attention is near one-hot and 28 layers carry any
+    # rounding difference to the size of the logits
+    params = unit_score_scale(model.init(0, device=P17_DEVICE), cfg)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    p17_reset(kernel, ssd_kernel, sharding)
+    with torch.inference_mode():
+        runs = [p17_serve(torch, sharding, model, prefill, decode, params,
+                          toks) for toks in p17_batches(torch, serve, cfg)]
+        launches = {"flash_fwd": kernel.LAUNCHES,
+                    "ssd_fwd": ssd_kernel.LAUNCHES}
+        floor = 0.0
+        for toks, r in zip(p17_batches(torch, serve, cfg), runs):
+            n = toks.shape[0] // 2
+            half = p17_serve(torch, sharding, model, prefill, decode, params,
+                             toks[:n], forced=[t[:n] for t in r["tokens"]])
+            floor = max([floor] + [float((a - b[:n]).abs().max()
+                                         / b.abs().max())
+                                   for a, b in zip(half["logits"],
+                                                   r["logits"])])
+    torch.save([{"tokens": r["tokens"], "logits": r["logits"]}
+                for r in runs], path)
+    row = {"arch": arch, "n_layers": cfg.n_layers, "dtype": dtype,
+           "floor": floor,
+           "weights_gb": tree_bytes(params) / 1e9,
+           "cache_gb": [r["cache_bytes"] / 1e9 for r in runs],
+           "prefill_ms": [r["prefill_ms"] for r in runs],
+           "step_ms": statistics.median([ms for r in runs
+                                         for ms in r["step_ms"]]),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def serving_mesh_worker(rank, device, runs, ref_dir, out_dir):
+    """One rank of phase 17: for each (arch, n_layers, mesh shape) of
+    ``runs``, a ``ServeLoop`` on the mesh (weights from seed 0, this
+    rank's serving copies, at unit score variance as 17b's), the
+    reference's batches served through its
+    steps with the reference's tokens fed back (its flash and SSD
+    launches and collectives counted, from 0), each step's logits held
+    to the reference's rows and vocab slice; then the queue served by the
+    loop itself (``serve.serve_queue``).  Writes ``rank<r>.json`` to
+    ``out_dir``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.launch import serve, sharding
+    from repro_torch.launch.mesh import make_mesh, make_rules
+
+    meshes, out = {}, {}
+    for arch, n_layers, dtype, shape in runs:
+        shape = tuple(shape)
+        key = p17_key(arch, n_layers, dtype)
+        label = f"{key} {shape}"
+        if shape not in meshes:       # every rank forms them in one order
+            meshes[shape] = make_mesh(shape, ("data", "model"),
+                                      device=device)
+        mesh = meshes[shape]
+        rules = make_rules(mesh)
+        tp = sharding.model_axis(mesh, rules)
+        cfg = p17_config(get_config, arch, n_layers, dtype)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loop = serve.ServeLoop(cfg, rules=rules, mesh=mesh)
+        loop.params = unit_score_scale(loop.params, cfg)   # as 17b's
+        load_s = time.perf_counter() - t0
+        ref = torch.load(Path(ref_dir) / f"{key}.pt")
+        batches = p17_batches(torch, serve, cfg)
+        p17_reset(kernel, ssd_kernel, sharding)
+        runs_ = [p17_serve(torch, sharding, loop.model, loop.prefill,
+                           loop.decode, loop.params, toks,
+                           forced=r["tokens"], rules=rules, mesh=mesh)
+                 for toks, r in zip(batches, ref)]
+        launches = {"flash_fwd": kernel.LAUNCHES,
+                    "ssd_fwd": ssd_kernel.LAUNCHES}
+        totals = {"calls": dict(sharding.CALLS),
+                  "bytes": dict(sharding.BYTES)}
+        errs, agree, n_tok = [], 0, 0
+        V = cfg.vocab
+        for r, want in zip(runs_, ref):
+            start, count = r["rows"]
+            for got, whole, tok, want_tok in zip(r["logits"],
+                                                 want["logits"],
+                                                 r["tokens"],
+                                                 want["tokens"]):
+                vl = got.shape[-1]
+                v0 = tp.part(V)[0] if vl != V else 0
+                part = whole[start:start + count, v0:v0 + vl]
+                errs.append(float((got - part).abs().max()
+                                  / whole.abs().max()))
+                agree += int((tok == want_tok[start:start + count]).sum())
+                n_tok += count
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the ServeLoop's own greedy serve of the same queue
+        summary = serve.serve_queue(loop, serve.make_requests(
+            cfg.vocab, P17_REQUESTS, P17_NEW))
+        out[label] = {
+            "arch": arch, "n_layers": cfg.n_layers, "mesh": mesh.shape,
+            "coords": list(mesh.coords), "tp": tp.size,
+            "rows": [r["rows"] for r in runs_],
+            "load_s": load_s, "weights_gb": tree_bytes(loop.params) / 1e9,
+            "cache_gb": [r["cache_bytes"] / 1e9 for r in runs_],
+            "prefill_ms": [r["prefill_ms"] for r in runs_],
+            "step_ms": statistics.median([ms for r in runs_
+                                          for ms in r["step_ms"]]),
+            "step_calls": runs_[-1]["step_calls"],
+            "step_bytes": runs_[-1]["step_bytes"], "totals": totals,
+            "launches": launches, "rel_err": max(errs),
+            "tokens_agree": agree, "tokens": n_tok,
+            "peak_memory_gb": peak_gb,
+            "loop_tokens": summary["tokens"],
+            "loop_step_ms": summary["median_step_ms"],
+            "loop_seconds": summary["seconds"]}
+        del loop, runs_, ref, summary
+        gc.collect()
+        torch.cuda.empty_cache()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def p17_kernel_cases(cfgs, batches, tp):
+    """Flash and SSD cases at the head counts a rank of tp ``tp`` runs each
+    config with, at its serve batches (``serve_cases``' prefill and
+    decode calls; the SSD prefills as the model passes them)."""
+    flash, ssd_cases_ = [], []
+    for arch, cfg in cfgs.items():
+        shapes = [(b.shape[0], b.shape[1], P17_NEW) for b in batches[arch]]
+        if cfg.ssm is not None:
+            s = cfg.ssm
+            H = s.n_ssm_heads(cfg.d_model)
+            H = H // tp if H % tp == 0 else H
+            ssd_cases_ += [(f"serve {arch} rank of tp {tp} prefill B{B} "
+                            f"T{T} H{H}", B, T, H, s.head_dim, s.n_groups,
+                            s.d_state, s.chunk, "conv", "zeros")
+                           for B, T, _ in shapes]
+        else:
+            Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+            Hq, Hkv = (Hq // tp if Hq % tp == 0 else Hq,
+                       Hkv // tp if Hkv % tp == 0 else Hkv)
+            flash += serve_cases(shapes, Hq, cfg.resolved_head_dim(),
+                                 Hkv=Hkv, label=f"{arch} rank of tp {tp} ")
+    return flash, ssd_cases_
+
+
+def print_serving_mesh(one, ranks, smi):
+    """Phase 17's lines and its gates: each rank's logits within P17_TOL
+    x max of the one-process serve at every step, its flash and SSD
+    launches those of its forwards, a decode step's collectives, the
+    weights and caches it holds."""
+    for arch, n_layers, dtype, shape in P17_RUNS:
+        key = p17_key(arch, n_layers, dtype)
+        label = f"{key} {tuple(shape)}"
+        ref = one[key]
+        cfg_layers = ref["n_layers"]
+        print(f"  {label}: {smi}; one process: 2-row gap "
+              f"{ref['floor']:.3e} x max (its 2-row serve against its "
+              f"4-row one; measured only), weights "
+              f"{ref['weights_gb']:.3f} GB, prefill "
+              f"{', '.join(f'{x:.1f}' for x in ref['prefill_ms'])} ms, "
+              f"decode step {ref['step_ms']:.2f} ms (median), peak "
+              f"{ref['peak_memory_gb']:.2f} GB, launches {ref['launches']}",
+              flush=True)
+        for r, rank in enumerate(ranks):
+            x = rank[label]
+            forwards = len(x["prefill_ms"]) * (1 + P17_NEW)
+            print(f"    rank {r} {tuple(x['coords'])} (rows {x['rows']}, "
+                  f"load {x['load_s']:.1f} s): weights held "
+                  f"{x['weights_gb']:.3f} GB "
+                  f"({x['weights_gb'] / ref['weights_gb']:.3f} of one "
+                  f"process), caches "
+                  f"{', '.join(f'{c:.4f}' for c in x['cache_gb'])} GB "
+                  f"(one process "
+                  f"{', '.join(f'{c:.4f}' for c in ref['cache_gb'])}); "
+                  f"prefill {', '.join(f'{v:.1f}' for v in x['prefill_ms'])}"
+                  f" ms, decode step {x['step_ms']:.2f} ms (median), the "
+                  f"loop's own serve {x['loop_step_ms']:.2f} ms a step, "
+                  f"{x['loop_tokens']} tokens in {x['loop_seconds']:.2f} s; "
+                  f"peak {x['peak_memory_gb']:.2f} GB; a decode step's "
+                  f"collectives: calls {x['step_calls']}, bytes "
+                  f"{x['step_bytes']}; all: {x['totals']}; launches "
+                  f"{x['launches']}; logits {x['rel_err']:.3e} x max off "
+                  f"one process (tol {P17_TOL}); greedy tokens equal "
+                  f"{x['tokens_agree']} of {x['tokens']} (measured only)",
+                  flush=True)
+            check(x["rel_err"] <= P17_TOL,
+                  f"17 {label} rank {r}: logits {x['rel_err']:.3e} x max "
+                  f"(tol {P17_TOL})")
+            want = ({"flash_fwd": 0, "ssd_fwd": cfg_layers
+                     * len(x["prefill_ms"])} if arch.startswith("mamba")
+                    else {"flash_fwd": cfg_layers * forwards, "ssd_fwd": 0})
+            check(x["launches"] == want,
+                  f"17 {label} rank {r}: launches {x['launches']}, "
+                  f"expected {want}")
+            calls = x["step_calls"]
+            if x["tp"] > 1:
+                per = {"tp_sum": 2 * cfg_layers, "embed_sum": 1,
+                       "argmax": 1}
+                if arch.startswith("mamba"):
+                    per = {"tp_sum": cfg_layers, "norm_sum": cfg_layers,
+                           "embed_sum": 1, "argmax": 1}
+                check(calls == per, f"17 {label} rank {r}: a decode step's "
+                                    f"collectives {calls}, expected {per}")
+                check(x["weights_gb"] <= P17_HELD * ref["weights_gb"],
+                      f"17 {label} rank {r}: holds {x['weights_gb']:.3f} "
+                      f"of {ref['weights_gb']:.3f} GB of weights")
+                check(all(c <= P17_HELD * w for c, w in
+                          zip(x["cache_gb"], ref["cache_gb"])),
+                      f"17 {label} rank {r}: caches {x['cache_gb']} GB, "
+                      f"one process {ref['cache_gb']}")
+            else:
+                check(calls == {}, f"17 {label} rank {r}: collectives "
+                                   f"{calls} in a decode step on tp 1")
+            check(x["loop_tokens"] == P17_REQUESTS * P17_NEW,
+                  f"17 {label} rank {r}: the loop served "
+                  f"{x['loop_tokens']} tokens")
+
+
+def run_serving_mesh_phase(torch, kernel, ssd_kernel, mha, attention_ref,
+                           ssd, ssd_chunked, launched_kernels, get_config,
+                           smi):
+    """Phase 17: 17a the flash and SSD kernels at a rank's head counts
+    (tp 2) against their plain versions; 17b the one-process serve of
+    each config of P17_RUNS on the card, saved; 17c the two gloo
+    processes sharing the card serve them on their (1, 2) and (2, 1)
+    ("data", "model") meshes, teacher-forced, held to 17b
+    (``print_serving_mesh``)."""
+    import shutil
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "phase17"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "out").mkdir(parents=True)
+    (work / "ref").mkdir()
+    # the kernels at each config's full width (both dtypes, each case)
+    cfgs = {a: p17_config(get_config, a) for a, *_ in P17_RUNS}
+    batches = {a: p17_batches(torch, serve, c) for a, c in cfgs.items()}
+    print("== phase 17a: the kernels at the head counts of a rank of tp 2, "
+          "at the serve batches (B, T) "
+          + ", ".join(f"{a} {[tuple(b.shape) for b in bs]}"
+                      for a, bs in batches.items()), flush=True)
+    flash_cases, ssd_cases_ = p17_kernel_cases(cfgs, batches, 2)
+    checks = run_kernel_checks(torch, kernel, mha, attention_ref,
+                               flash_cases)
+    ssd_checks = run_ssd_checks(torch, ssd_kernel, ssd, ssd_chunked,
+                                launched_kernels, ssd_cases_)
+    one = {}
+    for arch, n, dtype, _ in P17_RUNS:
+        key = p17_key(arch, n, dtype)
+        if key in one:
+            continue
+        cfg = p17_config(get_config, arch, n, dtype)
+        print(f"== phase 17b ({time.perf_counter() - t0:.1f} s): {arch} "
+              f"({cfg.param_count():,} parameters, {cfg.n_layers} layers, "
+              f"bf16 weights, {dtype} activations), one process on the "
+              f"card: {P17_REQUESTS} requests, {P17_NEW} new tokens, "
+              "greedy", flush=True)
+        one[key] = serving_reference(torch, kernel, ssd_kernel, serve,
+                                     get_config, arch, n, dtype,
+                                     work / "ref" / f"{key}.pt")
+    t_spawn = time.perf_counter()
+    print(f"== phase 17c ({t_spawn - t0:.1f} s): "
+          + ", ".join(f"{p17_key(a, n, d)} on {tuple(s)}"
+                      for a, n, d, s in P17_RUNS)
+          + ": two gloo processes sharing the card, their tokens fed back "
+          f"from 17b; logits within {P17_TOL} x max", flush=True)
+    spawn(serving_mesh_worker, 2,
+          ([list(r) for r in P17_RUNS], work / "ref", work / "out"),
+          rendezvous=work / "rendezvous", backend="gloo",
+          device=P17_DEVICE, timeout_s=P17_TIMEOUT)
+    spawn_s = time.perf_counter() - t_spawn
+    ranks = [json.loads((work / "out" / f"rank{r}.json").read_text())
+             for r in range(2)]
+    shutil.rmtree(work)
+    print_serving_mesh(one, ranks, smi)
+    out = {"one_process": one, "ranks": ranks, "kernel_checks": checks,
+           "ssd_checks": ssd_checks, "spawn_seconds": spawn_s,
+           "seconds": time.perf_counter() - t0, "card": smi}
+    print(f"  phase 17: {out['seconds']:.1f} s (the two ranks "
+          f"{spawn_s:.1f} s)", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 15: the linter against the card's syncs
 # ---------------------------------------------------------------------------
 def run_sync_phase(sync_log, smi):
@@ -4638,7 +5088,7 @@ def main() -> int:
     print("== phase 11: the other serving configs at full width, "
           f"{n_requests} requests of {max_new} new tokens each: "
           + ", ".join(SERVE_ARCHS), flush=True)
-    configs = {}
+    configs, t11 = {}, time.perf_counter()
     for arch in SERVE_ARCHS:
         print(f"== phase 11: {arch} ({scfgs[arch].param_count():,} "
               "parameters, float32)", flush=True)
@@ -4654,10 +5104,11 @@ def main() -> int:
               f"{100 * dec['device_busy_ms_per_step'] / dec['wall_ms_per_step']:7.1f}"
               f" {r['peak_memory_gb']:8.2f} {r['flash_launches']:6d} "
               f"{r['ssd_launches']:5d}", flush=True)
+    print(f"  phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
     print("== phase 12: the MoE configs, the encoder-decoder and the int8 "
           "KV cache", flush=True)
-    configs12 = {}
+    configs12, t12 = {}, time.perf_counter()
     for arch, mc in mcfgs.items():
         print(f"== phase 12{'ab'[MOE_ARCHS.index(arch)]}: {arch} "
               f"({mc.n_layers} layers, {mc.param_count():,} of "
@@ -4671,6 +5122,7 @@ def main() -> int:
           f"concrete_batch(cfg, 'prefill', {ENC_B}, {ENC_T})", flush=True)
     encdec_run = serve_encdec(torch, kernel, shapes, steps_mod, build_model,
                               ecfg)
+    print(f"  phases 12a-12c: {time.perf_counter() - t12:.1f} s", flush=True)
     print(f"== phase 12d: kv_quant on the card at qwen2-7b's decode_32k "
           f"cache {KVQ_SHAPE}", flush=True)
     kv_quant_run = kv_quant_on_card(torch, kernel, kvq, mha)
@@ -4725,6 +5177,21 @@ def main() -> int:
     sharded = run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi)
     ssm_arch = P16_SSM[0]
 
+    print("== phase 17: serving on a (\"data\", \"model\") mesh: the "
+          "kernels at a rank's head counts (17a), the one-process serves "
+          "(17b), two gloo processes sharing the card on their (1, 2) and "
+          "(2, 1) meshes (17c)", flush=True)
+    serving_mesh = run_serving_mesh_phase(
+        torch, kernel, ssd_kernel, mha, attention_ref, ssd, ssd_chunked,
+        launched_kernels, get_config, smi)
+
+    def p17_launches(key):
+        labels = [f"{p17_key(a, n, d)} {tuple(s)}"
+                  for a, n, d, s in P17_RUNS]
+        return {f"{label} serving mesh, 2 ranks (17)":
+                sum(r[label]["launches"][key] for r in serving_mesh["ranks"])
+                for label in labels}
+
     def p16_launches(label, key):
         one = sharded["one_device"][label]
         return {f"{label} one-device steps (16)":
@@ -4742,7 +5209,8 @@ def main() -> int:
                 r[label]["launches"][key] for r in sharded["ranks"])
         return rows
 
-    serve_errs = [c["max_abs_err"] for c in checks
+    serve_errs = [c["max_abs_err"]
+                  for c in checks + serving_mesh["kernel_checks"]
                   if c["serve"] and c["dtype"] == "bfloat16"]
     main_row = next(r for r in rows if r["shape"] == "serve decode")
     flash_by_path = {"stablelm-1.6b": launches,
@@ -4752,12 +5220,14 @@ def main() -> int:
                      "stablelm-1.6b training (13e)":
                          training["full_width"]["flash_fwd_launches"],
                      **p16_launches(P16_ARCH, "flash_fwd"),
-                     **p16e_launches("flash_fwd")}
+                     **p16e_launches("flash_fwd"),
+                     **p17_launches("flash_fwd")}
     ssd_by_path = {"mamba2-1.3b": ssd_launches,
                    "zamba2-1.2b": configs["zamba2-1.2b"]["ssd_launches"],
                    "mamba2-1.3b training (13h)":
                        training["ssm_full_width"]["ssd_fwd_launches"],
-                   **p16_launches(ssm_arch, "ssd_fwd")}
+                   **p16_launches(ssm_arch, "ssd_fwd"),
+                   **p17_launches("ssd_fwd")}
     entry = {"name": "flash_attention_fwd", "route": "cuda",
              "source": KERNEL_SOURCE, "replaces": REPLACES,
              "replaces_function": "_flash_fwd_kernel",
@@ -4770,7 +5240,8 @@ def main() -> int:
              "library_ms": main_row["library_ms"],
              "host_ms": main_row["host_ms"],
              "timed_shape": "serve decode", "shapes": rows}
-    ssd_serve_errs = [c["max_abs_err"] for c in ssd_checks
+    ssd_serve_errs = [c["max_abs_err"]
+                      for c in ssd_checks + serving_mesh["ssd_checks"]
                       if c["serve"] and c["dtype"] == "bfloat16"]
     ssd_row = next(r for r in ssd_rows if r["shape"] == "serve prefill")
     ssd_entry = {"name": "ssd_scan_fwd", "route": "cuda",
@@ -4847,7 +5318,7 @@ def main() -> int:
               "phase12": {"moe": configs12, "encdec": encdec_run,
                           "kv_quant": kv_quant_run, "timings": rows12},
               "training": training, "dryrun": dryrun, "syncs": sync_report,
-              "sharded": sharded,
+              "sharded": sharded, "serving_mesh": serving_mesh,
               "card": smi, "seconds": time.time() - t_start}
     out_dir = ROOT / "build" / "reports"
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -32,6 +32,14 @@ ServeLoop cannot: its batches hold tokens only, and the encoder-decoder's
 prefill needs the source frames ("src_embeds", a ``KeyError``); it runs
 through ``steps.make_prefill_step`` / ``make_decode_step`` fed by
 ``shapes.concrete_batch``.
+
+On a ("data", "model") mesh of processes (``ServeLoop(cfg, rules=,
+mesh=)``, every rank running the same loop over the same queue), each
+rank holds its serving copies of the weights (drawn from the seed as one
+process draws them, whole over "data", cut over "model") and of the
+caches; a batch's rows go over the dp axes where the cache specs put
+them there (else every dp rank serves all of them), and each decode
+step's tokens are all-gathered over dp into ``Request.out``.
 """
 from __future__ import annotations
 
@@ -44,6 +52,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import make_rules
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import build_model
 
@@ -59,19 +69,36 @@ class Request:
 
 
 class ServeLoop:
+    """Serves batches of requests (``run_batch``) with the weights drawn
+    from seed 0.  With ``mesh`` (and ``rules``, default
+    ``make_rules(mesh)``) this rank's part of a serve on a mesh of
+    processes (module docstring); ``device`` defaults to the mesh's."""
+
     def __init__(self, cfg, *, max_batch: int = MAX_BATCH,
                  max_len: int = 128, envelope=None,
-                 straggler_k: float = 3.0, device=None):
+                 straggler_k: float = 3.0, device=None, rules=None,
+                 mesh=None):
         self.cfg = cfg
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.model = build_model(cfg)
-        self.params = self.model.init(0, device=self.device)
+        self.mesh = mesh
+        self.rules = None if mesh is None else rules or make_rules(mesh)
+        self.tp = sharding.model_axis(mesh, self.rules)
+        if mesh is None:
+            self.params = self.model.init(0, device=self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            self.params = sharding.init_serving(
+                self.model.param_defs, gen, self.device,
+                self.model.serving_layouts(self.rules, mesh), mesh)
         self.max_batch = max_batch
         # stored as the JAX package stores it; caches are sized from each
         # batch (prompt + new tokens), as there
         self.max_len = max_len
-        self.prefill = make_prefill_step(self.model)
-        self.decode = make_decode_step(self.model)
+        self.prefill = make_prefill_step(self.model, self.rules, mesh)
+        self.decode = make_decode_step(self.model, self.rules, mesh)
         self.envelope = envelope            # (mean_s, sigma_s) or None
         self.straggler_k = straggler_k
         self.straggler_steps = 0
@@ -96,15 +123,19 @@ class ServeLoop:
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         n_steps = max(r.max_new for r in requests)
         self.batch_shapes.append((B, T, n_steps))
+        rows = sharding.serve_rows(self.mesh, self.rules, B)
+        batch = {k: rows.take(v) for k, v in batch.items()}
         caches = self.model.init_caches(B, max_len=T + n_steps,
-                                        cross_len=T, device=self.device)
-        logits, caches = self.prefill(self.params, batch, caches)
+                                        cross_len=T, device=self.device,
+                                        rules=self.rules, mesh=self.mesh)
+        logits, caches = self.prefill(self.params, batch, caches, rows)
         self.prefills += 1
-        tok = torch.argmax(logits[:, -1], dim=-1)
+        tok = sharding.greedy(logits[:, -1], self.tp, self.cfg.vocab)
         for step in range(n_steps):
             t0 = time.perf_counter()
             tok, logits, caches = self.decode(
-                self.params, {"tokens": tok[:, None]}, caches, T + step)
+                self.params, {"tokens": tok[:, None]}, caches, T + step,
+                rows)
             self._sync()
             dt = time.perf_counter() - t0
             self.step_times.append(dt)
@@ -112,7 +143,8 @@ class ServeLoop:
                 mean, sigma = self.envelope
                 if dt > mean + self.straggler_k * sigma:
                     self.straggler_steps += 1
-            host = tok.tolist()
+            # every rank records the whole batch's tokens
+            host = sharding.gather_rows(tok, rows, self.mesh).tolist()
             for i, r in enumerate(requests):
                 if step < r.max_new:
                     r.out.append(host[i])
@@ -137,7 +169,8 @@ def serve_queue(loop: ServeLoop, queue: list[Request]) -> dict:
     """Serve ``queue`` in ``batched`` order; returns a summary
     (``requests``, ``tokens``, ``seconds``, ``median_step_ms``,
     ``prefills``, ``decode_steps``, the finished requests ``done`` and the
-    ``loop``)."""
+    ``loop``).  On a mesh, this rank's (its ``coords`` on the mesh in the
+    summary and the printed line)."""
     t0 = time.time()
     done = []
     for batch in batched(queue, loop.max_batch):
@@ -145,11 +178,16 @@ def serve_queue(loop: ServeLoop, queue: list[Request]) -> dict:
     dt = time.time() - t0
     toks = sum(len(r.out) for r in done)
     med_ms = 1e3 * float(np.median(loop.step_times))
-    print(f"served {len(done)} requests, {toks} tokens in {dt:.1f}s "
+    who = ("" if loop.mesh is None else
+           f"rank {tuple(loop.mesh.coords)} of the {loop.mesh.shape} mesh: ")
+    print(f"{who}served {len(done)} requests, {toks} tokens in {dt:.1f}s "
           f"({toks/dt:.1f} tok/s); median decode step {med_ms:.1f} ms")
-    return {"requests": len(done), "tokens": toks, "seconds": dt,
-            "median_step_ms": med_ms, "prefills": loop.prefills,
-            "decode_steps": len(loop.step_times), "done": done, "loop": loop}
+    out = {"requests": len(done), "tokens": toks, "seconds": dt,
+           "median_step_ms": med_ms, "prefills": loop.prefills,
+           "decode_steps": len(loop.step_times), "done": done, "loop": loop}
+    if loop.mesh is not None:
+        out["coords"] = tuple(loop.mesh.coords)
+    return out
 
 
 def main(argv=None) -> dict:

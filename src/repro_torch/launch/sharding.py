@@ -20,13 +20,28 @@ and sums a few small tensors and flags over one axis in one call
 (``sum_over``: the multi-workflow fleet's per-workflow reductions over
 "task").
 
+For serving (``launch.steps.make_prefill_step`` / ``make_decode_step``)
+it also holds the "model" axis as the steps use it (``ModelAxis``,
+``model_axis``), the rows of a serving batch a rank takes (``Rows``,
+``serve_rows``, ``gather_rows``), a rank's serving copy of a leaf
+(``serve_shard``, ``init_serving``: the leaf whole over the fsdp axes, its
+"model" slice or, for the Mamba-2 leaves cut along heads, its columns),
+the two operators of tensor-parallel compute (``CopyIn``: identity
+forward, all-reduce backward; ``SumOut``: all-reduce forward, identity
+backward) and the greedy token over vocab slices (``greedy``).
+
 The backend is the process group's (``mesh.init_process_group``): gloo
 on the CPU and for ranks that share a card, NCCL for one card a rank.
 gloo takes CUDA tensors in every collective used here (all-gather,
 reduce-scatter, all-reduce, barrier; probed on torch 2.11.0+cu128), so
 nothing is staged through host memory.  ``BYTES`` and ``CALLS`` count,
 for this process, the payload of each collective kind (the bytes of the
-whole tensor a rank gives to or takes from it) and its calls.
+whole tensor a rank gives to or takes from it) and its calls.  The
+serving kinds: "tp_sum" (a row-parallel product's sum over "model"),
+"embed_sum" (the vocab-parallel embedding's), "norm_sum" (the Mamba-2
+gated norm's sum of squares), "argmax" (the greedy token's (value,
+index) pairs), "rows" (a step's tokens over the dp axes) and "tp_grad"
+(``CopyIn``'s backward).
 """
 from __future__ import annotations
 
@@ -37,7 +52,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.common import local_shape, mesh_axis_sizes
+from repro_torch.models.common import axes_of, local_shape, mesh_axis_sizes
 
 #: payload bytes and calls of each collective kind in this process
 BYTES: Counter = Counter()
@@ -52,13 +67,6 @@ def reset_counts() -> None:
 def _count(kind: str, t: torch.Tensor) -> None:
     BYTES[kind] += t.numel() * t.element_size()
     CALLS[kind] += 1
-
-
-def axes_of(entry) -> tuple[str, ...]:
-    """The mesh axes of one spec entry, major first."""
-    if entry is None:
-        return ()
-    return entry if isinstance(entry, tuple) else (entry,)
 
 
 @dataclass(frozen=True, eq=False)
@@ -312,3 +320,177 @@ def tree_shardings(specs, mesh):
     if isinstance(specs, dict):
         return {k: tree_shardings(v, mesh) for k, v in specs.items()}
     return Sharding(mesh, specs)
+
+
+# ---------------------------------------------------------------------------
+# Serving: the "model" axis, the rows, a rank's serving copy of a leaf
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True, eq=False)
+class ModelAxis:
+    """The "model" axis of a mesh as the serving steps use it: ``size``
+    ranks (tp), this rank's ``index`` along it, ``name`` the mesh axis
+    (None where it has one rank) and ``group()`` their process sub-group.
+    A leaf split over it holds piece ``index`` of ``size`` (``part``)."""
+    mesh: object
+    name: str | None
+    size: int
+    index: int
+
+    def group(self):
+        return self.mesh.group(self.name)
+
+    def part(self, n: int) -> tuple[int, int]:
+        """(start, length) of this rank's piece of a dim of ``n``."""
+        k = n // self.size
+        return self.index * k, k
+
+
+#: the "model" axis of a mesh without one (or of one rank): nothing is split
+ONE_RANK = ModelAxis(None, None, 1, 0)
+
+
+def model_axis(mesh, rules) -> ModelAxis:
+    """The "model" axis of ``mesh`` (``ONE_RANK`` where the mesh has none,
+    or one of a single rank).  Raises where ``rules`` put the KV cache's
+    sequence over it: serving with ``kv_seq`` over "model" needs
+    context-parallel decode (a rank's partial softmax over its part of
+    the sequence, merged by log-sum-exp), which the port does not have."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return ONE_RANK
+    if "model" in axes_of(rules.resolve("kv_seq")[0]):
+        raise NotImplementedError(
+            "serving with kv_seq over \"model\" needs context-parallel "
+            "decode (ROADMAP.md Queue A item 8); serve with the default "
+            "kv_seq rule (the KV cache split by KV heads)")
+    return ModelAxis(mesh, "model", mesh.shape["model"], mesh.index("model"))
+
+
+def axis_sum(t: torch.Tensor, axis: ModelAxis, kind: str) -> torch.Tensor:
+    """``t`` summed in place over ``axis`` (counted under ``kind``);
+    ``t`` as it is on an axis of one rank."""
+    if axis.size > 1:
+        dist.all_reduce(t, group=axis.group())
+        _count(kind, t)
+    return t
+
+
+class CopyIn(torch.autograd.Function):
+    """The input of a column-parallel product: ``apply(x, axis)`` is ``x``
+    (whole and alike on the axis's ranks); the backward sums the ranks'
+    partial gradients of ``x`` over ``axis`` (counted as "tp_grad")."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return axis_sum(g.contiguous().clone(), ctx.axis, "tp_grad"), None
+
+
+class SumOut(torch.autograd.Function):
+    """The output of a row-parallel product: ``apply(x, axis, kind)`` sums
+    the ranks' partial outputs ``x`` over ``axis`` (counted under
+    ``kind``); the backward passes the gradient through, since what
+    follows runs alike on the axis's ranks."""
+
+    @staticmethod
+    def forward(ctx, x, axis, kind="tp_sum"):
+        return axis_sum(x.contiguous().clone(), axis, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def greedy(logits: torch.Tensor, axis: ModelAxis, vocab: int
+           ) -> torch.Tensor:
+    """The greedy token of each row of ``logits`` (..., V_local), this
+    rank's slice of a vocab of ``vocab`` (the whole where V_local is
+    ``vocab``): the max over the slice, then the (value, global index)
+    pairs all-gathered over ``axis`` (counted as "argmax"), the largest
+    value kept and, among equal ones, the lowest index, as
+    ``torch.argmax`` and ``jnp.argmax`` keep the first."""
+    idx = torch.argmax(logits, dim=-1)
+    if logits.shape[-1] == vocab:
+        return idx
+    start, _ = axis.part(vocab)
+    val = torch.gather(logits, -1, idx[..., None])[..., 0]
+    # float64 holds every fp32 value and every index of a vocab exactly
+    pair = torch.stack([val.to(torch.float64),
+                        (idx + start).to(torch.float64)])
+    both = _all_gather(pair[None], 0, axis.group(), axis.size, "argmax")
+    best = torch.argmax(both[:, 0], dim=0)          # the lowest rank's max
+    return torch.gather(both[:, 1], 0, best[None])[0].to(idx.dtype)
+
+
+@dataclass(frozen=True)
+class Rows:
+    """The rows of a serving batch that this rank serves: ``count`` rows
+    from ``start``, split over the dp ``axes`` (``()`` where every rank
+    serves all of them)."""
+    start: int
+    count: int
+    axes: tuple[str, ...] = ()
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole batch leaf ``x`` (a view)."""
+        return x.narrow(0, self.start, self.count)
+
+
+def serve_rows(mesh, rules, B: int) -> Rows:
+    """The rows of a batch of ``B`` this rank serves: where the cache
+    specs put "batch" over the dp axes (B a multiple of their ranks), its
+    contiguous piece in dp order, else all of them (the spec replicates
+    the rows, and every dp rank serves the whole batch)."""
+    if mesh is None:
+        return Rows(0, B)
+    axes = tuple(a for a in axes_of(rules.resolve("batch", dims=(B,))[0])
+                 if mesh.shape.get(a, 1) > 1)
+    dp = math.prod(mesh.shape[a] for a in axes)
+    if not axes or B % dp:
+        return Rows(0, B)
+    n = B // dp
+    return Rows(dp_index(mesh, axes) * n, n, axes)
+
+
+def gather_rows(t: torch.Tensor, rows: Rows, mesh) -> torch.Tensor:
+    """The whole batch's ``t`` (dim 0) from each rank's rows, all-gathered
+    over ``rows.axes`` (the minor axis first; counted as "rows"); ``t``
+    itself where the rows are not split."""
+    for a in reversed(rows.axes):
+        t = _all_gather(t, 0, mesh.group(a), mesh.shape[a], "rows")
+    return t
+
+
+def serve_shard(x: torch.Tensor, layout, mesh) -> torch.Tensor:
+    """This rank's serving copy of the whole leaf ``x`` under ``layout``
+    (``models.common.ServingLayout``): its slice of the layout's spec,
+    then, where the layout names columns, those of the last dim."""
+    x = x[Sharding(mesh, layout.spec).slices(x.shape)]
+    if layout.columns is not None:
+        x = x.index_select(-1, torch.tensor(layout.columns,
+                                            device=x.device))
+    return x
+
+
+def init_serving(defs, gen: torch.Generator, device, layouts, mesh):
+    """Each leaf of ``defs`` drawn whole from ``gen`` in the one-process
+    order (``tree_defs_init``), this rank's serving copy kept
+    (``serve_shard``): the one-process parameters, each whole over the
+    fsdp axes (gathered once, at load) and cut over "model"."""
+    from repro_torch.models.common import init_leaf, is_def
+
+    def build(d, lay):
+        if is_def(d):
+            return serve_shard(init_leaf(gen, d, device), lay, mesh).clone()
+        return {k: build(d[k], lay[k]) for k in sorted(d)}
+    return build(defs, layouts)
+
+
+def serve_tree(tree, layouts, mesh):
+    """``serve_shard`` of each leaf of a whole tree (copies)."""
+    if isinstance(tree, dict):
+        return {k: serve_tree(v, layouts[k], mesh) for k, v in tree.items()}
+    return serve_shard(tree, layouts, mesh).clone()

@@ -22,6 +22,10 @@ over the fsdp axes only, each rank computing its own experts, and their
 gradients come out of the backward already cut to the rank's experts.
 The one-device step is this step on a mesh of one process, where every
 collective has no other rank and does nothing.
+
+The prefill and decode steps serve on a mesh with tensor-parallel compute
+over "model" (``make_prefill_step``); the train step keeps the layout
+above.
 """
 from __future__ import annotations
 
@@ -221,32 +225,57 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     return train_step
 
 
-def _unsharded(mesh, what: str) -> None:
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {mesh.size} processes: serving on a mesh "
-            "is ROADMAP.md Queue A item 7 (the cache specs are ported, "
-            "Model.cache_specs); serve on a mesh of one process")
+def _serving(rules, mesh):
+    """(rules, the "model" axis) of a serving step on ``mesh``: (None,
+    ``sharding.ONE_RANK``) without one; raises for rules the port cannot
+    serve with (``sharding.model_axis``)."""
+    if mesh is None:
+        return None, sharding.ONE_RANK
+    rules = rules or make_rules(mesh)
+    return rules, sharding.model_axis(mesh, rules)
 
 
-def make_prefill_step(model: Model, mesh=None) -> Callable:
-    """``prefill_step(params, batch, caches)``; raises on a mesh of more
-    than one process."""
-    _unsharded(mesh, "prefill")
+def make_prefill_step(model: Model, rules: AxisRules | None = None,
+                      mesh=None) -> Callable:
+    """``prefill_step(params, batch, caches, rows=None) -> (logits,
+    caches)``, as the JAX package's per ``rules``.
 
-    def prefill_step(params, batch, caches):
-        return model.prefill(params, batch, caches)
+    Without ``mesh``, the one-process prefill.  On a mesh of processes
+    (``launch.mesh.make_mesh``; ``rules`` default ``make_rules(mesh)``)
+    each rank serves: ``params`` are its serving copies
+    (``Model.serving_layouts``, ``sharding.init_serving`` /
+    ``serve_tree``), ``batch`` its rows of the batch (``rows``, a
+    ``sharding.Rows`` from ``sharding.serve_rows``; default: split over
+    the dp axes), ``caches`` its cache slices (``Model.init_caches`` with
+    ``rules`` and ``mesh``), and the logits are its rows' over its vocab
+    slice.  Heads, KV heads, MLP, vocab and SSM heads go over "model",
+    with the row-parallel sums written out (``models.layers``).  Rules
+    that put the KV cache's sequence over "model" raise
+    (``sharding.model_axis``)."""
+    rules, _ = _serving(rules, mesh)
+
+    @torch.inference_mode()
+    def prefill_step(params, batch, caches, rows=None):
+        return model.prefill(params, batch, caches, rules=rules, mesh=mesh,
+                             rows=rows)
     return prefill_step
 
 
-def make_decode_step(model: Model, mesh=None) -> Callable:
-    """``decode_step(params, batch, caches, cache_index)``; raises on a
-    mesh of more than one process."""
-    _unsharded(mesh, "decode")
+def make_decode_step(model: Model, rules: AxisRules | None = None,
+                     mesh=None) -> Callable:
+    """``decode_step(params, batch, caches, cache_index, rows=None) ->
+    (next_tok, logits, caches)``: ``next_tok`` holds the rank's rows, the
+    greedy token over the vocab slices of "model" (``sharding.greedy``:
+    the lowest index among equal maxima, as ``torch.argmax`` and
+    ``jnp.argmax``), and ``logits`` the rank's vocab slice
+    (``make_prefill_step``; without a mesh, all rows and the whole
+    vocab)."""
+    rules, tp = _serving(rules, mesh)
 
-    def decode_step(params, batch, caches, cache_index: int):
-        logits, caches = model.decode(params, batch, caches, cache_index)
-        # torch.argmax returns the first maximal index, as jnp.argmax does
-        next_tok = torch.argmax(logits[:, -1], dim=-1)
+    @torch.inference_mode()
+    def decode_step(params, batch, caches, cache_index: int, rows=None):
+        logits, caches = model.decode(params, batch, caches, cache_index,
+                                      rules=rules, mesh=mesh, rows=rows)
+        next_tok = sharding.greedy(logits[:, -1], tp, model.cfg.vocab)
         return next_tok, logits, caches
     return decode_step

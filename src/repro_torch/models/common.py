@@ -8,7 +8,8 @@ rule + dtype).  Logical axis names resolve to mesh axes through
 entry per dim (``None``, a mesh axis name or a tuple of names), equal to
 the tuple of the JAX package's ``PartitionSpec``.  ``launch/sharding.py``
 turns a spec into the slice a rank holds and the collectives of a
-sharded train step.
+sharded train step.  A serving rank holds each leaf in its serving
+layout (``ServingLayout``, ``serving_spec``, ``ssm_head_columns``).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 # experts   : MoE expert dim                                   -> "model"
 # batch     : activation batch dim                             -> data axes
 # act_*     : activation dims (read by the JAX package's GSPMD; the port
-#             shards no activation yet, ROADMAP.md Queue A)
+#             splits its serving activations in code, logical_constraint)
 # ssm_*     : mamba2 state dims
 DEFAULT_RULES: dict[str, Any] = {
     "layers": None,
@@ -374,9 +375,81 @@ def tree_defs_to_abstract(defs, mesh, rules: AxisRules):
 
 def logical_constraint(x, rules: AxisRules, *logical: str | None):
     """``x`` unchanged.  The JAX package pins an activation's sharding
-    here for GSPMD; the port's sharded step computes every activation whole
-    on each rank (parameters gathered, the batch split over the dp axes),
-    so no activation is sharded and there is nothing to pin.  Splitting
-    heads, MLP and vocab over "model" is ROADMAP.md Queue A item 6."""
+    here for GSPMD; the port splits activations where its code says so,
+    not by a constraint.  Serving on a mesh (``Model.prefill`` /
+    ``decode`` with ``rules`` and ``mesh``) holds the batch's rows over
+    the dp axes, and between a column-parallel product and its
+    row-parallel partner the heads, KV heads, MLP columns, SSM heads and
+    vocab over "model" (``layers``, ``mamba2``, ``transformer``); the
+    residual stream is whole on each rank after every row-parallel sum.
+    The sharded train step computes every activation but the MoE's whole
+    on each rank (parameters gathered, the batch split over the dp axes);
+    its tensor-parallel half is ROADMAP.md Queue A item 6."""
     del rules, logical
     return x
+
+
+# ---------------------------------------------------------------------------
+# The serving layout: what a serving rank holds of each leaf
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ServingLayout:
+    """A serving rank's copy of a leaf: its slice of ``spec`` and, where
+    ``columns`` is given, those indices of its last dim (the Mamba-2
+    leaves cut along heads, ``ssm_head_columns``)."""
+    spec: tuple
+    columns: tuple[int, ...] | None = None
+
+    def local_shape(self, shape, sizes: Mapping[str, int]) -> tuple:
+        out = local_shape(shape, self.spec, sizes)
+        if self.columns is not None:
+            out = out[:-1] + (len(self.columns),)
+        return out
+
+
+def axes_of(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry, major first."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def serving_spec(d: ParamDef, rules: AxisRules) -> tuple:
+    """The serving layout of a leaf: its ``spec(rules)`` with the fsdp
+    axes dropped.  A serving rank holds each weight whole over "data"
+    (gathered once, at load, never per step) and its slice over "model"."""
+    fsdp = set(rules.fsdp_axes)
+    out = []
+    for entry in d.spec(rules):
+        kept = tuple(a for a in axes_of(entry) if a not in fsdp)
+        out.append(None if not kept else kept[0] if len(kept) == 1
+                   else kept)
+    return tuple(out)
+
+
+def ssm_head_columns(cfg: ModelConfig, leaf: str, tp: int, index: int
+                     ) -> tuple[int, ...]:
+    """The columns of a Mamba-2 leaf that rank ``index`` of ``tp`` along
+    "model" holds when the SSM heads are split (``n_groups`` 1): for
+    ``in_proj`` [z_r | x_r | B | C | dt_r], for the conv leaves and the
+    conv window [x_r | B | C], where z_r, x_r are the rank's H/tp heads'
+    channels and dt_r its heads' columns; B and C are whole on every rank.
+    ``_split_proj`` cuts the whole row at no head boundary, so these are
+    not a contiguous slice of "ssm_inner" or "conv_dim"."""
+    s = cfg.ssm
+    if s.n_groups != 1:
+        raise NotImplementedError(
+            f"{cfg.arch}: SSM heads split over \"model\" with n_groups="
+            f"{s.n_groups}; the head split takes B and C whole (n_groups 1)")
+    di = s.d_inner(cfg.d_model)
+    gn = s.n_groups * s.d_state
+    H = s.n_ssm_heads(cfg.d_model)
+    hl = H // tp
+    x_r = range(index * hl * s.head_dim, (index + 1) * hl * s.head_dim)
+    if leaf == "conv":
+        return (*x_r, *range(di, di + 2 * gn))
+    if leaf != "in_proj":
+        raise ValueError(f"no head columns for {leaf!r}")
+    return (*x_r, *(di + c for c in x_r), *range(2 * di, 2 * di + 2 * gn),
+            *range(2 * di + 2 * gn + index * hl,
+                   2 * di + 2 * gn + (index + 1) * hl))

@@ -11,6 +11,12 @@ prefix; a decode step reads the cross caches as they are.  Caches are
 updated in place, as in ``transformer.py``.  ``encdec_loss`` trains the
 whole: the encoder and the cache-less decoder, each layer under
 ``_remat`` as the JAX package's, then the chunked cross-entropy.
+
+Serving on a mesh (``tp``, with a rank's serving copies of the weights
+and caches): encoder self-attention, decoder self- and cross-attention
+and the MLPs are split over "model" as in ``layers``, the cross caches
+hold the rank's KV heads, the embedding is ``transformer.embed_lookup``'s
+vocab-parallel lookup and the logits the rank's vocab slice.
 """
 from __future__ import annotations
 
@@ -19,8 +25,8 @@ import torch
 from .common import ModelConfig, ParamDef
 from .layers import (apply_mlp, apply_norm, attention_def, cross_attention,
                      cross_attention_def, mlp_def, self_attention)
-from .transformer import (_index_tree, _remat, chunked_xent, norm_def,
-                          stack_defs, unembed_matrix)
+from .transformer import (_index_tree, _remat, chunked_xent, embed_lookup,
+                          norm_def, stack_defs, unembed_matrix)
 
 
 def _enc_layer_def(cfg: ModelConfig) -> dict:
@@ -67,7 +73,7 @@ def _positions(B: int, T: int, offset: int, device) -> torch.Tensor:
     return (offset + torch.arange(T, device=device))[None, :].expand(B, T)
 
 
-def encode(params, cfg: ModelConfig, src_embeds: torch.Tensor):
+def encode(params, cfg: ModelConfig, src_embeds: torch.Tensor, tp=None):
     """(B, T_src, d) frames -> (B, T_src, d) encoder output in cfg.dtype."""
     h = src_embeds.to(cfg.dtype)
     B, T = h.shape[:2]
@@ -75,9 +81,10 @@ def encode(params, cfg: ModelConfig, src_embeds: torch.Tensor):
 
     def layer(p, h):
         a, _ = self_attention(p["attn"], apply_norm(p["ln1"], h, cfg.norm),
-                              cfg, causal=False, positions=pos)
+                              cfg, causal=False, positions=pos, tp=tp)
         h = h + a
-        return h + apply_mlp(p["mlp"], apply_norm(p["ln2"], h, cfg.norm), cfg)
+        return h + apply_mlp(p["mlp"], apply_norm(p["ln2"], h, cfg.norm), cfg,
+                             tp)
 
     layer = _remat(layer, cfg)
     for i in range(cfg.enc_layers):
@@ -86,13 +93,13 @@ def encode(params, cfg: ModelConfig, src_embeds: torch.Tensor):
 
 
 def decode_trunk(params, cfg: ModelConfig, tokens, enc_out,
-                 caches: dict | None = None, cache_index: int = 0):
+                 caches: dict | None = None, cache_index: int = 0, tp=None):
     """The decoder over ``tokens`` (B, T).  With ``caches`` ({"self",
     "cross"}, the cross caches filled) each layer writes its self cache at
     ``cache_index`` and reads its cross cache; ``enc_out`` is not read.
     Without, attention runs over the tokens alone and cross-attention over
     ``enc_out``.  Returns (h after the final norm, caches)."""
-    h = params["embed"][tokens].to(cfg.dtype)
+    h = embed_lookup(params["embed"], tokens, cfg, tp)
     B, T = h.shape[:2]
     pos = _positions(B, T, cache_index, h.device)
 
@@ -101,13 +108,15 @@ def decode_trunk(params, cfg: ModelConfig, tokens, enc_out,
                               apply_norm(p["ln1"], h, cfg.norm), cfg,
                               causal=True, positions=pos,
                               cache=None if c is None else c["self"],
-                              cache_index=cache_index)
+                              cache_index=cache_index, tp=tp)
         h = h + a
         a, _ = cross_attention(p["cross_attn"],
                                apply_norm(p["ln2"], h, cfg.norm), enc_out,
-                               cfg, kv_cache=None if c is None else c["cross"])
+                               cfg, kv_cache=None if c is None else c["cross"],
+                               tp=tp)
         h = h + a
-        return h + apply_mlp(p["mlp"], apply_norm(p["ln3"], h, cfg.norm), cfg)
+        return h + apply_mlp(p["mlp"], apply_norm(p["ln3"], h, cfg.norm), cfg,
+                             tp)
 
     if caches is None:
         layer = _remat(layer, cfg)
@@ -139,8 +148,9 @@ def encdec_loss(params, cfg: ModelConfig, batch: dict, *, count=None):
 def build_cross_caches(params, cfg: ModelConfig, enc_out, caches):
     """Fill each decoder layer's cross cache from the encoder output, in
     place: its first min(T_src, cross_len) positions, the rest zero (the
-    JAX package pads there, and cross-attention attends the padding).
-    Returns caches["cross"]."""
+    JAX package pads there, and cross-attention attends the padding).  On
+    a serving rank, its KV heads (those of its ``wk``/``wv``).  Returns
+    caches["cross"]."""
     cross = caches["cross"]
     Tc = cross["k"].shape[2]
     n = min(enc_out.shape[1], Tc)
@@ -161,20 +171,21 @@ def _logits(h, params, cfg: ModelConfig):
                         unembed_matrix(params, cfg).float())
 
 
-def encdec_prefill(params, cfg: ModelConfig, batch: dict, caches):
+def encdec_prefill(params, cfg: ModelConfig, batch: dict, caches, tp=None):
     """batch: "src_embeds" (B, T_src, d), "tokens" (B, T).  Encodes, fills
     the cross caches, runs the target prefix at cache index 0; returns the
-    last position's logits (B, 1, V) and the caches."""
-    enc_out = encode(params, cfg, batch["src_embeds"])
+    last position's logits (B, 1, V) and the caches.  ``tp``: a serving
+    rank's "model" axis (module docstring)."""
+    enc_out = encode(params, cfg, batch["src_embeds"], tp)
     build_cross_caches(params, cfg, enc_out, caches)
     h, caches = decode_trunk(params, cfg, batch["tokens"], None,
-                             caches=caches, cache_index=0)
+                             caches=caches, cache_index=0, tp=tp)
     return _logits(h[:, -1:], params, cfg), caches
 
 
 def encdec_decode(params, cfg: ModelConfig, batch: dict, caches,
-                  cache_index: int):
+                  cache_index: int, tp=None):
     """One decode step: batch["tokens"] (B, 1) against the caches."""
     h, caches = decode_trunk(params, cfg, batch["tokens"], None,
-                             caches=caches, cache_index=cache_index)
+                             caches=caches, cache_index=cache_index, tp=tp)
     return _logits(h, params, cfg), caches

@@ -5,6 +5,18 @@ Counterpart of ``repro.models.layers``.  Attention goes through
 CUDA card, its plain version on the CPU.  Weights are kept in
 ``param_dtype`` and cast to the compute dtype at each use, as the JAX
 package does.
+
+Tensor-parallel serving: given ``tp`` (``launch.sharding.ModelAxis``) and
+a rank's serving copies of the weights, attention and the MLP are
+column- then row-parallel.  The Q/K/V and gate/up products take the
+rank's heads and MLP columns (their input through ``CopyIn``); the out
+and down products form the rank's partial sum in fp32, sum it over
+"model" in fp32 (``SumOut``) and then cast to ``cfg.dtype``, so a bf16
+output is rounded once, as the one-process product's; a bias after a
+row-parallel product is added once, after the sum.  Where a leaf is not
+split (its dim does not divide over "model", or ``tp`` is None or of one
+rank) the one-process code runs.  The split is read from the shapes the
+rank holds.
 """
 from __future__ import annotations
 
@@ -113,9 +125,41 @@ def attention_def(cfg: ModelConfig) -> dict:
     return d
 
 
+def is_split(tp, local: int, whole: int) -> bool:
+    """Whether a dim of ``whole`` is held as this rank's piece."""
+    return tp is not None and tp.size > 1 and local != whole
+
+
+def copy_in(x, tp):
+    from repro_torch.launch.sharding import CopyIn
+    return CopyIn.apply(x, tp)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, tp,
+                 kind: str = "tp_sum") -> torch.Tensor:
+    """``x @ w`` for x (..., K) and w (K, d) holding this rank's piece of
+    K: the fp32 partial product of the cfg.dtype operands, summed over
+    "model" in fp32 (``SumOut``, counted under ``kind``), then cast to
+    cfg.dtype (fp64 throughout under an fp64 config).  On the card a bf16
+    product reads its operands as they are and writes fp32
+    (``torch.mm``'s ``out_dtype``), with no fp32 copy of the weight; the
+    CPU has no such product, and casts both operands."""
+    from repro_torch.launch.sharding import SumOut
+    dt = cfg.dtype
+    ct = torch.promote_types(dt, torch.float32)
+    x2, w = x.to(dt).flatten(0, -2), w.to(dt)
+    if x.is_cuda and dt != ct:
+        part = torch.mm(x2, w, out_dtype=ct)
+    else:
+        part = torch.mm(x2.to(ct), w.to(ct))
+    part = part.unflatten(0, x.shape[:-1])
+    return SumOut.apply(part, tp, kind).to(dt)
+
+
 def attention_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig):
     """The projections, each bias (``qkv_bias``) added in the compute
-    dtype before RoPE."""
+    dtype before RoPE.  With this rank's head slices of the weights, its
+    heads."""
     dt = cfg.dtype
     q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(dt))
     k = torch.einsum("btd,dhk->bthk", x, params["wk"].to(dt))
@@ -127,13 +171,40 @@ def attention_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v
 
 
-def attention_out(params: dict, o: torch.Tensor, cfg: ModelConfig):
+def attention_out(params: dict, o: torch.Tensor, cfg: ModelConfig,
+                  tp=None):
+    """The out projection; row-parallel over the rank's heads where
+    ``wo`` holds a head slice (``row_parallel``)."""
+    if is_split(tp, params["wo"].shape[0], cfg.n_heads):
+        return row_parallel(o.flatten(-2), params["wo"].flatten(0, 1), cfg,
+                            tp)
     return torch.einsum("bthk,hkd->btd", o, params["wo"].to(cfg.dtype))
+
+
+def rank_kv_heads(k: torch.Tensor, cfg: ModelConfig, tp, hq: int
+                  ) -> torch.Tensor:
+    """The KV heads (dim 2 of ``k``) that this rank's ``hq`` query heads
+    read.  Where the KV heads are split alongside the query heads (or
+    nothing is split) ``k`` itself; where they are whole on every rank
+    (``n_kv_heads`` does not divide over "model"), query head j of rank r
+    is global head r hq + j and reads KV head (r hq + j) // (Hq / Hkv): a
+    narrow view where that map is the kernel's grouped one, else an index
+    of one KV head per query head."""
+    if k.shape[2] != cfg.n_kv_heads or hq == cfg.n_heads:
+        return k
+    group = cfg.n_heads // cfg.n_kv_heads
+    first = tp.index * hq
+    heads = [(first + j) // group for j in range(hq)]
+    lo, n = heads[0], heads[-1] + 1 - heads[0]
+    if hq % n == 0 and heads == [lo + j // (hq // n) for j in range(hq)]:
+        return k.narrow(2, lo, n)
+    return k[:, :, heads]
 
 
 def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                    causal: bool, positions: torch.Tensor,
-                   cache: dict | None = None, cache_index: int = 0):
+                   cache: dict | None = None, cache_index: int = 0,
+                   tp=None):
     """Self-attention, over a KV cache or (``cache`` None) over ``x`` alone.
 
     ``cache``: {"k": (B, Tmax, Hkv, D), "v": ...}; ``cache_index``: tokens
@@ -146,7 +217,15 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     offset).  Without a cache (the encoder) the T keys are all there is
     and the mask starts at 0.  Returns (out, cache); the cache tensors are
     updated in place.
+
+    With ``tp`` and head slices of the weights (module docstring): the
+    rank's query heads, its KV heads (its slice of the cache), or every
+    KV head where they are whole (``rank_kv_heads`` picks the ones its
+    query heads read), and the row-parallel out projection.
     """
+    split = is_split(tp, params["wq"].shape[1], cfg.n_heads)
+    if split:
+        x = copy_in(x, tp)
     q, k, v = attention_qkv(params, x, cfg)
     if cfg.mrope:
         q = apply_mrope(q, positions, cfg.rope_theta)
@@ -156,9 +235,11 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         q_offset = cache_index
+    hq = q.shape[2]
     if cache is None:
-        out = mha(q, k, v, causal=causal)
-        return attention_out(params, out, cfg), None
+        out = mha(q, rank_kv_heads(k, cfg, tp, hq),
+                  rank_kv_heads(v, cfg, tp, hq), causal=causal)
+        return attention_out(params, out, cfg, tp if split else None), None
     T, t_max = x.shape[1], cache["k"].shape[1]
     if cache_index + T > t_max:
         raise ValueError(f"cache of {t_max} positions cannot take {T} tokens "
@@ -167,9 +248,10 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     # lax.dynamic_update_slice_in_dim.
     cache["k"][:, cache_index:cache_index + T] = k.to(cache["k"].dtype)
     cache["v"][:, cache_index:cache_index + T] = v.to(cache["v"].dtype)
-    out = mha(q, cache["k"].to(cfg.dtype), cache["v"].to(cfg.dtype),
+    out = mha(q, rank_kv_heads(cache["k"], cfg, tp, hq).to(cfg.dtype),
+              rank_kv_heads(cache["v"], cfg, tp, hq).to(cfg.dtype),
               causal=causal, kv_len=cache_index + T, q_offset=q_offset)
-    return attention_out(params, out, cfg), cache
+    return attention_out(params, out, cfg, tp if split else None), cache
 
 
 def cross_attention_def(cfg: ModelConfig) -> dict:
@@ -177,20 +259,27 @@ def cross_attention_def(cfg: ModelConfig) -> dict:
 
 
 def cross_attention(params: dict, x: torch.Tensor, kv_src, cfg: ModelConfig,
-                    kv_cache: dict | None = None):
+                    kv_cache: dict | None = None, tp=None):
     """Decoder cross-attention, non-causal and without RoPE.  ``kv_src``:
     the encoder output (B, Ts, d), projected to K/V when ``kv_cache`` is
     None; with ``kv_cache`` ({"k", "v"} precomputed) it is not read.  As in
     the JAX package there is no ``kv_len``: every position of the cross
-    cache is attended, zero-padded ones too.  Returns (out, kv_cache)."""
+    cache is attended, zero-padded ones too.  With ``tp``, split as
+    ``self_attention``: the cross cache holds the rank's KV heads (or all
+    of them, where they are whole).  Returns (out, kv_cache)."""
     dt = cfg.dtype
+    split = is_split(tp, params["wq"].shape[1], cfg.n_heads)
+    if split:
+        x = copy_in(x, tp)
     q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(dt))
     if kv_cache is None:
         kv_cache = {
             "k": torch.einsum("btd,dhk->bthk", kv_src, params["wk"].to(dt)),
             "v": torch.einsum("btd,dhk->bthk", kv_src, params["wv"].to(dt))}
-    out = mha(q, kv_cache["k"].to(dt), kv_cache["v"].to(dt), causal=False)
-    return attention_out(params, out, cfg), kv_cache
+    hq = q.shape[2]
+    out = mha(q, rank_kv_heads(kv_cache["k"], cfg, tp, hq).to(dt),
+              rank_kv_heads(kv_cache["v"], cfg, tp, hq).to(dt), causal=False)
+    return attention_out(params, out, cfg, tp if split else None), kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -211,8 +300,22 @@ def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> dict:
                            dtype=pd)}
 
 
-def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig):
+def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig, tp=None):
+    """The MLP; with ``tp`` and MLP-column slices of the weights (of a
+    ``cfg.d_ff`` wide MLP), column- then row-parallel, the GELU MLP's
+    ``b2`` added once, after the sum."""
     dt = cfg.dtype
+    down = params["wd" if cfg.act == "swiglu" else "w2"]
+    if is_split(tp, down.shape[0], cfg.d_ff):
+        x = copy_in(x, tp)
+        if cfg.act == "swiglu":
+            g = torch.einsum("btd,df->btf", x, params["wg"].to(dt))
+            u = torch.einsum("btd,df->btf", x, params["wu"].to(dt))
+            return row_parallel(F.silu(g) * u, down, cfg, tp)
+        h = (torch.einsum("btd,df->btf", x, params["w1"].to(dt))
+             + params["b1"].to(dt))
+        h = F.gelu(h, approximate="tanh")
+        return row_parallel(h, down, cfg, tp) + params["b2"].to(dt)
     if cfg.act == "swiglu":
         g = torch.einsum("btd,df->btf", x, params["wg"].to(dt))
         u = torch.einsum("btd,df->btf", x, params["wu"].to(dt))

@@ -4,9 +4,17 @@ Counterpart of ``repro.models.model``: the decoder-only families
 (``transformer.py``: dense, vlm, moe, ssm, hybrid) and the encoder-decoder
 (``encdec.py``).  ``prefill``/``decode`` update the caches they are given
 in place and return them.
+
+Serving on a mesh: ``prefill``/``decode`` with ``rules`` and ``mesh`` (the
+JAX package's ``rules`` argument) take a rank's serving copies of the
+weights (``serving_layouts``), its rows of the batch
+(``launch.sharding.serve_rows``) and its cache slices (``init_caches``
+with ``rules`` and ``mesh``), and return its rows' logits over its vocab
+slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
@@ -15,8 +23,18 @@ import torch
 from .. import resolve_device
 from . import encdec as _encdec
 from . import transformer as _tf
-from .common import (AxisRules, ModelConfig, tree_defs_init,
+from .common import (AxisRules, ModelConfig, ServingLayout, axes_of, is_def,
+                     mesh_axis_sizes, rules_for_mesh,
+                     serving_spec, ssm_head_columns, tree_defs_init,
                      tree_defs_to_abstract, tree_defs_to_specs)
+from .moe import is_expert_leaf
+
+
+def _map_paths(fn, defs, path=()):
+    """``fn(path, leaf)`` over a def tree, in sorted key order."""
+    if is_def(defs):
+        return fn(path, defs)
+    return {k: _map_paths(fn, defs[k], path + (k,)) for k in sorted(defs)}
 
 
 @dataclass(frozen=True)
@@ -49,8 +67,64 @@ class Model:
                                             cross_len or max_len, cache_dtype)
         return _tf.cache_def(self.cfg, batch, max_len, cache_dtype)
 
+    def _model_rank(self, rules: AxisRules, mesh) -> tuple[int, int, bool]:
+        """(tp, this rank's index along "model", whether the SSM heads
+        are split over it)."""
+        tp = mesh.shape.get("model", 1)
+        index = mesh.index("model") if tp > 1 else 0
+        ssm = self.cfg.ssm
+        split = ssm is not None and tp > 1 and "model" in axes_of(
+            rules.resolve("ssm_heads",
+                          dims=(ssm.n_ssm_heads(self.cfg.d_model),))[0])
+        return tp, index, split
+
+    def serving_layouts(self, rules: AxisRules, mesh):
+        """What a serving rank holds of each parameter
+        (``common.ServingLayout``): the leaf's ``serving_spec`` (whole
+        over the fsdp axes, its slice over "model"), but the MoE router
+        and shared expert whole (only the expert leaves are split), and
+        the Mamba-2 leaves by heads: the in_proj and conv columns
+        ``ssm_head_columns``, the rest by their specs, or every one whole
+        where the SSM heads do not split over "model"."""
+        tp, index, ssm_split = self._model_rank(rules, mesh)
+
+        def layout(path, d):
+            whole = (None,) * len(d.shape)
+            if "moe" in path and not is_expert_leaf(d):
+                return ServingLayout(whole)
+            if "mamba" in path:
+                if not ssm_split:
+                    return ServingLayout(whole)
+                if path[-1] in ("in_proj", "conv_w", "conv_b"):
+                    leaf = "in_proj" if path[-1] == "in_proj" else "conv"
+                    return ServingLayout(
+                        whole, ssm_head_columns(self.cfg, leaf, tp, index))
+            return ServingLayout(serving_spec(d, rules))
+        return _map_paths(layout, self.param_defs)
+
+    def serving_cache_layouts(self, rules: AxisRules, mesh, batch: int,
+                              max_len: int, cross_len: int = 0,
+                              cache_dtype=torch.bfloat16):
+        """What a serving rank holds of each cache leaf: its slice of
+        ``cache_specs`` (rows over the dp axes where they divide, KV and
+        SSM heads over "model"), but the conv window its columns [x_r | B
+        | C] where the SSM heads are split (``ssm_head_columns``), whole
+        along its channels where they are not."""
+        tp, index, ssm_split = self._model_rank(rules, mesh)
+        defs = self.cache_defs(batch, max_len, cross_len, cache_dtype)
+
+        def layout(path, d):
+            spec = d.spec(rules)
+            if path[-1] != "conv":
+                return ServingLayout(spec)
+            cols = (ssm_head_columns(self.cfg, "conv", tp, index)
+                    if ssm_split else None)
+            return ServingLayout(spec[:-1] + (None,), cols)
+        return _map_paths(layout, defs)
+
     def init_caches(self, batch: int, max_len: int, cross_len: int = 0, *,
-                    cache_dtype=torch.bfloat16, device=None) -> dict:
+                    cache_dtype=torch.bfloat16, device=None, rules=None,
+                    mesh=None) -> dict:
         """Zeroed caches, updated in place by ``prefill`` and ``decode``.
 
         dense and vlm: {"blocks": {"k", "v": (L, B, Tmax, Hkv, hd)}} in
@@ -66,10 +140,25 @@ class Model:
         {"moe_layer", "dense_{j}": {"k", "v"}}}, one cache per layer of a
         unit; encdec: {"self": {"k", "v": (dec_layers, B, Tmax, Hkv, hd)},
         "cross": the same at ``cross_len`` positions (0: ``max_len``, as
-        the JAX package)}."""
+        the JAX package)}.
+
+        With ``mesh`` (and ``rules``, default ``rules_for_mesh``): this
+        rank's serving slices of them (``serving_cache_layouts``) for a
+        batch of ``batch`` rows."""
         dev = resolve_device(device)
         defs = self.cache_defs(batch, max_len, cross_len, cache_dtype)
-        return tree_defs_init(defs, None, dev)
+        if mesh is None:
+            return tree_defs_init(defs, None, dev)
+        layouts = self.serving_cache_layouts(
+            rules or rules_for_mesh(mesh), mesh, batch, max_len, cross_len,
+            cache_dtype)
+        sizes = mesh_axis_sizes(mesh)
+
+        def zeros(path, d):
+            lay = _index_path(layouts, path)
+            return torch.zeros(lay.local_shape(d.shape, sizes),
+                               dtype=d.dtype, device=dev)
+        return _map_paths(zeros, defs)
 
     def cache_specs(self, rules: AxisRules, batch: int, max_len: int,
                     cross_len: int = 0, cache_dtype=torch.bfloat16):
@@ -95,16 +184,45 @@ class Model:
         return _tf.lm_loss(params, self.cfg, batch, count=count, rules=rules,
                            mesh=mesh)
 
-    def prefill(self, params, batch: dict, caches):
-        if self.cfg.family == "encdec":
-            return _encdec.encdec_prefill(params, self.cfg, batch, caches)
-        return _tf.lm_prefill(params, self.cfg, batch, caches)
+    def _serving(self, rules, mesh, rows) -> dict:
+        """The keywords of a serving rank's forward: its "model" axis and,
+        for the MoE layers, the rules with the dp axes its rows are split
+        over (``rows``, a ``launch.sharding.Rows``; default: the mesh's
+        dp axes) and the mesh."""
+        from repro_torch.launch.sharding import dp_axes, model_axis
+        rules = rules or rules_for_mesh(mesh)
+        kw = {"tp": model_axis(mesh, rules)}
+        if self.cfg.moe is not None:
+            axes = dp_axes(mesh, rules) if rows is None else rows.axes
+            kw.update(rules=dataclasses.replace(rules, dp_axes=axes),
+                      mesh=mesh)
+        return kw
 
-    def decode(self, params, batch: dict, caches, cache_index: int):
+    def prefill(self, params, batch: dict, caches, rules=None, mesh=None,
+                rows=None):
+        """Last-position logits and the filled caches.  With ``mesh``: a
+        serving rank's (module docstring; ``rows`` the batch's
+        ``launch.sharding.Rows``)."""
+        kw = {} if mesh is None else self._serving(rules, mesh, rows)
+        if self.cfg.family == "encdec":
+            return _encdec.encdec_prefill(params, self.cfg, batch, caches,
+                                          tp=kw.get("tp"))
+        return _tf.lm_prefill(params, self.cfg, batch, caches, **kw)
+
+    def decode(self, params, batch: dict, caches, cache_index: int,
+               rules=None, mesh=None, rows=None):
+        kw = {} if mesh is None else self._serving(rules, mesh, rows)
         if self.cfg.family == "encdec":
             return _encdec.encdec_decode(params, self.cfg, batch, caches,
-                                         cache_index)
-        return _tf.lm_decode(params, self.cfg, batch, caches, cache_index)
+                                         cache_index, tp=kw.get("tp"))
+        return _tf.lm_decode(params, self.cfg, batch, caches, cache_index,
+                             **kw)
+
+
+def _index_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -18,6 +18,14 @@ Training: ``trunk`` without caches runs each unit under ``_remat`` (the
 JAX package's ``jax.checkpoint`` per scan unit), ``lm_loss`` is the chunked
 cross-entropy (``chunked_xent``) plus ``AUX_LOSS_COEF`` times the MoE
 units' load-balancing losses.
+
+Serving on a mesh (``lm_prefill`` / ``lm_decode`` with ``tp``, a
+``launch.sharding.ModelAxis``, and a rank's serving copies of the weights
+and caches): the embedding is a vocab-parallel masked lookup summed over
+"model" (exact: a token's row is nonzero on one rank), every layer is
+split as ``layers`` and ``mamba2`` say, and the logits are the rank's
+vocab slice (tied embeddings too); the greedy token over the slices is
+``launch.sharding.greedy``.
 """
 from __future__ import annotations
 
@@ -206,32 +214,48 @@ def _positions_for(cfg: ModelConfig, batch: dict, B: int, T: int,
     return base[None, :].expand(B, T)
 
 
-def _embed_inputs(params, cfg: ModelConfig, batch: dict):
-    # Gather, then cast: the same values as the JAX package's gather from
-    # a cfg.dtype copy of the table, without copying the whole table.
-    h = params["embed"][batch["tokens"]].to(cfg.dtype)
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """The rows of ``tokens`` in cfg.dtype.  Gather, then cast: the same
+    values as the JAX package's gather from a cfg.dtype copy of the table,
+    without copying the whole table.  Where ``table`` is this rank's vocab
+    slice (``tp``), a masked lookup of the tokens in the slice, summed
+    over "model" (counted as "embed_sum")."""
+    n = table.shape[0]
+    if tp is None or tp.size == 1 or n == cfg.vocab:
+        return table[tokens].to(cfg.dtype)
+    from repro_torch.launch.sharding import SumOut
+    local = tokens - tp.part(cfg.vocab)[0]
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(cfg.dtype)
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return SumOut.apply(rows, tp, "embed_sum")
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: dict, tp=None):
+    h = embed_lookup(params["embed"], batch["tokens"], cfg, tp)
     if cfg.family == "vlm" and "vision_embeds" in batch:
         h = torch.cat([batch["vision_embeds"].to(cfg.dtype), h], dim=1)
     return h
 
 
-def _apply_dense_layer(p, h, cfg, positions, cache, cache_index):
+def _apply_dense_layer(p, h, cfg, positions, cache, cache_index, tp=None):
     """A dense layer; in the hybrid, the shared attention block."""
     a, cache = self_attention(p["attn"], apply_norm(p["ln1"], h, cfg.norm),
                               cfg, causal=True, positions=positions,
-                              cache=cache, cache_index=cache_index)
+                              cache=cache, cache_index=cache_index, tp=tp)
     h = h + a
-    h = h + apply_mlp(p["mlp"], apply_norm(p["ln2"], h, cfg.norm), cfg)
+    h = h + apply_mlp(p["mlp"], apply_norm(p["ln2"], h, cfg.norm), cfg, tp)
     return h, cache
 
 
 def _apply_moe_layer(p, h, cfg, positions, cache, cache_index, rules=None,
-                     mesh=None):
+                     mesh=None, tp=None):
     """Attention, then the MoE in place of the MLP (on ``mesh`` where
     given: ``apply_moe``).  Returns (h, aux)."""
     a, _ = self_attention(p["attn"], apply_norm(p["ln1"], h, cfg.norm),
                           cfg, causal=True, positions=positions,
-                          cache=cache, cache_index=cache_index)
+                          cache=cache, cache_index=cache_index, tp=tp)
     h = h + a
     mo, aux = apply_moe(p["moe"], apply_norm(p["ln2"], h, cfg.norm), cfg,
                         rules, mesh)
@@ -239,44 +263,45 @@ def _apply_moe_layer(p, h, cfg, positions, cache, cache_index, rules=None,
 
 
 def _apply_moe_unit(p, h, cfg, positions, cache, cache_index, rules=None,
-                    mesh=None):
+                    mesh=None, tp=None):
     """The unit's ``every - 1`` dense layers, then its MoE layer (the JAX
     package's ``_apply_unit`` order).  Returns (h, the MoE layer's aux
     loss)."""
     for j in range(cfg.moe.every - 1):
         key = f"dense_{j}"
         h, _ = _apply_dense_layer(p[key], h, cfg, positions,
-                                  _sub(cache, key), cache_index)
+                                  _sub(cache, key), cache_index, tp)
     return _apply_moe_layer(p["moe_layer"], h, cfg, positions,
                             _sub(cache, "moe_layer"), cache_index, rules,
-                            mesh)
+                            mesh, tp)
 
 
 def _sub(cache, key):
     return None if cache is None else cache[key]
 
 
-def _apply_ssm_layer(p, h, cfg, cache, cache_index, decode: bool = False):
+def _apply_ssm_layer(p, h, cfg, cache, cache_index, decode: bool = False,
+                     tp=None):
     x = apply_norm(p["ln"], h, cfg.norm)
     if decode:
-        o, cache = decode_mamba2(p["mamba"], x, cfg, cache)
+        o, cache = decode_mamba2(p["mamba"], x, cfg, cache, tp=tp)
     else:
         o, cache = apply_mamba2(p["mamba"], x, cfg, cache=cache,
-                                cache_index=cache_index)
+                                cache_index=cache_index, tp=tp)
     return h + o, cache
 
 
 def _apply_hybrid_unit(p, h, cfg, shared, positions, cache, cache_index,
-                       decode):
+                       decode, tp=None):
     """``hybrid_attn_every`` Mamba-2 layers, then the shared block over
     this super-unit's own KV cache."""
     for j in range(cfg.hybrid_attn_every):
         h, _ = _apply_ssm_layer(
             _index_tree(p["ssm_layers"], j), h, cfg,
             None if cache is None else _index_tree(cache["ssm"], j),
-            cache_index, decode)
+            cache_index, decode, tp)
     h, _ = _apply_dense_layer(shared, h, cfg, positions, _sub(cache, "attn"),
-                              cache_index)
+                              cache_index, tp)
     return h
 
 
@@ -323,16 +348,18 @@ def _remat(fn, cfg: ModelConfig):
 
 def trunk(params, cfg: ModelConfig, batch: dict, caches: dict | None = None,
           cache_index: int = 0, decode: bool = False, *,
-          rules=None, mesh=None):
+          rules=None, mesh=None, tp=None):
     """Embed + all blocks (+ the hybrid's tail) + final norm.  With
     ``caches`` they are updated in place; without (training), each unit
     runs under ``_remat``.  ``decode`` takes the Mamba-2 layers'
     one-token recurrence.  ``rules`` and ``mesh`` go to ``apply_moe`` (a
-    sharded step's: this rank's rows and expert slices).  Returns (h,
+    sharded step's: this rank's rows and expert slices).  ``tp`` (a
+    serving rank's "model" axis) goes to the embedding and every layer,
+    whose weights are then the rank's serving copies.  Returns (h,
     caches, aux): aux is the sum of the MoE units' load-balancing losses
     (0 in the other families; on a mesh this rank's share)."""
     _check_family(cfg)
-    h = _embed_inputs(params, cfg, batch)
+    h = _embed_inputs(params, cfg, batch, tp)
     B, T = h.shape[0], h.shape[1]
     positions = (None if cfg.family == "ssm" else
                  _positions_for(cfg, batch, B, T, cache_index, h.device))
@@ -341,19 +368,20 @@ def trunk(params, cfg: ModelConfig, batch: dict, caches: dict | None = None,
     def unit(p, h, cache):
         if cfg.family == "ssm":
             return _apply_ssm_layer(p, h, cfg, cache, cache_index,
-                                    decode)[0], zero
+                                    decode, tp)[0], zero
         if cfg.family == "hybrid":
             return _apply_hybrid_unit(p, h, cfg, params["shared_attn"],
                                       positions, cache, cache_index,
-                                      decode), zero
+                                      decode, tp), zero
         if cfg.family == "moe":
             return _apply_moe_unit(p, h, cfg, positions, cache, cache_index,
-                                   rules, mesh)
+                                   rules, mesh, tp)
         return _apply_dense_layer(p, h, cfg, positions, cache,
-                                  cache_index)[0], zero
+                                  cache_index, tp)[0], zero
 
     def tail(p, h, cache):
-        return _apply_ssm_layer(p, h, cfg, cache, cache_index, decode)[0]
+        return _apply_ssm_layer(p, h, cfg, cache, cache_index, decode,
+                                tp)[0]
 
     if caches is None:
         unit, tail = _remat(unit, cfg), _remat(tail, cfg)
@@ -380,25 +408,28 @@ def _logits(h, params, cfg: ModelConfig):
     """bf16 operands, fp32 accumulation and output, as the JAX package's
     ``preferred_element_type=float32``: the operands are rounded to
     cfg.dtype and the product is taken in fp32, where products of bf16
-    values are exact."""
+    values are exact.  With a serving rank's vocab slice of the
+    unembedding (or of the tied embedding), that slice of the logits."""
     return torch.einsum("btd,dv->btv", h.to(cfg.dtype).float(),
                         unembed_matrix(params, cfg).to(cfg.dtype).float())
 
 
-def lm_prefill(params, cfg: ModelConfig, batch: dict, caches):
+def lm_prefill(params, cfg: ModelConfig, batch: dict, caches, **mesh_kw):
     """Run the prompt through the trunk filling caches; returns last logits.
     ``batch``: "tokens" (B, T); for vlm optionally "vision_embeds" (B, Tv,
-    d_model), prepended, and "positions" (B, Tv + T, 3)."""
-    h, caches, _ = trunk(params, cfg, batch, caches, cache_index=0)
+    d_model), prepended, and "positions" (B, Tv + T, 3).  ``mesh_kw``
+    (``rules``, ``mesh``, ``tp``) go to ``trunk``."""
+    h, caches, _ = trunk(params, cfg, batch, caches, cache_index=0,
+                         **mesh_kw)
     return _logits(h[:, -1:], params, cfg), caches
 
 
 def lm_decode(params, cfg: ModelConfig, batch: dict, caches,
-              cache_index: int):
+              cache_index: int, **mesh_kw):
     """One decode step: batch["tokens"]: (B, 1); under M-RoPE optionally
     batch["positions"]: (B, 1, 3)."""
     h, caches, _ = trunk(params, cfg, batch, caches, cache_index=cache_index,
-                         decode=cfg.family in ("ssm", "hybrid"))
+                         decode=cfg.family in ("ssm", "hybrid"), **mesh_kw)
     return _logits(h, params, cfg), caches
 
 

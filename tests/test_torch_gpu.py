@@ -2002,3 +2002,150 @@ def test_moe_on_a_process_mesh_on_the_card(tmp_path):
     assert abs(out["loss"] - float(m["loss"])) <= 3e-2 * abs(float(m["loss"]))
     for a, b in zip(out["grads"], leaves(m["grads"])):
         _grad_close(a, b.cpu(), 3e-2, "grads")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,kv_len,q_offset", [
+    # qwen2-7b on a rank of tp 2: 14 query heads, 2 KV heads (GQA 7)
+    (4, 14, 2, 16, 28, 128, 16, 0),     # a serve prompt
+    (4, 14, 2, 1, 28, 128, 20, 19),     # a decode step
+    (4, 14, 2, 1, 4096, 128, 4096, 4095),
+])
+def test_flash_at_a_serving_ranks_head_counts(dtype, B, Hq, Hkv, Sq, Sk, D,
+                                              kv_len, q_offset):
+    """The flash kernel at the head counts a rank of a (1, 2) serving mesh
+    runs qwen2-7b with, against its plain version."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(B, Hq, Sq, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Hkv, Sk, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, Sk, D, generator=g, device="cuda").to(dtype)
+    before = kernel.LAUNCHES
+    out = kernel.flash_attention(q, k, v, causal=True, kv_len=kv_len,
+                                 q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    ref = attention_ref(q, k, v, causal=True, kv_len=kv_len,
+                        q_offset=q_offset)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [16, 300])
+def test_ssd_at_a_serving_ranks_head_counts(dtype, T):
+    """The SSD kernel at mamba2-1.3b's heads on a rank of tp 2 (H 32, P
+    64, N 128), against its plain version."""
+    _need_card()
+    x, dt, a, B_, C_, s0 = _ssd_inputs(4, T, 32, 64, 1, 128, dtype, True)
+    before = ssd_mod.kernel.LAUNCHES
+    y, st = ssd_scan(x, dt, a, B_, C_, chunk=128, state0=s0)
+    torch.cuda.synchronize()
+    assert ssd_mod.kernel.LAUNCHES == before + 1
+    ref_y, ref_st = ssd_chunked(x, dt, a, B_, C_, 128, state0=s0)
+    _ssd_close(y, ref_y)
+    _ssd_close(st, ref_st)
+
+
+SERVE_MESH_ARCHS = ("qwen2-7b", "mamba2-1.3b")
+SERVE_MESH_T, SERVE_MESH_STEPS = 9, 3
+
+
+def _serve_mesh_card_worker(rank, device, inputs, out):
+    """One rank of a (1, 2) serving mesh on the card: each arch's prefill
+    and teacher-forced decode steps on the rank's serving copies."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((1, 2), ("data", "model"), device=device)
+    rules = make_rules(mesh)
+    tp = sharding.model_axis(mesh, rules)
+    results = {}
+    for arch, (params, batch, forced) in torch.load(inputs).items():
+        cfg = _small(arch)
+        model = build_model(cfg)
+        local = sharding.serve_tree(_to(params, device),
+                                    model.serving_layouts(rules, mesh), mesh)
+        B = batch["tokens"].shape[0]
+        caches = model.init_caches(B, SERVE_MESH_T + SERVE_MESH_STEPS,
+                                   device=device, rules=rules, mesh=mesh,
+                                   cache_dtype=torch.float32)
+        kernel.LAUNCHES = ssd_mod.kernel.LAUNCHES = 0
+        logits, caches = make_prefill_step(model, rules, mesh)(
+            local, _to(batch, device), caches)
+        outs = [logits.cpu()]
+        toks = [sharding.greedy(logits[:, -1], tp, cfg.vocab).cpu()]
+        decode = make_decode_step(model, rules, mesh)
+        for s in range(SERVE_MESH_STEPS):
+            tok, logits, caches = decode(local, {"tokens": forced[s].to(
+                device)}, caches, SERVE_MESH_T + s)
+            outs.append(logits.cpu())
+            toks.append(tok.cpu())
+        results[arch] = {"logits": outs, "tokens": toks,
+                         "launches": (kernel.LAUNCHES,
+                                      ssd_mod.kernel.LAUNCHES)}
+    torch.save(results, out / f"rank{rank}.pt")
+
+
+@pytest.mark.gpu
+def test_serve_on_a_process_mesh_on_the_card(tmp_path):
+    """chip_smoke.py's phase 17 at the test size: two gloo processes share
+    the card as a (1, 2) ("data", "model") mesh and serve the widened
+    smoke configs of qwen2-7b and mamba2-1.3b (float32), each rank on its
+    heads, MLP columns, vocab slice and SSM heads through the flash and
+    SSD kernels; every step's logits, gathered over the vocab slices,
+    within 1e-4 x max of one process on the card (the models' bar at
+    float32), the greedy tokens equal."""
+    _need_card()
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import build_model
+    inputs, ref = {}, {}
+    for arch in SERVE_MESH_ARCHS:
+        cfg = _small(arch)
+        model = build_model(cfg)
+        params = model.init(0, device="cpu")
+        gen = torch.Generator().manual_seed(4)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (4, SERVE_MESH_T),
+                                         generator=gen)}
+        forced = torch.randint(0, cfg.vocab, (SERVE_MESH_STEPS, 4, 1),
+                               generator=gen)
+        inputs[arch] = (params, batch, forced)
+        p = _to(params, "cuda")
+        caches = model.init_caches(4, SERVE_MESH_T + SERVE_MESH_STEPS,
+                                   device="cuda", cache_dtype=torch.float32)
+        with torch.inference_mode():
+            logits, caches = model.prefill(p, _to(batch, "cuda"), caches)
+            outs = [logits.cpu()]
+            for s in range(SERVE_MESH_STEPS):
+                logits, caches = model.decode(p, {"tokens": forced[s].to(
+                    "cuda")}, caches, SERVE_MESH_T + s)
+                outs.append(logits.cpu())
+        ref[arch] = outs
+    torch.save(inputs, tmp_path / "inputs.pt")
+    spawn(_serve_mesh_card_worker, 2, (tmp_path / "inputs.pt", tmp_path),
+          rendezvous=tmp_path / "rendezvous", backend="gloo", device="cuda",
+          timeout_s=300)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    for arch in SERVE_MESH_ARCHS:
+        cfg = _small(arch)
+        forwards = 1 + SERVE_MESH_STEPS
+        want = ((cfg.n_layers * forwards, 0) if cfg.ssm is None
+                else (0, cfg.n_layers))
+        for r in ranks:
+            assert r[arch]["launches"] == want, (arch, r[arch]["launches"])
+            assert all(torch.equal(a, b) for a, b in
+                       zip(r[arch]["tokens"], ranks[0][arch]["tokens"]))
+        for step, want_logits in enumerate(ref[arch]):
+            whole = torch.cat([r[arch]["logits"][step] for r in ranks], -1)
+            assert bool(torch.isfinite(whole).all())
+            err = float((whole - want_logits).abs().max()
+                        / want_logits.abs().max())
+            assert err <= 1e-4, (arch, step, err)
+            tok = ranks[0][arch]["tokens"][step]
+            assert torch.equal(tok, torch.argmax(whole[:, -1], dim=-1))
