@@ -260,13 +260,27 @@ in order; any failure ends the run with a non-zero exit code:
    expert d_ff 768, vocab 151,936) and TRAIN_LAYERS layer, fp32 weights
    and bf16 activations, one step of 4 x 4,096 tokens at ``moe_groups``
    2 (S 8,192, C 640) on the (2, 1) mesh (a group a rank) and the (1, 2)
-   mesh (64 experts a rank, their outputs all-gathered over "model"),
-   each rank's loss and gradient slices within 3e-2 x max of the
-   one-process card step at the same groups, which the parent saves
-   before the spawn; printed: each rank's step ms and peak, its gathered
-   bytes (expert leaves and the rest), its exchange bytes, the flash
-   launches, the worst gradient leaf, bit for bit or not (measured
-   only).
+   mesh (64 experts and 16 attention heads a rank, the experts' outputs
+   all-gathered over "model"), each rank's loss and gradient slices
+   within 3e-2 x max of the one-process card step at the same groups,
+   which the parent saves before the spawn; the (1, 2) mesh at float32
+   activations against a float32 step (``P16_MOE_RUNS``: at bf16 the split
+   attention moves the router's choice for a few tokens), and at bf16
+   measured only; printed: each rank's step ms and peak, its gathered
+   bytes (expert leaves and the rest), its exchange bytes, the tokens
+   its router sent elsewhere than one process's, the flash launches, the
+   worst gradient leaf, bit for bit or not (measured only); 16f (after 16e, in the same two ranks) tensor-parallel training
+   on the (1, 2) mesh, each rank holding, gathering and computing its
+   "model" slices: stablelm-1.6b at full width and depth, qwen2-7b at full width and one layer (14 query and 2 KV heads a
+   rank, V/2 of each chunk's logits) and mamba2-1.3b at 2 layers (32
+   SSM heads a rank, the gated norm's sum both ways), at unit score
+   variance, each against its one-process step, which the parent saves
+   before the spawn: each rank's loss and gradient slices within 3e-2 x
+   max, its
+   flash and SSD launches a step's, no parameter gathered for the dense
+   configs and only the Mamba-2 in_proj and conv leaves ("all_gather_model")
+   for mamba2; printed: step ms, peak, gathered bytes and tensor-parallel
+   collectives by kind, launches.
 17. serving on a ("data", "model") mesh (``make_prefill_step`` /
    ``make_decode_step`` and ``ServeLoop`` with ``rules`` and ``mesh``):
    17a the flash kernel at qwen2-7b's head counts on a rank of tp 2 (14
@@ -3743,7 +3757,43 @@ P16_TIMEOUT = 240         # seconds for the two ranks, then they are ended
 #: the card, past the models' bar)
 P16_MOE = "qwen3-moe-30b-a3b"
 P16_MOE_GROUPS = 2
-P16_MOE_MESHES = ((2, 1), (1, 2))
+#: 16e's (mesh, activation dtype, gated): at (1, 2) the attention heads are
+#: split over "model" too, and at bf16 its reordered fp32 sums change the
+#: rounding of some hidden states, which moves the router's top-8 of a few
+#: tokens and the gradients of the experts they leave or join by their
+#: whole contribution (4.01e-2 x max off one process in chip call 1 of PR
+#: 30): that run prints how many tokens the router sent elsewhere, and
+#: the gated (1, 2) run is at float32 activations against a float32
+#: one-process step
+P16_MOE_RUNS = (((2, 1), "bfloat16", True), ((1, 2), "float32", True),
+                ((1, 2), "bfloat16", False))
+
+
+def p16e_label(shape, dtype) -> str:
+    return f"{P16_MOE} {tuple(shape)} {dtype}"
+
+
+def p16e_ref(dtype) -> str:
+    return P16_MOE if dtype == "bfloat16" else f"{P16_MOE} {dtype}"
+#: 16f: tensor-parallel training on the (1, 2) mesh, (arch, n_layers):
+#: stablelm-1.6b at its full depth, qwen2-7b at one layer and mamba2-1.3b
+#: at 2 layers, each against its one-process step at unit score variance
+#: (``unit_score_scale``): at the init's scores the split's reordered sums
+#: alone took stablelm's 24 layers 1.68 x max off one process (chip call
+#: 2 of PR 30), as deep attention at those scores carries any rounding
+#: difference (phase 6, phase 17)
+P16F = ((P16_ARCH, 0), ("qwen2-7b", 1), P16_SSM)
+P16F_MESH = (1, 2)
+#: the tensor-parallel collective kinds 16f prints (launch.sharding)
+TP_KINDS = ("embed_sum", "tp_sum", "tp_grad", "kv_grad", "norm_sum", "xent")
+
+
+def p16f_label(arch) -> str:
+    return f"{arch} {P16F_MESH}"
+
+
+def p16f_ref(arch) -> str:
+    return f"{arch} 16f"
 
 
 def p16_opt():
@@ -3751,11 +3801,32 @@ def p16_opt():
     return AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=FULL_STEPS)
 
 
-def p16_config(get_config, arch, n_layers=0):
+def p16_config(get_config, arch, n_layers=0, dtype=None):
+    """The config of a phase-16 run; ``dtype`` (a torch dtype's name) the
+    activations' (default the config's, bf16)."""
     cfg = get_config(arch)
     if arch == P16_MOE:
         cfg = cfg.with_(moe_groups=P16_MOE_GROUPS)
+    if dtype is not None:
+        import torch
+        cfg = cfg.with_(dtype=getattr(torch, dtype))
     return cfg.with_(n_layers=n_layers) if n_layers else cfg
+
+
+def first_route(moe):
+    """Wrap ``moe.route``: ``seen`` gets the sorted expert choices (G, S, K)
+    of its first call (a one-layer step's forward; the remat's recompute
+    calls it again).  Returns (seen, restore)."""
+    route = moe.route
+    seen = []
+
+    def recording(*args):
+        out = route(*args)
+        if not seen:
+            seen.append(out[1].sort(dim=-1).values)
+        return out
+    moe.route = recording
+    return seen, (lambda: setattr(moe, "route", route))
 
 
 def p16_counts(kernel, ssd_kernel) -> dict:
@@ -3991,20 +4062,24 @@ def sharded_worker(rank, device, runs, ref_root, out_dir, fleet_ref):
     meshes = {}
     opt = p16_opt()
     out = {}
-    for label, arch, n_layers, shape, ref_label in runs:
+    from repro_torch.models import moe as moe_mod
+    for label, arch, n_layers, shape, ref_label, dtype, unit in runs:
+        t_run = time.perf_counter()
         shape = tuple(shape)
         if shape not in meshes:       # every rank forms them in one order
             meshes[shape] = make_mesh(shape, ("data", "model"),
                                       device=device)
         mesh = meshes[shape]
         rules = make_rules(mesh)
-        cfg = p16_config(get_config, arch, n_layers)
+        cfg = p16_config(get_config, arch, n_layers, dtype)
         model = build_model(cfg)
         sdefs = state_defs(model.param_defs, opt)
         psh = sharding.tree_shardings(model.param_specs(rules), mesh)
         ssh = sharding.tree_shardings(tree_defs_to_specs(sdefs, rules), mesh)
         gen = torch.Generator(device=device).manual_seed(0)
         params = sharding.init_local(model.param_defs, gen, device, psh)
+        if unit:
+            params = unit_score_scale(params, cfg)
         state = sharding.init_local(sdefs, None, device, ssh)
         batch = sharding.local_batch(
             SyntheticLMData(cfg, seq=P16_SEQ, global_batch=P16_BATCH, seed=0,
@@ -4015,10 +4090,15 @@ def sharded_worker(rank, device, runs, ref_root, out_dir, fleet_ref):
         torch.cuda.reset_peak_memory_stats()
         p16_reset(kernel, ssd_kernel)
         sharding.reset_counts()
+        routes, unwrap = (first_route(moe_mod) if cfg.moe is not None
+                          else ([], lambda: None))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (params, state, m), sites, native = traced_step(
-            trace_syncs, lambda: step(params, state, batch))
+        try:
+            (params, state, m), sites, native = traced_step(
+                trace_syncs, lambda: step(params, state, batch))
+        finally:
+            unwrap()
         loss = float(m["loss"])
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
@@ -4035,6 +4115,18 @@ def sharded_worker(rank, device, runs, ref_root, out_dir, fleet_ref):
         del m, params, state, step, batch
         ref, manifest = restore(ref_root / ref_label, device=device,
                                 shardings={"grads": psh})
+        rerouted = None
+        if routes:
+            # the tokens whose top-k the router chose otherwise than the
+            # one-process step did
+            one_route = torch.load(ref_root / f"{ref_label}.route.pt",
+                                   map_location=device)
+            # this rank's groups of the microbatch's (split over dp)
+            g = routes[0].shape[0]
+            one_route = one_route[g * sharding.dp_index(
+                mesh, sharding.dp_axes(mesh, rules)):][:g]
+            rerouted = [int((routes[0] != one_route).any(-1).sum()),
+                        int(one_route[..., 0].numel())]
         errs = [grad_rel(g, r) for g, r in zip(grads, leaves(ref["grads"]))]
         worst = max(range(len(errs)), key=errs.__getitem__)
         ref_loss = manifest["metadata"]["loss"]
@@ -4049,14 +4141,15 @@ def sharded_worker(rank, device, runs, ref_root, out_dir, fleet_ref):
             "grad_rel_err": max(errs), "grad_norm": gnorm,
             "worst_leaf": leaf_paths(model.param_defs)[worst],
             "local_grad_gb": local_gb, "bit_for_bit": same,
-            "expert_leaf_slice": wg,
+            "expert_leaf_slice": wg, "rerouted_tokens": rerouted,
             "step_ms": ms, "peak_memory_gb": peak_gb,
             "collective": collective, "launches": launches,
             "expected_launches": p16_expected(cfg),
             "syncs": len(sites),
             "sync_sites": {str(k): v for k, v in
                            Counter(sites).most_common()},
-            "gloo_thread_syncs": native}
+            "gloo_thread_syncs": native,
+            "seconds": time.perf_counter() - t_run}
         del grads, ref
         gc.collect()          # the step's reference cycles hold tensors
         torch.cuda.empty_cache()
@@ -4065,13 +4158,16 @@ def sharded_worker(rank, device, runs, ref_root, out_dir, fleet_ref):
 
 
 def one_device_steps(torch, kernel, ssd_kernel, get_config, label, arch,
-                     n_layers, ref_dir, both):
+                     n_layers, ref_dir, both, dtype=None, unit=False):
     """The one-device step of ``arch`` (seed 0, the global batch of
     P16_BATCH x P16_SEQ): without rules and through the (1, 1) mesh with
     ``make_rules`` (``both``: held equal bit for bit in loss, gradients
     and updated weights), or through the (1, 1) mesh alone.  Saves the
     last step's gradients and loss under ``ref_dir`` (the checkpoint
-    format) for the ranks of 16b/16c; returns its row."""
+    format) for the ranks of 16b/16c, and for a MoE config the router's
+    first choices beside it (``first_route``); returns its row.  ``dtype``:
+    the activations' (``p16_config``); ``unit``: the weights at unit
+    score variance (``unit_score_scale``)."""
     from repro_torch.checkpoint import save
     from repro_torch.data import SyntheticLMData
     from repro_torch.launch.mesh import make_mesh, make_rules
@@ -4081,7 +4177,8 @@ def one_device_steps(torch, kernel, ssd_kernel, get_config, label, arch,
     from repro_torch.optim import state_defs
     from repro_torch.optim.adamw import leaves, unflatten
 
-    cfg = p16_config(get_config, arch, n_layers)
+    from repro_torch.models import moe as moe_mod
+    cfg = p16_config(get_config, arch, n_layers, dtype)
     model = build_model(cfg)
     opt = p16_opt()
     sdefs = state_defs(model.param_defs, opt)
@@ -4093,12 +4190,22 @@ def one_device_steps(torch, kernel, ssd_kernel, get_config, label, arch,
     runs = {}
     for name, kw in ways:
         params = model.init(0, device="cuda")
+        if unit:
+            params = unit_score_scale(params, cfg)
         state = tree_defs_init(sdefs, None, "cuda")
         step = make_train_step(model, opt, keep_grads=True, **kw)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         p16_reset(kernel, ssd_kernel)
-        params, state, m, ms = p16_step(torch, step, params, state, batch)
+        routes, unwrap = (first_route(moe_mod) if cfg.moe is not None
+                          else ([], lambda: None))
+        try:
+            params, state, m, ms = p16_step(torch, step, params, state,
+                                            batch)
+        finally:
+            unwrap()
+        if routes:
+            torch.save(routes[0].cpu(), Path(f"{ref_dir}.route.pt"))
         runs[name] = {"loss": m["loss"], "grad_norm": m["grad_norm"],
                       "grads": leaves(m["grads"]), "params": leaves(params),
                       "ms": ms, "launches": p16_counts(kernel, ssd_kernel),
@@ -4182,21 +4289,24 @@ def print_fleet_mesh(fleet, smi):
                   f"gathered {x['gather_rel_err']:.3e} (tol {EST_TOL})")
 
 
-def print_moe_meshes(one, ranks, labels, cfg, smi):
-    """16e's lines, and its gate: each rank's loss and gradient slices
-    within P16_TOL x max of the one-process step, its expert leaves'
-    slices E/tp experts, its flash launches those of a step."""
+def print_moe_meshes(one, ranks, cfg, smi):
+    """16e's lines, and its gate (P16_MOE_RUNS' gated runs): each rank's
+    loss and gradient slices within P16_TOL x max of the one-process step
+    at its activation dtype, its expert leaves' slices E/tp experts, its
+    flash launches those of a step."""
     E = cfg.moe.n_experts
-    ms = one["(1, 1) mesh"]["ms"]
     print(f"== phase 16e: {P16_MOE} at full width, {cfg.n_layers} layer(s), "
-          f"fp32 weights, bf16 activations, {E} experts top-"
+          f"fp32 weights, {E} experts top-"
           f"{cfg.moe.top_k}, moe_groups "
           f"{P16_MOE_GROUPS}, {P16_BATCH} x {P16_SEQ} tokens; {smi}",
           flush=True)
-    print(f"  one process (the reference): step {ms:.1f} ms, peak "
-          f"{one['(1, 1) mesh']['peak_memory_gb']:.2f} GB, launches "
-          f"{one['(1, 1) mesh']['launches']}", flush=True)
-    for label in labels:
+    for dtype in sorted({d for _, d, _ in P16_MOE_RUNS}):
+        ref = one[p16e_ref(dtype)]["(1, 1) mesh"]
+        print(f"  one process at {dtype} activations (the reference): step "
+              f"{ref['ms']:.1f} ms, peak {ref['peak_memory_gb']:.2f} GB, "
+              f"launches {ref['launches']}", flush=True)
+    for shape, dtype, gated in P16_MOE_RUNS:
+        label = p16e_label(shape, dtype)
         for r, rank in enumerate(ranks):
             x = rank[label]
             moved, calls = x["collective"]["bytes"], x["collective"]["calls"]
@@ -4214,11 +4324,14 @@ def print_moe_meshes(one, ranks, labels, cfg, smi):
                   f"gradient slices {x['grad_rel_err']:.2e} x max off the "
                   f"one-process step (tol {P16_TOL}; the worst leaf "
                   f"{x['worst_leaf']}); bit for bit: "
-                  f"{x['bit_for_bit']} (measured only); flash launches "
-                  f"fwd {x['launches']['flash_fwd']}, bwd "
-                  f"{x['launches']['flash_bwd']}", flush=True)
-            check(x["loss_rel_err"] <= P16_TOL
-                  and x["grad_rel_err"] <= P16_TOL,
+                  f"{x['bit_for_bit']} (measured only); tokens routed "
+                  f"otherwise {x['rerouted_tokens']} (of the microbatch's); "
+                  f"flash launches fwd {x['launches']['flash_fwd']}, bwd "
+                  f"{x['launches']['flash_bwd']}"
+                  + ("" if gated else "; measured only, the gated (1, 2) "
+                     "run is at float32"), flush=True)
+            check(not gated or (x["loss_rel_err"] <= P16_TOL
+                                and x["grad_rel_err"] <= P16_TOL),
                   f"16e {label} rank {r}: loss {x['loss_rel_err']:.3e}, "
                   f"gradients {x['grad_rel_err']:.3e} (tol {P16_TOL})")
             check(x["expert_leaf_slice"][1] == E // tp,
@@ -4234,6 +4347,55 @@ def print_moe_meshes(one, ranks, labels, cfg, smi):
               f"16e {label}: the ranks report different losses")
 
 
+def print_tp_meshes(one, ranks, smi):
+    """16f's lines, and its gates: each rank's loss and gradient slices
+    within P16_TOL x max of the one-process step, its launches a step's,
+    nothing gathered for a dense config and only "all_gather_model" for
+    mamba2 (no fsdp axis of more than one rank on (1, 2)), the ranks'
+    losses equal."""
+    print(f"== phase 16f: tensor-parallel training on the {P16F_MESH} mesh "
+          "of the two ranks (heads, KV heads, MLP, vocab and SSM heads "
+          f"over \"model\"), {P16_BATCH} x {P16_SEQ} tokens, fp32 weights at "
+          f"unit score variance, bf16 activations; {smi}", flush=True)
+    for arch, n in P16F:
+        label = p16f_label(arch)
+        ref = one[p16f_ref(arch)]["(1, 1) mesh"]
+        print(f"  {label}, {ranks[0][label]['n_layers']} layer(s): one "
+              f"process {ref['ms']:.1f} ms, peak "
+              f"{ref['peak_memory_gb']:.2f} GB", flush=True)
+        for r, rank in enumerate(ranks):
+            x = rank[label]
+            moved, calls = x["collective"]["bytes"], x["collective"]["calls"]
+            gathered = {k: v for k, v in moved.items()
+                        if k.startswith("all_gather")}
+            tp = {k: f"{moved[k] / 1e9:.3f} GB in {calls[k]}"
+                  for k in TP_KINDS if k in moved}
+            print(f"    rank {r} {tuple(x['coords'])}: step "
+                  f"{x['step_ms']:.1f} ms, peak {x['peak_memory_gb']:.2f} "
+                  f"GB; gathered (B) {gathered or 'none'}; tensor-parallel "
+                  f"collectives {tp}; loss {x['loss']:.6f}, loss "
+                  f"{x['loss_rel_err']:.2e} and gradient slices "
+                  f"{x['grad_rel_err']:.2e} x max off one process (tol "
+                  f"{P16_TOL}; the worst leaf {x['worst_leaf']}); launches "
+                  f"{x['launches']}; {x['seconds']:.1f} s in the rank",
+                  flush=True)
+            check(x["loss_rel_err"] <= P16_TOL
+                  and x["grad_rel_err"] <= P16_TOL,
+                  f"16f {label} rank {r}: loss {x['loss_rel_err']:.3e}, "
+                  f"gradients {x['grad_rel_err']:.3e} (tol {P16_TOL})")
+            check(x["launches"] == x["expected_launches"],
+                  f"16f {label} rank {r}: launches {x['launches']}, "
+                  f"expected {x['expected_launches']}")
+            want = {"all_gather_model"} if arch == P16_SSM[0] else set()
+            check(set(gathered) == want,
+                  f"16f {label} rank {r}: gathered {gathered}, expected "
+                  f"only {want or 'nothing'}")
+            check(all(k in moved for k in ("tp_sum", "tp_grad", "xent")),
+                  f"16f {label} rank {r}: collectives {moved}")
+        check(ranks[0][label]["loss"] == ranks[1][label]["loss"],
+              f"16f {label}: the ranks report different losses")
+
+
 def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     """Phase 16: 16a stablelm-1.6b's one-device step without rules and
     through the (1, 1) mesh, bit for bit; 16b the same step on a (2, 1)
@@ -4244,7 +4406,8 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     against the one-process card fleet (``fleet_reference``); 16e
     qwen3-moe at full width on the (2, 1) and (1, 2) meshes of the same
     ranks against its one-process step at ``moe_groups`` 2
-    (``print_moe_meshes``)."""
+    (``print_moe_meshes``); 16f tensor-parallel training of P16F on the
+    (1, 2) mesh of the same ranks (``print_tp_meshes``)."""
     import shutil
     from repro_torch.launch.mesh import spawn
     t0 = time.perf_counter()
@@ -4275,13 +4438,25 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     moe_cfg = p16_config(get_config, P16_MOE, TRAIN_LAYERS)
     print(f"  ({time.perf_counter() - t0:.1f} s) 16e's reference: {P16_MOE} "
           f"at {TRAIN_LAYERS} layer(s) ({moe_cfg.param_count():,} "
-          f"parameters, fp32 weights, bf16 activations, "
+          f"parameters, fp32 weights, bf16 and float32 activations, "
           f"{moe_cfg.moe.n_experts} experts, top-"
           f"{moe_cfg.moe.top_k}, moe_groups {P16_MOE_GROUPS}) through the "
           "(1, 1) mesh", flush=True)
-    one[P16_MOE] = one_device_steps(torch, kernel, ssd_kernel, get_config,
-                                    P16_MOE, P16_MOE, TRAIN_LAYERS,
-                                    work / "ref" / P16_MOE, both=False)
+    for dtype in sorted({d for _, d, _ in P16_MOE_RUNS}):
+        ref_label = p16e_ref(dtype)
+        one[ref_label] = one_device_steps(
+            torch, kernel, ssd_kernel, get_config, ref_label, P16_MOE,
+            TRAIN_LAYERS, work / "ref" / ref_label, both=False,
+            dtype=dtype)
+    print(f"  ({time.perf_counter() - t0:.1f} s) 16f's references: "
+          + ", ".join(f"{a} at {n or 'all'} layer(s)" for a, n in P16F)
+          + " through the (1, 1) mesh at unit score variance", flush=True)
+    t16f = time.perf_counter()
+    for a, n_f in P16F:
+        one[p16f_ref(a)] = one_device_steps(
+            torch, kernel, ssd_kernel, get_config, p16f_ref(a), a, n_f,
+            work / "ref" / p16f_ref(a), both=False, unit=True)
+    ref16f_s = time.perf_counter() - t16f
     gc.collect()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_reserved() / 1e9
@@ -4293,8 +4468,11 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
           f"(this process holds {held_gb:.2f} GB of the card, "
           f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB of it are free)",
           flush=True)
-    moe_runs = [(f"{P16_MOE} {shape}", P16_MOE, TRAIN_LAYERS, shape, P16_MOE)
-                for shape in P16_MOE_MESHES]
+    moe_runs = [(p16e_label(shape, dtype), P16_MOE, TRAIN_LAYERS, shape,
+                 p16e_ref(dtype), dtype, False)
+                for shape, dtype, _ in P16_MOE_RUNS]
+    tp_runs = [(p16f_label(a), a, n, P16F_MESH, p16f_ref(a), None, True)
+               for a, n in P16F]
     # two ranks share the card, each near 30 GB at 16b's peak: freed
     # blocks of one size must serve the next sizes, or the cache's
     # fragments take the pair past the card (a chip run ran out with 4.65
@@ -4303,8 +4481,10 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         spawn(sharded_worker, 2,
-              ([(P16_ARCH, P16_ARCH, 0, (2, 1), P16_ARCH),
-                (arch, arch, n, (2, 1), arch)] + moe_runs, work / "ref",
+              ([(P16_ARCH, P16_ARCH, 0, (2, 1), P16_ARCH, None, False),
+                (arch, arch, n, (2, 1), arch, None, False)]
+               + moe_runs + tp_runs,
+               work / "ref",
                work / "out", work / "fleet_ref.pt"),
               rendezvous=work / "rendezvous", backend="gloo", device="cuda",
               timeout_s=P16_TIMEOUT)
@@ -4351,8 +4531,13 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     out["fleet"] = {"one_process": fleet_one,
                     "ranks": [r["fleet"] for r in ranks]}
     print_fleet_mesh(out["fleet"], smi)
-    print_moe_meshes(one[P16_MOE], ranks, [r[0] for r in moe_runs],
-                     moe_cfg, smi)
+    print_moe_meshes(one, ranks, moe_cfg, smi)
+    print_tp_meshes(one, ranks, smi)
+    out["16f_seconds"] = ref16f_s + max(
+        sum(rank[r[0]]["seconds"] for r in tp_runs) for rank in ranks)
+    print(f"  phase 16f: {out['16f_seconds']:.1f} s (its reference "
+          f"{ref16f_s:.1f} s, the ranks' steps and checks the rest)",
+          flush=True)
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 16: {out['seconds']:.1f} s (the two ranks "
           f"{spawn_s:.1f} s)", flush=True)
@@ -5172,8 +5357,9 @@ def main() -> int:
     print("== phase 16: the sharded train step on the card (16a the "
           "(1, 1) mesh, 16b/16c a (2, 1) mesh of two gloo processes), "
           "the fleet on the two processes' (\"wf\", \"task\") meshes (16d), "
-          "and MoE over groups and experts on their (2, 1) and (1, 2) "
-          "meshes (16e)", flush=True)
+          "MoE over groups and experts on their (2, 1) and (1, 2) "
+          "meshes (16e), and tensor-parallel training on their (1, 2) mesh "
+          "(16f)", flush=True)
     sharded = run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi)
     ssm_arch = P16_SSM[0]
 
@@ -5200,11 +5386,24 @@ def main() -> int:
                 f"{label} sharded step, 2 ranks (16)":
                     sum(r[label]["launches"][key] for r in sharded["ranks"])}
 
+    def p16f_launches(key):
+        rows = {}
+        for a, _ in P16F:
+            rows[f"{a} one-device step (16f)"] = sharded["one_device"][
+                p16f_ref(a)]["(1, 1) mesh"]["launches"][key]
+            label = p16f_label(a)
+            rows[f"{label} tensor-parallel step, 2 ranks (16f)"] = sum(
+                r[label]["launches"][key] for r in sharded["ranks"])
+        return {k: v for k, v in rows.items() if v}
+
     def p16e_launches(key):
-        one = sharded["one_device"][P16_MOE]["(1, 1) mesh"]["launches"]
-        rows = {f"{P16_MOE} one-device step (16e)": one[key]}
-        for shape in P16_MOE_MESHES:
-            label = f"{P16_MOE} {shape}"
+        rows = {}
+        for dtype in sorted({d for _, d, _ in P16_MOE_RUNS}):
+            ref = p16e_ref(dtype)
+            rows[f"{ref} one-device step (16e)"] = sharded["one_device"][
+                ref]["(1, 1) mesh"]["launches"][key]
+        for shape, dtype, _ in P16_MOE_RUNS:
+            label = p16e_label(shape, dtype)
             rows[f"{label} sharded step, 2 ranks (16e)"] = sum(
                 r[label]["launches"][key] for r in sharded["ranks"])
         return rows
@@ -5221,12 +5420,14 @@ def main() -> int:
                          training["full_width"]["flash_fwd_launches"],
                      **p16_launches(P16_ARCH, "flash_fwd"),
                      **p16e_launches("flash_fwd"),
+                     **p16f_launches("flash_fwd"),
                      **p17_launches("flash_fwd")}
     ssd_by_path = {"mamba2-1.3b": ssd_launches,
                    "zamba2-1.2b": configs["zamba2-1.2b"]["ssd_launches"],
                    "mamba2-1.3b training (13h)":
                        training["ssm_full_width"]["ssd_fwd_launches"],
                    **p16_launches(ssm_arch, "ssd_fwd"),
+                   **p16f_launches("ssd_fwd"),
                    **p17_launches("ssd_fwd")}
     entry = {"name": "flash_attention_fwd", "route": "cuda",
              "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -5264,11 +5465,13 @@ def main() -> int:
                  "gradient_of": BWD_GRADIENT_OF,
                  "launches": full["flash_bwd_launches"]
                  + sum(p16_launches(P16_ARCH, "flash_bwd").values())
-                 + sum(p16e_launches("flash_bwd").values()),
+                 + sum(p16e_launches("flash_bwd").values())
+                 + sum(p16f_launches("flash_bwd").values()),
                  "launches_by_path": {"stablelm-1.6b training (13e)":
                                       full["flash_bwd_launches"],
                                       **p16_launches(P16_ARCH, "flash_bwd"),
-                                      **p16e_launches("flash_bwd")},
+                                      **p16e_launches("flash_bwd"),
+                                      **p16f_launches("flash_bwd")},
                  "max_abs_err": bwd_row["max_abs_err"],
                  "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
                  "bound_ms": bwd_row["bound_ms"],
@@ -5288,10 +5491,12 @@ def main() -> int:
         "replaces_function": "the gradient of _ssd_kernel",
         "gradient_of": SSD_BWD_GRADIENT_OF,
         "launches": ssm_full["ssd_bwd_launches"]
-        + sum(p16_launches(ssm_arch, "ssd_bwd").values()),
+        + sum(p16_launches(ssm_arch, "ssd_bwd").values())
+        + sum(p16f_launches("ssd_bwd").values()),
         "launches_by_path": {"mamba2-1.3b training (13h)":
                              ssm_full["ssd_bwd_launches"],
-                             **p16_launches(ssm_arch, "ssd_bwd")},
+                             **p16_launches(ssm_arch, "ssd_bwd"),
+                             **p16f_launches("ssd_bwd")},
         "max_abs_err": ssd_bwd_row["max_abs_err"],
         "ms": ssd_bwd_row["ms"], "plain_ms": ssd_bwd_row["plain_ms"],
         "bound_ms": ssd_bwd_row["bound_ms"],

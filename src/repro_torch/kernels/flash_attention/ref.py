@@ -1,5 +1,6 @@
-"""Plain PyTorch attention (fp32 scores), the flash kernels' reference:
-the forward, each row's log-sum-exp, and the backward."""
+"""Plain PyTorch attention (fp32 scores; fp64 for fp64 inputs), the flash
+kernels' reference: the forward, each row's log-sum-exp, and the
+backward."""
 from __future__ import annotations
 
 import math
@@ -12,7 +13,8 @@ def _scores(q, k, causal: bool, kv_len, q_offset):
     of the mask ``attention_ref`` documents; k has Hq heads here."""
     B, Hq, Sq, D = q.shape
     Sk = k.shape[2]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) / math.sqrt(D)
     kv_len = Sk if kv_len is None else kv_len
     k_pos = torch.arange(Sk, device=q.device)
     valid = (k_pos < kv_len)[None, None, None, :]               # (1, 1, 1, Sk)
@@ -44,7 +46,7 @@ def attention_ref(q, k, v, *, causal: bool = True, kv_len: int | None = None,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * valid
     denom = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(denom == 0, torch.ones_like(denom), denom)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, _heads(v, group).float())
+    out = torch.einsum("bhqk,bhkd->bhqd", p, _heads(v, group).to(p.dtype))
     return out.to(q.dtype)
 
 

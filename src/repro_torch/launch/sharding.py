@@ -28,7 +28,12 @@ it also holds the "model" axis as the steps use it (``ModelAxis``,
 "model" slice or, for the Mamba-2 leaves cut along heads, its columns),
 the two operators of tensor-parallel compute (``CopyIn``: identity
 forward, all-reduce backward; ``SumOut``: all-reduce forward, identity
-backward) and the greedy token over vocab slices (``greedy``).
+backward) and the greedy token over vocab slices (``greedy``).  The
+train step (``launch.steps.make_train_step``) computes in the same
+layout: ``train_axis`` is its "model" handle, ``AllSum`` a sum whose
+backward sums too (the Mamba-2 gated norm's squares), ``GatherOut`` the
+vocab-parallel cross-entropy's merge, and ``gather``'s ``kinds`` count
+a leaf's gather over "model" apart ("all_gather_model").
 
 The backend is the process group's (``mesh.init_process_group``): gloo
 on the CPU and for ranks that share a card, NCCL for one card a rank.
@@ -39,9 +44,11 @@ for this process, the payload of each collective kind (the bytes of the
 whole tensor a rank gives to or takes from it) and its calls.  The
 serving kinds: "tp_sum" (a row-parallel product's sum over "model"),
 "embed_sum" (the vocab-parallel embedding's), "norm_sum" (the Mamba-2
-gated norm's sum of squares), "argmax" (the greedy token's (value,
-index) pairs), "rows" (a step's tokens over the dp axes) and "tp_grad"
-(``CopyIn``'s backward).
+gated norm's sum of squares, both ways in training), "argmax" (the
+greedy token's (value, index) pairs), "rows" (a step's tokens over the
+dp axes) and "tp_grad" (``CopyIn``'s backward); the training kinds:
+"kv_grad" (the KV leaves' gradients where the KV heads are whole),
+"xent" (the cross-entropy's merge) and "all_gather_model".
 """
 from __future__ import annotations
 
@@ -118,17 +125,18 @@ def _all_gather(x: torch.Tensor, dim: int, group, n: int,
     return out
 
 
-def gather(x: torch.Tensor, sh: Sharding, kind: str = "all_gather"
-           ) -> torch.Tensor:
+def gather(x: torch.Tensor, sh: Sharding, kind: str = "all_gather",
+           kinds: dict | None = None) -> torch.Tensor:
     """The whole leaf from each rank's slice ``x`` (``x`` itself where
     no axis of the spec has more than one rank).  Along a dim over several
     axes the minor axis is gathered first, then the next.  The all-gathers
-    are counted under ``kind``."""
+    are counted under ``kind``, or under ``kinds[axis]`` where given."""
     for d, entry in enumerate(sh.spec):
         for a in reversed(axes_of(entry)):
             n = sh.mesh.shape[a]
             if n > 1:
-                x = _all_gather(x, d, sh.mesh.group(a), n, kind)
+                x = _all_gather(x, d, sh.mesh.group(a), n,
+                                (kinds or {}).get(a, kind))
     return x
 
 
@@ -154,25 +162,27 @@ class ExpertSlice(torch.autograd.Function):
                             "exchange"), None, None)
 
 
-class ExpertGather(torch.autograd.Function):
-    """The MoE's exchange of expert outputs: ``apply(y, mesh, axis)``
-    all-gathers this rank's experts' outputs ``y`` (dim 0) over ``axis``
-    (counted as "exchange"), so that every rank combines all K outputs of
-    each of its tokens.  The backward is the rank's own piece of the
-    gradient: what follows runs alike on the axis's ranks, so a
+class GatherOut(torch.autograd.Function):
+    """An all-gather whose result every rank then uses alike:
+    ``apply(y, mesh, axis, kind)`` all-gathers the ranks' ``y`` along dim
+    0 over ``axis`` (counted under ``kind``; "exchange" for the MoE's
+    expert outputs, each rank then combining all K outputs of each of its
+    tokens; "xent" for the vocab-parallel cross-entropy's per-rank
+    log-sum-exps and label logits).  The backward is the rank's own piece
+    of the gradient: what follows runs alike on the axis's ranks, so a
     reduce-scatter would add up identical copies of one gradient."""
 
     @staticmethod
-    def forward(ctx, y, mesh, axis):
+    def forward(ctx, y, mesh, axis, kind="exchange"):
         ctx.mesh, ctx.axis = mesh, axis
-        return _all_gather(y, 0, mesh.group(axis), mesh.shape[axis],
-                           "exchange")
+        return _all_gather(y, 0, mesh.group(axis), mesh.shape[axis], kind)
 
     @staticmethod
     def backward(ctx, g):
         mesh, axis = ctx.mesh, ctx.axis
         n = g.shape[0] // mesh.shape[axis]
-        return g.narrow(0, mesh.index(axis) * n, n).contiguous(), None, None
+        return (g.narrow(0, mesh.index(axis) * n, n).contiguous(), None,
+                None, None)
 
 
 def _reduce_scatter(g: torch.Tensor, dim: int, group, n: int, index: int
@@ -362,6 +372,15 @@ def model_axis(mesh, rules) -> ModelAxis:
             "serving with kv_seq over \"model\" needs context-parallel "
             "decode (ROADMAP.md Queue A item 8); serve with the default "
             "kv_seq rule (the KV cache split by KV heads)")
+    return train_axis(mesh)
+
+
+def train_axis(mesh) -> ModelAxis:
+    """The "model" axis of a training mesh: ``ONE_RANK`` where the mesh
+    has none, or one of a single rank (the train step's tensor-parallel
+    compute, ``launch.steps.make_train_step``; no cache rule applies)."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return ONE_RANK
     return ModelAxis(mesh, "model", mesh.shape["model"], mesh.index("model"))
 
 
@@ -375,18 +394,22 @@ def axis_sum(t: torch.Tensor, axis: ModelAxis, kind: str) -> torch.Tensor:
 
 
 class CopyIn(torch.autograd.Function):
-    """The input of a column-parallel product: ``apply(x, axis)`` is ``x``
-    (whole and alike on the axis's ranks); the backward sums the ranks'
-    partial gradients of ``x`` over ``axis`` (counted as "tp_grad")."""
+    """The input of a column-parallel product: ``apply(x, axis, kind)`` is
+    ``x`` (whole and alike on the axis's ranks); the backward sums the
+    ranks' partial gradients of ``x`` over ``axis`` (counted under
+    ``kind``, default "tp_grad").  Applied to a weight that every rank
+    holds whole but uses in part (the KV projections where the KV heads do
+    not split), it sums that weight's partial gradients once."""
 
     @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
+    def forward(ctx, x, axis, kind="tp_grad"):
+        ctx.axis, ctx.kind = axis, kind
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return axis_sum(g.contiguous().clone(), ctx.axis, "tp_grad"), None
+        return (axis_sum(g.contiguous().clone(), ctx.axis, ctx.kind), None,
+                None)
 
 
 class SumOut(torch.autograd.Function):
@@ -402,6 +425,26 @@ class SumOut(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class AllSum(torch.autograd.Function):
+    """A sum over ``axis`` whose result each rank uses for its own slice
+    (the Mamba-2 gated norm's sum of squares, each rank normalising its
+    heads' channels): ``apply(x, axis, kind)`` sums the ranks' partial
+    ``x``, and the backward sums the ranks' gradients of the result too,
+    since each rank's holds only its own slice's share; both counted
+    under ``kind``.  ``SumOut``'s pass-through backward would keep only
+    the rank's own share."""
+
+    @staticmethod
+    def forward(ctx, x, axis, kind="norm_sum"):
+        ctx.axis, ctx.kind = axis, kind
+        return axis_sum(x.contiguous().clone(), axis, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (axis_sum(g.contiguous().clone(), ctx.axis, ctx.kind), None,
+                None)
 
 
 def greedy(logits: torch.Tensor, axis: ModelAxis, vocab: int

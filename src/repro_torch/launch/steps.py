@@ -9,26 +9,33 @@ optimizer state in place (the JAX package donates both).
 On a mesh of more than one process (``launch.mesh.make_mesh``) the step
 is sharded, with the collectives GSPMD inserts for the JAX package
 written out (``launch.sharding``): parameters and AdamW state live as
-each rank's slice of ``model.param_specs(rules)``; the step gathers every
-parameter whole (leaf by leaf, before the forward: FSDP's gather, not
-layer by layer), runs the forward and backward on this rank's rows of the
-batch, sums the gradients over the dp axes and cuts them to the rank's
-slice, and updates the slices.  Ranks along a non-dp axis ("model")
-compute the same rows on the same gathered weights; tensor-parallel
-compute over "model" is ROADMAP.md Queue A item 6.  The MoE layers are
-the exception (``models.moe``): their token groups are split over the dp
-axes and their experts over "model", so the expert leaves are gathered
-over the fsdp axes only, each rank computing its own experts, and their
-gradients come out of the backward already cut to the rank's experts.
-The one-device step is this step on a mesh of one process, where every
-collective has no other rank and does nothing.
+each rank's slice of ``model.param_specs(rules)``.  The step computes in
+the serving layout (``Model.serving_layouts``): each leaf is gathered
+over the fsdp axes only (leaf by leaf, before the forward: FSDP's
+gather, not layer by layer) and keeps its "model" slice, so a rank holds
+and computes its heads, KV heads, MLP columns, vocab slice, SSM heads and
+experts, with the tensor-parallel sums written out in the layers
+(``models.layers``, ``mamba2``, ``transformer``, ``moe``).  A leaf whose
+serving copy is wider than its stored slice is gathered over "model" too
+(counted as "all_gather_model"): the MoE router and shared expert, which
+run whole, and the Mamba-2 in_proj and conv leaves, computed in head
+columns (``common.ssm_head_columns``).  The forward and backward run on
+this rank's rows of the batch; each gradient goes back to the stored
+slice: summed over the dp axes and cut over the fsdp ones; a leaf whole
+in compute but split in storage is cut over "model" (every rank's
+gradient of it is the whole one); a column leaf's gradient is written
+into a zero row of the whole width and reduce-scattered over "model",
+which adds the ranks' partial sums of the B and C columns once.  The
+MoE's token groups are split over the dp axes (``models.moe``).  The
+one-device step is this step on a mesh of one process, where every
+collective has no other rank and does nothing, and every leaf is whole.
 
-The prefill and decode steps serve on a mesh with tensor-parallel compute
-over "model" (``make_prefill_step``); the train step keeps the layout
-above.
+The prefill and decode steps serve on a mesh in the same layout
+(``make_prefill_step``).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
@@ -36,7 +43,7 @@ import torch
 from repro_torch.launch import sharding
 from repro_torch.launch.mesh import ONE_PROCESS, make_rules
 from repro_torch.models import Model
-from repro_torch.models.common import AxisRules, tree_map_defs
+from repro_torch.models.common import AxisRules, axes_of, is_def
 from repro_torch.models.moe import is_expert_leaf, shards_for
 from repro_torch.optim import AdamWConfig, apply_updates
 from repro_torch.optim.adamw import leaves, unflatten
@@ -73,7 +80,10 @@ def _grads(model: Model, params, flat_p, batch, microbatches: int,
            for k, v in parts.items()):
         raise ValueError(f"batch rows do not split into {microbatches} "
                          "microbatches")
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # fp32 sums (fp64 for fp64 leaves)
+    acc = [torch.zeros(p.shape, dtype=torch.promote_types(p.dtype,
+                                                          torch.float32),
+                       device=p.device)
            for p in flat_p]
     losses, metricss = [], []
     for i in range(microbatches):
@@ -101,16 +111,60 @@ def _like(params, tree, missing):
         else tree
 
 
-def _compute_spec(d, rules: AxisRules, experts: tuple[str, ...]) -> tuple:
-    """The layout a leaf is gathered to for the forward: its spec, less
-    the expert axes ``experts`` on an expert leaf (``moe.is_expert_leaf``),
-    which stays this rank's experts."""
-    spec = list(d.spec(rules))
-    if is_expert_leaf(d):
-        i = d.logical_axes.index("experts")
-        kept = tuple(a for a in sharding.axes_of(spec[i]) if a not in experts)
-        spec[i] = kept or None
-    return tuple(spec)
+def _entry(axes):
+    return None if not axes else axes[0] if len(axes) == 1 else tuple(axes)
+
+
+@dataclass(frozen=True, eq=False)
+class _Leaf:
+    """How the train step moves one leaf: ``stored`` is its layout in the
+    parameters and AdamW state, ``gather`` the axes its stored slice is
+    all-gathered over to the compute layout (the all-gathers counted
+    under ``kinds[axis]``), and ``columns``, where given, the indices of
+    its last dim (of ``width``) the rank computes with."""
+    stored: sharding.Sharding
+    gather: sharding.Sharding
+    kinds: dict = field(default_factory=dict)
+    columns: tuple[int, ...] | None = None
+    width: int = 0
+
+    def compute(self, x: torch.Tensor) -> torch.Tensor:
+        x = sharding.gather(x, self.gather, kinds=self.kinds)
+        if self.columns is not None:
+            x = x.index_select(-1, torch.tensor(self.columns,
+                                                device=x.device))
+        return x
+
+    def reduce(self, g: torch.Tensor, summed: tuple[str, ...]
+               ) -> torch.Tensor:
+        """The gradient ``g`` of the compute layout back to the stored
+        slice (module docstring)."""
+        if self.columns is None:
+            return sharding.reduce_grad(g, self.gather, summed)
+        wide = g.new_zeros(g.shape[:-1] + (self.width,))
+        wide.index_copy_(-1, torch.tensor(self.columns, device=g.device), g)
+        return sharding.reduce_grad(wide, self.stored, summed + ("model",))
+
+
+def _leaves_of(model: Model, rules: AxisRules, mesh):
+    """The ``_Leaf`` of each parameter: stored by ``param_specs``,
+    computed in ``serving_layouts``."""
+    fsdp = set(rules.fsdp_axes)
+
+    def plan(d, lay):
+        if not is_def(d):
+            return {k: plan(d[k], lay[k]) for k in d}
+        stored = d.spec(rules)
+        gather = tuple(_entry([a for a in axes_of(s)
+                               if a not in axes_of(c)])
+                       for s, c in zip(stored, lay.spec))
+        own = "all_gather_experts" if is_expert_leaf(d) else "all_gather"
+        kinds = {a: own if a in fsdp else f"all_gather_{a}"
+                 for a in mesh.axis_names}
+        return _Leaf(sharding.Sharding(mesh, stored),
+                     sharding.Sharding(mesh, gather), kinds, lay.columns,
+                     d.shape[-1])
+    return plan(model.param_defs, model.serving_layouts(rules, mesh))
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
@@ -135,7 +189,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     dp axes), and the metrics are the one-device step's (loss, xent and
     aux summed over the dp axes; "grads" this rank's slices).  On a mesh of
     one process every slice is the whole leaf and no collective runs: it
-    is the one-device step.
+    is the one-device step.  Over "model" each rank computes its slices
+    (module docstring): H/tp heads, d_ff/tp MLP columns, V/tp of each
+    chunk's logits, H_ssm/tp SSM heads.
 
     With MoE layers, ``cfg.moe_groups`` groups a microbatch are split over
     the dp ranks and the experts over "model" (``models.moe``): each rank
@@ -148,27 +204,18 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     mesh = mesh or ONE_PROCESS
     rules = rules or make_rules(mesh)
     summed = sharding.dp_axes(mesh, rules)
-    experts = ()
     if model.cfg.moe is not None:
-        axis = shards_for(model.cfg, rules, mesh).expert_axis
-        experts = (axis,) if axis else ()
+        shards_for(model.cfg, rules, mesh)      # raises for a G off dp
     if opt_cfg.state_dtype == "int8" and mesh.size > 1:
         raise NotImplementedError(
             "int8 AdamW state is coded in blocks of the flattened whole "
             "leaf, which a rank's slice does not hold; use fp32 or bf16 "
             "state on a mesh")
-    tree_sh = sharding.tree_shardings(model.param_specs(rules), mesh)
-    # the layout of the forward's leaves: the expert leaves stay this
-    # rank's experts (gathered over the fsdp axes only), the rest whole
-    compute_sh = sharding.tree_shardings(tree_map_defs(
-        lambda d: _compute_spec(d, rules, experts), model.param_defs), mesh)
-    # the expert leaves' gathers are counted apart
-    gather_kinds = tree_map_defs(
-        lambda d: "all_gather_experts" if is_expert_leaf(d) else "all_gather",
-        model.param_defs)
+    plans = _leaves_of(model, rules, mesh)
 
     def replicated(p):
-        return sharding.Sharding(mesh, (None,) * p.dim())
+        whole = sharding.Sharding(mesh, (None,) * p.dim())
+        return _Leaf(whole, whole)
 
     def count(mb):
         labels = mb["labels"]
@@ -180,11 +227,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
 
     def train_step(params, opt_state, batch):
         flat_local = leaves(params)
-        flat_sh = leaves(_like(params, tree_sh, replicated))
-        flat_csh = leaves(_like(params, compute_sh, replicated))
-        kinds = leaves(_like(params, gather_kinds, lambda p: "all_gather"))
-        full = [sharding.gather(p, csh, kind)
-                for p, csh, kind in zip(flat_local, flat_csh, kinds)]
+        flat_plan = leaves(_like(params, plans, replicated))
+        full = [plan.compute(p) for p, plan in zip(flat_local, flat_plan)]
         for p in full:
             p.requires_grad_(True)
         # a microbatch not split over dp divides by its own count
@@ -197,12 +241,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         del full
         grads = list(grads)
         local = []
-        for i, csh in enumerate(flat_csh):
-            # an expert gradient is already this rank's experts: only its
-            # dp sum and its fsdp cut are left (the layout it was gathered
-            # to)
-            local.append(sharding.reduce_grad(grads[i], csh, summed))
-            grads[i] = None        # the whole gradient goes now
+        for i, plan in enumerate(flat_plan):
+            local.append(plan.reduce(grads[i], summed))
+            grads[i] = None        # the compute layout's gradient goes now
         if summed:
             # each rank's loss, xent and aux are its shares (the MoE's aux
             # too, models.moe): their dp sums are the batch's, the aux
@@ -212,9 +253,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
                 summed, mesh)
             loss = sums[0]
             metrics = {**metrics, "xent": sums[1], "aux": sums[2]}
-        # each element of a leaf once, from the layout it lives in: an
-        # expert leaf's slices along "model" are different experts
-        gnorm = torch.sqrt(sharding.sum_squares(local, flat_sh))
+        # each element of a leaf once, from the layout it lives in
+        gnorm = torch.sqrt(sharding.sum_squares(
+            local, [plan.stored for plan in flat_plan]))
         grads = unflatten(params, local)
         params, opt_state, opt_metrics = apply_updates(
             params, grads, opt_state, opt_cfg, gnorm=gnorm)
@@ -249,9 +290,9 @@ def make_prefill_step(model: Model, rules: AxisRules | None = None,
     the dp axes), ``caches`` its cache slices (``Model.init_caches`` with
     ``rules`` and ``mesh``), and the logits are its rows' over its vocab
     slice.  Heads, KV heads, MLP, vocab and SSM heads go over "model",
-    with the row-parallel sums written out (``models.layers``).  Rules
-    that put the KV cache's sequence over "model" raise
-    (``sharding.model_axis``)."""
+    with the row-parallel sums written out (``models.layers``); the train
+    step computes in the same layout.  Rules that put the KV cache's
+    sequence over "model" raise (``sharding.model_axis``)."""
     rules, _ = _serving(rules, mesh)
 
     @torch.inference_mode()

@@ -16,7 +16,10 @@ Serving on a mesh (``tp``, with a rank's serving copies of the weights
 and caches): encoder self-attention, decoder self- and cross-attention
 and the MLPs are split over "model" as in ``layers``, the cross caches
 hold the rank's KV heads, the embedding is ``transformer.embed_lookup``'s
-vocab-parallel lookup and the logits the rank's vocab slice.
+vocab-parallel lookup and the logits the rank's vocab slice.  Training on
+a mesh (``encdec_loss`` with ``tp``) splits the encoder and decoder alike;
+the encoder output enters each cross-attention through ``CopyIn``, its
+gradient summed over "model".
 """
 from __future__ import annotations
 
@@ -126,20 +129,23 @@ def decode_trunk(params, cfg: ModelConfig, tokens, enc_out,
     return apply_norm(params["ln_dec"], h, cfg.norm), caches
 
 
-def encdec_loss(params, cfg: ModelConfig, batch: dict, *, count=None):
+def encdec_loss(params, cfg: ModelConfig, batch: dict, *, count=None,
+                tp=None):
     """batch: "src_embeds" (B, T_src, d), "tokens" and "labels" (B, T),
     optionally "mask".  Mean masked xent of the decoder's logits (over
     ``count`` tokens where given, ``chunked_xent``); the aux loss is 0.
+    ``tp``: a training rank's "model" axis, the weights in the serving
+    layout (module docstring; the cross-entropy vocab-parallel).
     Returns (loss, {"xent", "aux"})."""
-    enc_out = encode(params, cfg, batch["src_embeds"])
-    h, _ = decode_trunk(params, cfg, batch["tokens"], enc_out)
+    enc_out = encode(params, cfg, batch["src_embeds"], tp)
+    h, _ = decode_trunk(params, cfg, batch["tokens"], enc_out, tp=tp)
     labels = batch["labels"]
     mask = batch.get("mask")
     mask = (torch.ones(labels.shape, dtype=torch.float32,
                        device=labels.device) if mask is None
             else mask.float())
     loss = chunked_xent(h, unembed_matrix(params, cfg), labels, mask, cfg,
-                        count)
+                        count, tp)
     return loss, {"xent": loss,
                   "aux": torch.zeros((), dtype=torch.float32,
                                      device=loss.device)}

@@ -6,8 +6,9 @@ CUDA card, its plain version on the CPU.  Weights are kept in
 ``param_dtype`` and cast to the compute dtype at each use, as the JAX
 package does.
 
-Tensor-parallel serving: given ``tp`` (``launch.sharding.ModelAxis``) and
-a rank's serving copies of the weights, attention and the MLP are
+Tensor-parallel serving and training: given ``tp``
+(``launch.sharding.ModelAxis``) and a rank's serving copies of the weights
+(the train step computes in the same layout), attention and the MLP are
 column- then row-parallel.  The Q/K/V and gate/up products take the
 rank's heads and MLP columns (their input through ``CopyIn``); the out
 and down products form the rank's partial sum in fp32, sum it over
@@ -16,7 +17,10 @@ output is rounded once, as the one-process product's; a bias after a
 row-parallel product is added once, after the sum.  Where a leaf is not
 split (its dim does not divide over "model", or ``tp`` is None or of one
 rank) the one-process code runs.  The split is read from the shapes the
-rank holds.
+rank holds.  The backward is the split's own: ``CopyIn`` sums the
+ranks' partial gradients of a product's input, the KV leaves that every
+rank holds whole but reads in part are summed once (``kv_whole``), and on
+the card the row-parallel product has its own backward (``_RowProduct``).
 """
 from __future__ import annotations
 
@@ -30,25 +34,35 @@ from .common import ModelConfig, ParamDef
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
-def rmsnorm_def(dim: int) -> dict:
-    return {"scale": ParamDef((dim,), ("embed_noshard",), init="ones")}
+def rmsnorm_def(dim: int, dtype=torch.float32) -> dict:
+    return {"scale": ParamDef((dim,), ("embed_noshard",), init="ones",
+                              dtype=dtype)}
 
 
-def layernorm_def(dim: int) -> dict:
-    return {"scale": ParamDef((dim,), ("embed_noshard",), init="ones"),
-            "bias": ParamDef((dim,), ("embed_noshard",), init="zeros")}
+def layernorm_def(dim: int, dtype=torch.float32) -> dict:
+    return {"scale": ParamDef((dim,), ("embed_noshard",), init="ones",
+                              dtype=dtype),
+            "bias": ParamDef((dim,), ("embed_noshard",), init="zeros",
+                             dtype=dtype)}
+
+
+def _ct(x: torch.Tensor) -> torch.dtype:
+    """fp32, the compute type of the norms and RoPE (fp64 for fp64 ``x``,
+    which only the float64 checks use)."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def apply_norm(params: dict, x: torch.Tensor, kind: str, eps: float = 1e-6):
-    xf = x.float()
+    ct = _ct(x)
+    xf = x.to(ct)
     if kind == "layernorm":
         mu = xf.mean(dim=-1, keepdim=True)
         var = (xf - mu).square().mean(dim=-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * params["scale"].float() + params["bias"].float()
+        y = y * params["scale"].to(ct) + params["bias"].to(ct)
     else:
         ms = xf.square().mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + eps) * params["scale"].float()
+        y = xf * torch.rsqrt(ms + eps) * params["scale"].to(ct)
     return y.to(x.dtype)
 
 
@@ -68,7 +82,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     ang = positions.float()[..., None] * freqs                 # (B, T, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = x.to(_ct(x)).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -96,7 +110,7 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     ang = positions3.float()[..., comp] * freqs                   # (B, T, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = x.to(_ct(x)).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -130,9 +144,30 @@ def is_split(tp, local: int, whole: int) -> bool:
     return tp is not None and tp.size > 1 and local != whole
 
 
-def copy_in(x, tp):
+def copy_in(x, tp, kind: str = "tp_grad"):
     from repro_torch.launch.sharding import CopyIn
-    return CopyIn.apply(x, tp)
+    return CopyIn.apply(x, tp, kind)
+
+
+class _RowProduct(torch.autograd.Function):
+    """``x2 @ w`` of bf16 operands with an fp32 output (``torch.mm``'s
+    ``out_dtype``: no fp32 copy of the weight), on the card.  The
+    backward takes bf16 products with fp32 accumulation, as the unsplit
+    bf16 product's backward does: the gradient of the fp32 output comes
+    from the bf16 value it was cast to, so its bf16 copy is exact."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(x2.t(), g) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, tp,
@@ -142,18 +177,30 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, tp,
     "model" in fp32 (``SumOut``, counted under ``kind``), then cast to
     cfg.dtype (fp64 throughout under an fp64 config).  On the card a bf16
     product reads its operands as they are and writes fp32
-    (``torch.mm``'s ``out_dtype``), with no fp32 copy of the weight; the
-    CPU has no such product, and casts both operands."""
+    (``_RowProduct``, differentiable), with no fp32 copy of the weight;
+    the CPU has no such product, and casts both operands."""
     from repro_torch.launch.sharding import SumOut
     dt = cfg.dtype
     ct = torch.promote_types(dt, torch.float32)
     x2, w = x.to(dt).flatten(0, -2), w.to(dt)
     if x.is_cuda and dt != ct:
-        part = torch.mm(x2, w, out_dtype=ct)
+        part = _RowProduct.apply(x2, w)
     else:
         part = torch.mm(x2.to(ct), w.to(ct))
     part = part.unflatten(0, x.shape[:-1])
     return SumOut.apply(part, tp, kind).to(dt)
+
+
+def kv_whole(params: dict, cfg: ModelConfig, tp) -> dict:
+    """``params`` with the KV leaves (``wk``, ``wv``, ``bk``, ``bv``)
+    through ``CopyIn`` (counted as "kv_grad") where the query heads are
+    split and the KV heads whole on every rank: a rank's query heads read
+    some of the KV heads (``rank_kv_heads``), so its gradient of each is a
+    partial sum, summed over "model" once.  ``params`` itself otherwise."""
+    if params["wk"].shape[-2] != cfg.n_kv_heads:
+        return params
+    return {k: copy_in(v, tp, "kv_grad") if k in ("wk", "wv", "bk", "bv")
+            else v for k, v in params.items()}
 
 
 def attention_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -226,6 +273,7 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     split = is_split(tp, params["wq"].shape[1], cfg.n_heads)
     if split:
         x = copy_in(x, tp)
+        params = kv_whole(params, cfg, tp)
     q, k, v = attention_qkv(params, x, cfg)
     if cfg.mrope:
         q = apply_mrope(q, positions, cfg.rope_theta)
@@ -273,6 +321,10 @@ def cross_attention(params: dict, x: torch.Tensor, kv_src, cfg: ModelConfig,
         x = copy_in(x, tp)
     q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(dt))
     if kv_cache is None:
+        if split:
+            # the rank's K/V heads of the source: its partial gradient
+            params = kv_whole(params, cfg, tp)
+            kv_src = copy_in(kv_src, tp)
         kv_cache = {
             "k": torch.einsum("btd,dhk->bthk", kv_src, params["wk"].to(dt)),
             "v": torch.einsum("btd,dhk->bthk", kv_src, params["wv"].to(dt))}

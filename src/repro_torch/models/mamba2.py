@@ -16,11 +16,17 @@ a contiguous piece of "ssm_inner"), and its H/tp heads' slices of
 The depthwise conv runs over [x_r | B | C] and the SSD scan over the
 rank's heads; the gated RMSNorm, which normalises over the whole
 ``d_inner``, sums the rank's squares over "model" in fp32 (counted as
-"norm_sum"), and ``out_proj`` is row-parallel (``layers.row_parallel``).
+"norm_sum"; ``AllSum``: each rank normalises only its own heads by the
+sum, so the backward sums the ranks' gradients of it too), and
+``out_proj`` is row-parallel (``layers.row_parallel``).
 The state cache is the rank's ``ssm_heads`` slice of ``cache_specs``; the
 conv window is the one cache leaf that departs from them: "conv_dim"
 would cut [x | B | C] contiguously, and the rank holds [x_r | B | C]
 (``whole_conv_window`` rebuilds the whole one from the ranks').
+
+The train step computes in the same layout (``launch.steps``): a rank's
+gradients of the B and C columns are its heads' partial sums, which the
+step adds over "model" once, on the way back to the stored slices.
 """
 from __future__ import annotations
 
@@ -39,15 +45,17 @@ def mamba2_def(cfg: ModelConfig) -> dict:
     H = s.n_ssm_heads(d)
     conv_ch = di + 2 * s.n_groups * s.d_state
     proj_out = 2 * di + 2 * s.n_groups * s.d_state + H   # z, x, B, C, dt
-    pd, f32 = cfg.param_dtype, torch.float32
+    # A_log, D and dt_bias in fp32 (fp64 under an fp64 param dtype)
+    pd = cfg.param_dtype
+    ct = torch.promote_types(pd, torch.float32)
     return {
         "in_proj": ParamDef((d, proj_out), ("embed", "ssm_inner"), dtype=pd),
         "conv_w": ParamDef((s.d_conv, conv_ch), (None, "conv_dim"), scale=0.5,
                            dtype=pd),
         "conv_b": ParamDef((conv_ch,), ("conv_dim",), init="zeros", dtype=pd),
-        "A_log": ParamDef((H,), ("ssm_heads",), init="zeros", dtype=f32),
-        "D": ParamDef((H,), ("ssm_heads",), init="ones", dtype=f32),
-        "dt_bias": ParamDef((H,), ("ssm_heads",), init="zeros", dtype=f32),
+        "A_log": ParamDef((H,), ("ssm_heads",), init="zeros", dtype=ct),
+        "D": ParamDef((H,), ("ssm_heads",), init="ones", dtype=ct),
+        "dt_bias": ParamDef((H,), ("ssm_heads",), init="zeros", dtype=ct),
         "norm_w": ParamDef((di,), ("ssm_inner",), init="ones", dtype=pd),
         "out_proj": ParamDef((di, d), ("ssm_inner", "embed"), dtype=pd),
     }
@@ -131,10 +139,10 @@ def _out(params: dict, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
         y = _gated_rmsnorm(y, z, params["norm_w"])
         return torch.einsum("bti,id->btd", y,
                             params["out_proj"].to(cfg.dtype))
-    from repro_torch.launch.sharding import SumOut
+    from repro_torch.launch.sharding import AllSum
 
     def mean_sq(sq):
-        return SumOut.apply(sq.sum(dim=-1, keepdim=True), tp,
+        return AllSum.apply(sq.sum(dim=-1, keepdim=True), tp,
                             "norm_sum") / di
     y = _gated_rmsnorm(y, z, params["norm_w"], mean_sq=mean_sq)
     return row_parallel(y, params["out_proj"], cfg, tp)

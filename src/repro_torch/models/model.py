@@ -178,11 +178,16 @@ class Model:
         this batch's ``sum(mask)``); a sharded step passes the count of
         the global batch and its ``rules`` and ``mesh`` (the MoE layers'
         groups and experts, ``moe.apply_moe``), so that the ranks' losses,
-        xents and aux losses sum to the batch's over the dp axes."""
+        xents and aux losses sum to the batch's over the dp axes.  On a
+        mesh the leaves are a training rank's (``serving_layouts``): the
+        layers split over "model" where a leaf holds its slice."""
+        from repro_torch.launch.sharding import train_axis
+        tp = None if mesh is None else train_axis(mesh)
         if self.cfg.family == "encdec":
-            return _encdec.encdec_loss(params, self.cfg, batch, count=count)
+            return _encdec.encdec_loss(params, self.cfg, batch, count=count,
+                                       tp=tp)
         return _tf.lm_loss(params, self.cfg, batch, count=count, rules=rules,
-                           mesh=mesh)
+                           mesh=mesh, tp=tp)
 
     def _serving(self, rules, mesh, rows) -> dict:
         """The keywords of a serving rank's forward: its "model" axis and,

@@ -44,7 +44,7 @@ call) the reference's layout is written out, ``Shards`` holding it:
   slots' gradients, so every rank scatters the whole dispatch gradient
   into dx in the one-process order, and no rank sums partial dx).  The
   experts' outputs are all-gathered over "model"
-  (``sharding.ExpertGather``, its backward the rank's own slice: the
+  (``sharding.GatherOut``, its backward the rank's own slice: the
   loss is the same on every "model" rank, so no rank's gradient adds up
   tp copies) and every rank combines all K outputs of each of its
   tokens.  The router and the shared expert run whole on every rank.
@@ -142,14 +142,15 @@ def shards_for(cfg: ModelConfig, rules: AxisRules, mesh) -> Shards:
 
 def route(params: dict, xg: torch.Tensor, cfg: ModelConfig,
           shards: Shards | None = None):
-    """The router on xg (G, S, d), in fp32.  Returns (gate_vals (G, S, K)
-    renormalised, expert_idx (G, S, K), slot (G, S*K): each assignment's
+    """The router on xg (G, S, d), in fp32 (fp64 for fp64 ``xg``).
+    Returns (gate_vals (G, S, K) renormalised, expert_idx (G, S, K), slot (G, S*K): each assignment's
     token-major rank within its expert, keep (G, S*K): slot < C, aux).
     With ``shards`` over dp ranks, xg is this rank's groups and aux its
     share (module docstring)."""
     m = cfg.moe
     E, K = m.n_experts, m.top_k
-    logits = torch.einsum("gsd,de->gse", xg.float(), params["router"].float())
+    ct = torch.promote_types(xg.dtype, torch.float32)
+    logits = torch.einsum("gsd,de->gse", xg.to(ct), params["router"].to(ct))
     probs = torch.softmax(logits, dim=-1)                       # (G, S, E)
     gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
                                        stable=True)
@@ -161,7 +162,7 @@ def route(params: dict, xg: torch.Tensor, cfg: ModelConfig,
     counts = F.one_hot(expert_idx, E).sum(dim=2)                # (G, S, E)
     if shards is None or shards.dp == 1:
         me = probs.mean(dim=(0, 1))                             # (E,)
-        ce = counts.float().mean(dim=(0, 1))
+        ce = counts.to(ct).mean(dim=(0, 1))
     else:
         # the microbatch's means over its G*S tokens: ce whole (summed
         # over dp, no gradient), me this rank's share of it, so that the
@@ -169,7 +170,7 @@ def route(params: dict, xg: torch.Tensor, cfg: ModelConfig,
         from repro_torch.launch import sharding
         n = G * S * shards.dp
         me = probs.sum(dim=(0, 1)) / n
-        ce = sharding.all_reduce(counts.float().sum(dim=(0, 1)),
+        ce = sharding.all_reduce(counts.to(ct).sum(dim=(0, 1)),
                                  shards.dp_axes, shards.mesh) / n
     aux = E * torch.sum(me * ce)
 
@@ -251,7 +252,7 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig,
     y_buf = torch.bmm(h, params["wd"].to(dt))                   # (E, G*C, d)
     if ep:
         # every expert's outputs on every rank along the expert axis
-        y_buf = sharding.ExpertGather.apply(y_buf, shards.mesh,
+        y_buf = sharding.GatherOut.apply(y_buf, shards.mesh,
                                             shards.expert_axis)
     y_flat = y_buf.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
     y_flat = torch.cat([y_flat, y_flat.new_zeros(G, 1, d)], dim=1)
@@ -260,10 +261,10 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig,
     addr = torch.where(keep, flat_e * C + torch.clamp(slot, max=C - 1), E * C)
     gathered = torch.gather(y_flat, 1,
                             addr[..., None].expand(G, S * K, d))
-    out = (gathered.reshape(G, S, K, d).float()
-           * gate_vals[..., None].float()).sum(dim=2)
+    out = (gathered.reshape(G, S, K, d).to(gate_vals.dtype)
+           * gate_vals[..., None]).sum(dim=2)
     out = out.to(x.dtype).reshape(B, T, d)
 
     if m.shared_expert:
         out = out + apply_mlp(params["shared"], x, cfg)
-    return out, aux.float()
+    return out, aux

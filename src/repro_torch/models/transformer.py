@@ -25,7 +25,9 @@ and caches): the embedding is a vocab-parallel masked lookup summed over
 "model" (exact: a token's row is nonzero on one rank), every layer is
 split as ``layers`` and ``mamba2`` say, and the logits are the rank's
 vocab slice (tied embeddings too); the greedy token over the slices is
-``launch.sharding.greedy``.
+``launch.sharding.greedy``.  Training on a mesh (``lm_loss`` with ``tp``,
+the weights in the same layout) splits the trunk alike, under ``_remat``,
+and takes the cross-entropy vocab-parallel (``chunked_xent``).
 """
 from __future__ import annotations
 
@@ -38,8 +40,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .common import ModelConfig, ParamDef, tree_map_defs
-from .layers import (apply_mlp, apply_norm, attention_def, layernorm_def,
-                     mlp_def, rmsnorm_def, self_attention)
+from .layers import (apply_mlp, apply_norm, attention_def, copy_in,
+                     is_split, layernorm_def, mlp_def, rmsnorm_def,
+                     self_attention)
 from .mamba2 import apply_mamba2, decode_mamba2, mamba2_def
 from .moe import apply_moe, moe_def
 
@@ -48,7 +51,10 @@ AUX_LOSS_COEF = 0.01
 
 
 def norm_def(cfg: ModelConfig) -> dict:
-    return layernorm_def(cfg.d_model) if cfg.norm == "layernorm" else rmsnorm_def(cfg.d_model)
+    """The norm's leaves, fp32 (fp64 under an fp64 param dtype)."""
+    dt = torch.promote_types(cfg.param_dtype, torch.float32)
+    return (layernorm_def(cfg.d_model, dt) if cfg.norm == "layernorm"
+            else rmsnorm_def(cfg.d_model, dt))
 
 
 def stack_defs(defs, n: int):
@@ -438,20 +444,50 @@ def lm_decode(params, cfg: ModelConfig, batch: dict, caches,
 # ---------------------------------------------------------------------------
 def _xent_chunk(hx, w, lx, mx):
     """Summed masked xent of one chunk and its token count; logits in fp32
-    from the cfg.dtype operands (exact products, fp32 sums)."""
-    logits = torch.einsum("bcd,dv->bcv", hx.float(), w.float())
+    (fp64 under an fp64 config) from the cfg.dtype operands (exact
+    products, fp32 sums)."""
+    ct = torch.promote_types(hx.dtype, torch.float32)
+    logits = torch.einsum("bcd,dv->bcv", hx.to(ct), w.to(ct))
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, lx[..., None].long())[..., 0]
     return torch.sum((lse - ll) * mx), torch.sum(mx)
 
 
-def chunked_xent(h, w_out, labels, mask, cfg: ModelConfig, count=None):
+def _xent_chunk_split(hx, w, lx, mx, tp):
+    """``_xent_chunk`` with ``w`` this rank's vocab slice: the rank's
+    logits (B, C, V/tp), its log-sum-exp and its label logits (0 for a
+    label outside the slice), both all-gathered over "model"
+    (``GatherOut``, counted as "xent"), then the log-sum-exp over the
+    ranks' and the sum of their label logits, alike on every rank (one
+    collective a chunk where a max, a sum of exps and a sum of label
+    logits would take two)."""
+    from repro_torch.launch.sharding import GatherOut
+    ct = torch.promote_types(hx.dtype, torch.float32)
+    logits = torch.einsum("bcd,dv->bcv", hx.to(ct), w.to(ct))
+    n = logits.shape[-1]
+    local = lx.long() - tp.index * n
+    inside = (local >= 0) & (local < n)
+    ll = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    both = GatherOut.apply(torch.stack([
+        torch.logsumexp(logits, dim=-1),
+        torch.where(inside, ll, torch.zeros_like(ll))])[None], tp.mesh,
+        tp.name, "xent")
+    lse = torch.logsumexp(both[:, 0], dim=0)
+    return torch.sum((lse - both[:, 1].sum(dim=0)) * mx), torch.sum(mx)
+
+
+def chunked_xent(h, w_out, labels, mask, cfg: ModelConfig, count=None,
+                 tp=None):
     """h: (B, T, d) -> mean masked token xent (fp32): the summed xent over
     ``count`` (default ``sum(mask)``), at least 1.  Logits exist one
     chunk of ``cfg.xent_chunk`` tokens at a time; T is padded to whole
     chunks (padding masked out), and each chunk is recomputed in the
     backward unless ``cfg.remat`` is "none", as the JAX package's
-    ``jax.checkpoint`` of its scan body."""
+    ``jax.checkpoint`` of its scan body.  Where ``w_out`` is this rank's
+    vocab slice (``tp``), each chunk is vocab-parallel
+    (``_xent_chunk_split``: no rank forms a chunk's whole logits) and
+    ``h`` enters through ``CopyIn``, its gradient summed over "model"
+    once."""
     B, T, d = h.shape
     C = min(cfg.xent_chunk, T)
     n_chunks = -(-T // C)
@@ -462,23 +498,30 @@ def chunked_xent(h, w_out, labels, mask, cfg: ModelConfig, count=None):
         mask = F.pad(mask, (0, pad))
     h = h.to(cfg.dtype)
     w = w_out.to(cfg.dtype)
-    body = _xent_chunk if cfg.remat == "none" else _checkpoint(_xent_chunk)
+    extra = ()
+    body = _xent_chunk
+    if is_split(tp, w.shape[-1], cfg.vocab):
+        h = copy_in(h, tp)
+        body, extra = _xent_chunk_split, (tp,)
+    if cfg.remat != "none":
+        body = _checkpoint(body)
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_chunks):
         sl = slice(i * C, (i + 1) * C)
-        t, c = body(h[:, sl], w, labels[:, sl], mask[:, sl])
+        t, c = body(h[:, sl], w, labels[:, sl], mask[:, sl], *extra)
         tot, cnt = tot + t, cnt + c
     return tot / torch.clamp(cnt if count is None else count, min=1.0)
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict, *, count=None,
-            rules=None, mesh=None):
+            rules=None, mesh=None, tp=None):
     """Mean next-token xent over ``batch["labels"]`` (masked by
     ``batch["mask"]`` where given; the sum over ``count`` tokens where
     given, ``chunked_xent``) plus ``AUX_LOSS_COEF`` x the MoE aux loss.
     vlm: over the text region after the vision embeddings.  ``rules``,
-    ``mesh``: ``trunk``'s.  Returns (loss, {"xent", "aux"})."""
-    h, _, aux = trunk(params, cfg, batch, rules=rules, mesh=mesh)
+    ``mesh``, ``tp``: ``trunk``'s (``tp`` also ``chunked_xent``'s).
+    Returns (loss, {"xent", "aux"})."""
+    h, _, aux = trunk(params, cfg, batch, rules=rules, mesh=mesh, tp=tp)
     labels = batch["labels"]
     mask = batch.get("mask")
     mask = (torch.ones(labels.shape, dtype=torch.float32,
@@ -487,5 +530,5 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, *, count=None,
     if cfg.family == "vlm" and "vision_embeds" in batch:
         h = h[:, batch["vision_embeds"].shape[1]:]
     loss = chunked_xent(h, unembed_matrix(params, cfg), labels, mask, cfg,
-                        count)
+                        count, tp)
     return loss + AUX_LOSS_COEF * aux, {"xent": loss, "aux": aux}

@@ -1177,6 +1177,10 @@ BWD_CASES = [
     (1, 28, 4, 129, 129, 128, True),     # GQA 7 at D 128, a key past a tile
     (1, 32, 4, 300, 300, 128, True),     # GQA 8 at D 128, three key tiles
     (1, 8, 2, 63, 300, 160, True),       # D 160 cross
+    # a training rank's heads on a (1, 2) mesh: qwen2-7b's 14 query and 2
+    # KV heads at D 128 (GQA 7), stablelm-1.6b's 16 of 32 at D 64
+    (1, 14, 2, 300, 300, 128, True),
+    (2, 16, 16, 300, 300, 64, True),
 ]
 
 
@@ -1442,6 +1446,8 @@ def _ssd_grads_close(grads, refs, tol=SSD_TOL):
     (1, 300, 8, 64, 1, 128, 128, False, False),  # 3 chunks, ragged
     (2, 300, 8, 64, 2, 64, 128, True, True),    # zamba2's N 64, G 2
     (1, 1000, 4, 64, 4, 128, 128, True, False),  # 8 chunks, G 4
+    # mamba2-1.3b's training rank on a (1, 2) mesh: 32 of its 64 heads
+    (1, 300, 32, 64, 1, 128, 128, False, False),
 ])
 def test_ssd_bwd_kernel_matches_plain_version(dtype, B, T, H, P, G, N, chunk,
                                               state, dstate):
@@ -2149,3 +2155,44 @@ def test_serve_on_a_process_mesh_on_the_card(tmp_path):
             assert err <= 1e-4, (arch, step, err)
             tok = ranks[0][arch]["tokens"][step]
             assert torch.equal(tok, torch.argmax(whole[:, -1], dim=-1))
+
+
+@pytest.mark.gpu
+def test_row_parallel_backward_matches_the_unsplit_product():
+    """The row-parallel product on the card (``layers._RowProduct``: bf16
+    operands, an fp32 output, its own backward) over two halves of K, the
+    fp32 halves summed and cast to bf16 as two ranks' ``SumOut`` does,
+    against the unsplit bf16 ``einsum``: the output and the gradients of
+    x and w within the bf16 bar of their max.  ``row_parallel`` itself
+    on one rank (the whole K) too."""
+    _need_card()
+    from repro_torch.launch.sharding import ONE_RANK
+    from repro_torch.models.layers import _RowProduct, row_parallel
+    cfg = get_config("stablelm-1.6b")
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(0)
+    K, N = 2 * cfg.d_ff // 16, cfg.d_model // 8
+    x0 = torch.randn(2, 96, K, generator=g, device="cuda").to(bf)
+    w0 = (torch.randn(K, N, generator=g, device="cuda") / K ** 0.5).to(bf)
+    c = torch.randn(2, 96, N, generator=g, device="cuda").to(bf)
+
+    def grads(fn):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        y = fn(x, w)
+        torch.sum(y.float() * c.float()).backward()
+        return y.detach(), x.grad, w.grad
+
+    ref = grads(lambda x, w: torch.einsum("btf,fd->btd", x, w))
+    half = K // 2
+
+    def two_ranks(x, w):
+        parts = [_RowProduct.apply(x[..., s].flatten(0, 1), w[s])
+                 for s in (slice(0, half), slice(half, K))]
+        return (parts[0] + parts[1]).unflatten(0, x.shape[:2]).to(bf)
+
+    for fn in (two_ranks, lambda x, w: row_parallel(x, w, cfg, ONE_RANK)):
+        out = grads(fn)
+        for name, a, b in zip(("y", "dx", "dw"), out, ref):
+            assert a.dtype == bf and a.shape == b.shape, name
+            _grad_close(a, b, TOL[bf], name)

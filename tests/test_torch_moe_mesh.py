@@ -22,8 +22,11 @@ the capacity drops assignments and the per-group C decides the answer.
   default axis types (ROADMAP Queue C), so the unsharded loss is what
   GSPMD's layout promises to equal.
 * Against the port's one-process step at the same G: on (1, 4) the loss,
-  xent, aux and gathered gradients equal bit for bit; with dp > 1
-  ``grad_norm`` within 1e-6 relative.  The updated weights, on every
+  xent, aux and gathered gradients within 1e-4 x max |.| (the models'
+  bar: attention is split over "model" too, and its row-parallel sums
+  add fp32 partials in another order, tests/test_torch_tp_train.py), and
+  in float64 within 1e-12 x max; with dp > 1 ``grad_norm`` within 1e-6
+  relative.  The updated weights, on every
   mesh, within 1e-6 x max of the one-process AdamW fed the gathered
   gradients (the update itself; a gradient element near zero may change
   its sign at the rounding level, and AdamW's first step follows it).
@@ -72,8 +75,10 @@ EXPERT_LEAVES = ("wd", "wg", "wu")
 CKPT = CASES[0]
 
 
-def _cfg(arch, groups, cf=None):
-    cfg = smoke_config(arch).with_(dtype=torch.float32, moe_groups=groups)
+def _cfg(arch, groups, cf=None, dtype=torch.float32):
+    cfg = smoke_config(arch).with_(dtype=dtype, moe_groups=groups)
+    if dtype == torch.float64:
+        cfg = cfg.with_(param_dtype=dtype)
     if cf is not None:
         cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
     return cfg
@@ -85,6 +90,12 @@ def _batch(cfg, seq=T):
     lengths = torch.tensor([16, 9, 12, 5, 16, 3, 11, 7]).clamp(max=seq)
     batch["mask"] = (torch.arange(seq)[None] < lengths[:, None]).float()
     return batch
+
+
+def _f64(tree):
+    if isinstance(tree, dict):
+        return {k: _f64(v) for k, v in tree.items()}
+    return tree.double() if tree.is_floating_point() else tree
 
 
 def _zero_state(model):
@@ -122,11 +133,11 @@ def _state_shardings(model, rules, mesh):
 
 
 def _case_on(rank_mesh, rules, device, arch, groups, cf, params, batch,
-             ckpt=None):
+             ckpt=None, dtype=torch.float32):
     """One sharded step of a case on this rank: what the tests read.
     With ``ckpt``, the updated parameters and AdamW state are saved there
     as a checkpoint of the mesh (``save_sharded``)."""
-    cfg = _cfg(arch, groups, cf)
+    cfg = _cfg(arch, groups, cf, dtype)
     model = build_model(cfg)
     psh = sharding.tree_shardings(model.param_specs(rules), rank_mesh)
     local = unflatten(params, [sharding.shard(x, sh).clone()
@@ -181,6 +192,11 @@ def _moe_mesh_worker(rank, device, inputs, out_dir):
                 results[case] = _case_on(
                     mesh, rules, device, arch, groups, cf, params[arch],
                     batch[arch], out_dir / "ckpt" if case == CKPT else None)
+                if shape[0] == 1:
+                    results[case, "f64"] = _case_on(
+                        mesh, rules, device, arch, groups, cf,
+                        _f64(params[arch]), _f64(batch[arch]),
+                        dtype=torch.float64)
         if shape == (1, 4):
             # the (2, 2) step's checkpoint restored onto this mesh
             tree_sh = _state_shardings(build_model(_cfg(*CKPT[1:])), rules,
@@ -371,11 +387,13 @@ def test_step_against_the_one_process_step(case, ranks, inputs, port_refs):
         out = rank[case]
         m = out["metrics"]
         if shape[0] == 1:
-            # no dp sum: each rank computes its experts of the same rows
+            # no dp sum: each rank computes its experts and its attention
+            # heads of the same rows
             for name in ("loss", "xent", "aux"):
-                assert torch.equal(m[name], m1[name]), (r, name)
+                assert abs(float(m[name]) - float(m1[name])) <= \
+                    1e-4 * abs(float(m1[name])), (r, name)
             for g, ref in zip(out["grads"], g1):
-                assert torch.equal(g, ref), r
+                assert _rel(g.numpy(), ref.numpy()) <= 1e-4, r
         assert abs(float(m["grad_norm"]) - float(m1["grad_norm"])) <= \
             1e-6 * float(m1["grad_norm"]), r
         ref_p = _copy(inputs[1][arch])
@@ -383,6 +401,29 @@ def test_step_against_the_one_process_step(case, ranks, inputs, port_refs):
                       _zero_state(model), OPT)
         for p, q in zip(out["params"], leaves(ref_p)):
             assert _rel(p.numpy(), q.numpy()) <= 1e-6, r
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[0][0] == 1],
+                         ids=_ids)
+def test_float64_step_over_model_is_the_one_process_step(case, ranks,
+                                                         inputs):
+    """In float64 the (1, 4) step (experts and attention heads over
+    "model") is within 1e-12 x max of the port's one-process step: the
+    split changes only the order of the sums."""
+    _, arch, groups, cf = case
+    model = build_model(_cfg(arch, groups, cf, torch.float64))
+    _, _, m1 = make_train_step(model, OPT, MICRO, keep_grads=True)(
+        _f64(inputs[1][arch]),
+        tree_defs_init(state_defs(model.param_defs, OPT), None, "cpu"),
+        _f64(inputs[2][arch]))
+    for r, rank in enumerate(ranks):
+        out = rank[case, "f64"]
+        for name in ("loss", "xent", "aux"):
+            assert abs(float(out["metrics"][name]) - float(m1[name])) <= \
+                1e-12 * abs(float(m1[name])), (r, name)
+        for g, ref in zip(out["grads"], leaves(m1["grads"])):
+            assert g.dtype == torch.float64
+            assert _rel(g.numpy(), ref.numpy()) <= 1e-12, r
 
 
 def test_capacity_drops_assignments_in_the_half_capacity_case(port_refs):
