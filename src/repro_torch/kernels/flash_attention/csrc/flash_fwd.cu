@@ -16,11 +16,14 @@
 // block reads its row's offset once.  q, k, v and o are strided
 // (B, S, H, D) or (B, H, S, D) views, read in place.  Head dims: 32, 64,
 // 128 and 160 (stablelm-12b); 160 is no power of two, and every loop
-// over D steps in 8 or 16 elements, which divide it.  For training, the
-// two prefill paths also write each query row's log-sum-exp of its scaled
-// scores (``lse``, fp32, -inf where the row sees no key) when the caller
-// passes one; the backward (flash_bwd.cu) recomputes P from it.  Serving
-// passes null and nothing else changes.
+// over D steps in 8 or 16 elements, which divide it.  Every path also
+// writes each query row's log-sum-exp of its scaled scores (``lse``, fp32,
+// natural log, -inf where the row sees no key) when the caller passes
+// one: for training on the prefill paths (the backward, flash_bwd.cu,
+// recomputes P from it), and on the decode path for context-parallel
+// decode, where each rank attends over its part of a cache split by
+// sequence and the ranks' partial rows are merged by their lse.  Where
+// the caller passes null nothing else changes.
 //
 // Three paths.  The wrapper (../kernel.py, ``plan``) picks one by a plain
 // rule on dtype and shape and passes it in ``path``; none is a fallback:
@@ -76,7 +79,10 @@
 //          launch), otherwise it writes (max, sum, fp32 accumulator) to
 //          the wrapper's scratch and ``flash_fwd_decode_merge`` combines
 //          the splits of each (b, hq).  A split that sees no key carries
-//          max -1e30 and sum 0 and drops out of the merge;
+//          max -1e30 and sum 0 and drops out of the merge.  The row lse,
+//          where asked for, is written beside the output by the block
+//          (one split) or by the merge; a row that sees no key (kv_len 0,
+//          or a negative query offset) writes 0 and -inf;
 //        * the split count comes from the wrapper (B * Hkv, kv_len and
 //          the card's SM count: at least two waves, each split at least
 //          one ring of keys).  The kernel allocates nothing, so a call
@@ -777,6 +783,13 @@ __host__ __device__ constexpr size_t decode_smem_bytes() {
          (size_t)decode_stages<T, D>() * 2 * kBK * pitch<T, D>() * sizeof(T);
 }
 
+// A decode row's log-sum-exp in natural-log units from its max ``mx`` (log2
+// units of the scaled score) and its sum of exp2(x - mx): -inf where the row
+// saw no key (sum 0; an empty split carries max -1e30 and sum 0).
+__device__ __forceinline__ float decode_lse(float mx, float ls) {
+  return ls == 0.f ? -CUDART_INF_F : (mx + log2f(ls)) * kLn2;
+}
+
 template <typename T, int D, int R>
 __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_split(const Params p) {
   constexpr int PITCH = pitch<T, D>();
@@ -943,6 +956,8 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_split(const Para
     if (p.splits == 1) {
       T* O = static_cast<T*>(p.o);
       O[b * p.o_sb + hq * p.o_sh + d] = from_f<T>(o / (ls == 0.f ? 1.f : ls));
+      if (p.lse && d == 0)                    // mx is in log2 units
+        p.lse[(long long)b * p.hq + hq] = decode_lse(mx, ls);
     } else {
       float* part = p.scratch + ((size_t)b * p.hq + hq) * p.splits * (D + 2) +
                     (size_t)split * (D + 2);
@@ -970,6 +985,7 @@ __global__ void __launch_bounds__(D) flash_fwd_decode_merge(const Params p) {
   }
   T* O = static_cast<T*>(p.o);
   O[b * p.o_sb + hq * p.o_sh + d] = from_f<T>(o / (ls == 0.f ? 1.f : ls));
+  if (p.lse && d == 0) p.lse[(long long)b * p.hq + hq] = decode_lse(mx, ls);
 }
 
 template <typename T, int D, int R>
@@ -1024,8 +1040,11 @@ extern "C" {
 // q_offsets: null, or B ints on the device, each row's query offset in
 // place of ``q_offset``.  lse: null, or B * Hq * Sq floats that take each
 // query row's log-sum-exp of its scaled scores (natural log; -inf for a
-// row that sees no key), which the backward (flash_bwd.cu) reads; only the
-// two prefill paths write it.  Returns a cudaError_t (0 on success).
+// row that sees no key), which the backward (flash_bwd.cu) and the
+// context-parallel decode's merge read; every path writes it.  On the
+// decode path a query offset may be negative (a rank's part of a cache
+// split by sequence that starts past the row's position): the row then
+// sees no key.  Returns a cudaError_t (0 on success).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* scratch, int path, int dtype, int B, int Hq, int Hkv,
               int Sq, int D, const long long* strides, int kv_len,
@@ -1052,7 +1071,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)launch_prefill_d(p, B, D, st);
   }
   if (path == 1) {
-    if (Sq != 1 || splits < 1 || (splits > 1 && scratch == nullptr) || lse)
+    if (Sq != 1 || splits < 1 || (splits > 1 && scratch == nullptr))
       return (int)cudaErrorInvalidValue;
     p.splits = splits;
     const int per = (kv_len + splits - 1) / splits;

@@ -275,11 +275,13 @@ def _check(q, k, v) -> None:
 def _row_offsets(q_offset, q: torch.Tensor):
     """(scalar offset, per-row offsets or None): a (B,) integer tensor on
     q's device goes to the kernel as contiguous int32 (no copy when it
-    already is one); its values are not read on the host."""
+    already is one); its values are not read on the host.  A scalar
+    offset may be negative at Sq 1 only (the decode path takes signed
+    offsets: the row then sees no key)."""
     if not isinstance(q_offset, torch.Tensor):
-        if q_offset < 0:
+        if q_offset < 0 and q.shape[2] > 1:
             raise ValueError(f"flash_attention: q_offset={q_offset} must be "
-                             ">= 0")
+                             ">= 0 where Sq > 1")
         return int(q_offset), None
     if (q_offset.dim() != 1 or q_offset.shape[0] != q.shape[0]
             or q_offset.device != q.device
@@ -298,14 +300,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), any strides with stride 1
     in D.  Returns (B, Hq, Sq, D) in q's dtype, laid out like q; with
     ``return_lse`` also each query row's log-sum-exp of its scaled scores,
-    (B, Hq, Sq) fp32, -inf where a row sees no key (the backward's input;
-    Sq >= 2, the prefill paths).
+    (B, Hq, Sq) fp32, -inf where a row sees no key (the backward's input,
+    and at Sq 1 the context-parallel decode's merge weights; every path
+    writes it).
 
     Key j is seen by query row i of batch row b iff ``j < kv_len`` and,
     when causal, ``j <= q_offset + i``; ``q_offset`` is an int, or a (B,)
-    integer tensor on q's device with one offset per batch row (each >= 0:
-    the host does not read it).  ``kv_len`` and ``q_offset`` are runtime
-    values: nothing is rebuilt when they change.
+    integer tensor on q's device with one offset per batch row (the host
+    does not read it).  Offsets are >= 0 where Sq > 1; at Sq 1 (the
+    decode path) they are signed, and a row whose offset is negative sees
+    no key: its output is 0 and its lse -inf, as at ``kv_len`` 0.
+    ``kv_len`` and ``q_offset`` are runtime values: nothing is rebuilt
+    when they change.
     """
     global LAUNCHES
     _check(q, k, v)
@@ -315,9 +321,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_len < 0:
         raise ValueError(f"flash_attention: kv_len={kv_len} must be >= 0")
     q_offset, rows = _row_offsets(q_offset, q)
-    if return_lse and Sq < 2:
-        raise ValueError("flash_attention: the log-sum-exp is written by "
-                         "the prefill paths, which take Sq >= 2")
     out = torch.empty_like(q)
     lse = (torch.empty(B, Hq, Sq, device=q.device, dtype=torch.float32)
            if return_lse else None)

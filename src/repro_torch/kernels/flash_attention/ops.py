@@ -5,7 +5,7 @@ import torch
 
 from .._meta import kernel_call
 from .kernel import aligned16, flash_attention, flash_attention_bwd
-from .ref import attention_ref, attention_ref_flops
+from .ref import attention_ref, attention_ref_flops, lse_ref
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -66,10 +66,27 @@ class _MetaAttention(torch.autograd.Function):
         return tuple(grads)
 
 
+def _meta_with_lse(q, k, v):
+    """The meta route of a call that returns the row lse (serving: no
+    gradient): the output and the lse, recorded as one kernel call."""
+    B, Hq, Sq, D = q.shape
+    out = q.new_empty(q.shape)
+    lse = q.new_empty((B, Hq, Sq), dtype=torch.float32)
+    kernel_call([q, k, v], [out, lse],
+                attention_ref_flops(B, Hq, Sq, k.shape[2], D),
+                "flash_attention")
+    return out, lse
+
+
 def mha(q, k, v, *, causal: bool = True, kv_len: int | None = None,
-        q_offset=0):
+        q_offset=0, return_lse: bool = False):
     """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D).  Returns (B, Sq, Hq, D).
-    ``q_offset``: an int, or a (B,) integer tensor of per-row offsets.
+    ``q_offset``: an int, or a (B,) integer tensor of per-row offsets
+    (signed at Sq 1: a row whose offset is negative sees no key).  With
+    ``return_lse`` (serving only, no gradient) also each query row's
+    log-sum-exp of its scaled scores, (B, Hq, Sq) fp32 (fp64 for fp64
+    inputs on the CPU), -inf where a row sees no key: the kernel's own on
+    the card, ``lse_ref`` on the CPU.
 
     A CUDA tensor launches the hand-written kernel (or raises); where a
     gradient is wanted it goes through ``_FlashAttention``, whose backward
@@ -80,6 +97,19 @@ def mha(q, k, v, *, causal: bool = True, kv_len: int | None = None,
     S, D) views passed down are strided, not copied.
     """
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if return_lse:
+        if q.device.type == "meta":
+            out, lse = _meta_with_lse(qt, kt, vt)
+        elif q.device.type == "cpu":
+            out = attention_ref(qt, kt, vt, causal=causal, kv_len=kv_len,
+                                q_offset=q_offset)
+            lse = lse_ref(qt, kt, causal=causal, kv_len=kv_len,
+                          q_offset=q_offset)
+        else:
+            out, lse = flash_attention(qt, kt, vt, causal=causal,
+                                       kv_len=kv_len, q_offset=q_offset,
+                                       return_lse=True)
+        return out.transpose(1, 2), lse
     if q.device.type == "meta":
         out = _MetaAttention.apply(qt, kt, vt)
     elif q.device.type == "cpu":

@@ -39,7 +39,13 @@ rank holds its serving copies of the weights (drawn from the seed as one
 process draws them, whole over "data", cut over "model") and of the
 caches; a batch's rows go over the dp axes where the cache specs put
 them there (else every dp rank serves all of them), and each decode
-step's tokens are all-gathered over dp into ``Request.out``.
+step's tokens are all-gathered over dp into ``Request.out``.  Rules with
+``kv_seq`` over "model" (``{"kv_seq": "model", "kv_heads": None,
+"act_kv_heads": None}`` where the KV heads divide over "model") split the
+KV caches by sequence: each rank holds 1/tp of every layer's positions,
+and a decode step merges the ranks' partial attention by log-sum-exp
+(context-parallel decode); the loop then sizes a batch's caches to a
+multiple of the "model" ranks (``sharding.cache_len``).
 """
 from __future__ import annotations
 
@@ -125,17 +131,19 @@ class ServeLoop:
         self.batch_shapes.append((B, T, n_steps))
         rows = sharding.serve_rows(self.mesh, self.rules, B)
         batch = {k: rows.take(v) for k, v in batch.items()}
-        caches = self.model.init_caches(B, max_len=T + n_steps,
+        max_len = sharding.cache_len(T + n_steps, self.rules, self.mesh)
+        caches = self.model.init_caches(B, max_len=max_len,
                                         cross_len=T, device=self.device,
                                         rules=self.rules, mesh=self.mesh)
-        logits, caches = self.prefill(self.params, batch, caches, rows)
+        logits, caches = self.prefill(self.params, batch, caches, rows,
+                                      max_len)
         self.prefills += 1
         tok = sharding.greedy(logits[:, -1], self.tp, self.cfg.vocab)
         for step in range(n_steps):
             t0 = time.perf_counter()
             tok, logits, caches = self.decode(
                 self.params, {"tokens": tok[:, None]}, caches, T + step,
-                rows)
+                rows, max_len)
             self._sync()
             dt = time.perf_counter() - t0
             self.step_times.append(dt)

@@ -46,12 +46,17 @@ serving kinds: "tp_sum" (a row-parallel product's sum over "model"),
 "embed_sum" (the vocab-parallel embedding's), "norm_sum" (the Mamba-2
 gated norm's sum of squares, both ways in training), "argmax" (the
 greedy token's (value, index) pairs), "rows" (a step's tokens over the
-dp axes) and "tp_grad" (``CopyIn``'s backward); the training kinds:
-"kv_grad" (the KV leaves' gradients where the KV heads are whole),
-"xent" (the cross-entropy's merge) and "all_gather_model".
+dp axes) and "tp_grad" (``CopyIn``'s backward); with the KV cache's
+sequence over "model" (context-parallel decode, ``model_axis``'s
+``seq``), "cp_q" (a decode step's query heads gathered over "model",
+``gather_heads``) and "cp_merge" (the ranks' partial attention rows and
+their log-sum-exps, ``merge_partials``); the training kinds: "kv_grad"
+(the KV leaves' gradients where the KV heads are whole), "xent" (the
+cross-entropy's merge) and "all_gather_model".
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from collections import Counter
 from dataclasses import dataclass
@@ -59,7 +64,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.common import axes_of, local_shape, mesh_axis_sizes
+from repro_torch.models.common import (axes_of, check_spec, local_shape,
+                                       mesh_axis_sizes)
 
 #: payload bytes and calls of each collective kind in this process
 BYTES: Counter = Counter()
@@ -81,6 +87,9 @@ class Sharding:
     """A spec on a mesh (the JAX package's ``NamedSharding``)."""
     mesh: object
     spec: tuple
+
+    def __post_init__(self):
+        check_spec(self.spec)
 
     def shard_shape(self, shape) -> tuple[int, ...]:
         return local_shape(shape, self.spec, mesh_axis_sizes(self.mesh))
@@ -340,11 +349,17 @@ class ModelAxis:
     """The "model" axis of a mesh as the serving steps use it: ``size``
     ranks (tp), this rank's ``index`` along it, ``name`` the mesh axis
     (None where it has one rank) and ``group()`` their process sub-group.
-    A leaf split over it holds piece ``index`` of ``size`` (``part``)."""
+    A leaf split over it holds piece ``index`` of ``size`` (``part``).
+    ``seq``: whether the KV caches' sequence is split over it (each rank
+    holding positions [index L, (index + 1) L) of every KV head, L the
+    caches' length over ``size``: context-parallel decode); None where
+    the rules split it but the caches' length was not given
+    (``model_axis``)."""
     mesh: object
     name: str | None
     size: int
     index: int
+    seq: bool | None = False
 
     def group(self):
         return self.mesh.group(self.name)
@@ -359,20 +374,40 @@ class ModelAxis:
 ONE_RANK = ModelAxis(None, None, 1, 0)
 
 
-def model_axis(mesh, rules) -> ModelAxis:
+def model_axis(mesh, rules, max_len: int | None = None) -> ModelAxis:
     """The "model" axis of ``mesh`` (``ONE_RANK`` where the mesh has none,
-    or one of a single rank).  Raises where ``rules`` put the KV cache's
-    sequence over it: serving with ``kv_seq`` over "model" needs
-    context-parallel decode (a rank's partial softmax over its part of
-    the sequence, merged by log-sum-exp), which the port does not have."""
+    or one of a single rank).  Where ``rules`` put the KV cache's sequence
+    ("kv_seq") over it, its ``seq`` says whether caches of ``max_len``
+    positions are split by sequence: the rules' dimension-aware
+    resolution, so a ``max_len`` that does not divide over "model" keeps
+    the caches whole along the sequence (the path without the rule), as
+    in the JAX package.  Without ``max_len`` ``seq`` is None: the greedy
+    token and the serving loop's handle need no cache, and a layer that
+    meets a cache raises.  ``kv_seq`` over any other axis raises."""
     if mesh is None or mesh.shape.get("model", 1) == 1:
         return ONE_RANK
-    if "model" in axes_of(rules.resolve("kv_seq")[0]):
+    axis = train_axis(mesh)
+    over = axes_of(rules.resolve("kv_seq")[0])
+    if not over:
+        return axis
+    if over != ("model",):
         raise NotImplementedError(
-            "serving with kv_seq over \"model\" needs context-parallel "
-            "decode (ROADMAP.md Queue A item 8); serve with the default "
-            "kv_seq rule (the KV cache split by KV heads)")
-    return train_axis(mesh)
+            f"kv_seq over {over}: the port splits a KV cache's sequence "
+            "over \"model\" alone")
+    seq = (None if max_len is None else
+           bool(axes_of(rules.resolve("kv_seq", dims=(max_len,))[0])))
+    return dataclasses.replace(axis, seq=seq)
+
+
+def cache_len(n: int, rules, mesh) -> int:
+    """``n`` positions rounded up to a multiple of the "model" ranks where
+    ``rules`` put the KV cache's sequence over "model" (so that the
+    caches split; the positions past ``n`` are never attended), ``n``
+    itself otherwise."""
+    tp = model_axis(mesh, rules)
+    if tp.seq is False:
+        return n
+    return -(-n // tp.size) * tp.size
 
 
 def train_axis(mesh) -> ModelAxis:
@@ -466,6 +501,42 @@ def greedy(logits: torch.Tensor, axis: ModelAxis, vocab: int
     both = _all_gather(pair[None], 0, axis.group(), axis.size, "argmax")
     best = torch.argmax(both[:, 0], dim=0)          # the lowest rank's max
     return torch.gather(both[:, 1], 0, best[None])[0].to(idx.dtype)
+
+
+def gather_heads(q: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """Every rank's query heads of a decode step: this rank's (B, T, H/tp,
+    D) all-gathered along dim 2 over ``axis`` (counted as "cp_q"), the
+    heads in global order."""
+    return _all_gather(q, 2, axis.group(), axis.size, "cp_q")
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor, axis: ModelAxis,
+                   heads: int | None = None) -> torch.Tensor:
+    """Context-parallel decode's merge over ``axis``.  ``o`` (B, T, Hq, D)
+    is this rank's attention of every query head over its part of the
+    cache's positions, ``lse`` (B, Hq, T) its rows' log-sum-exps (-inf
+    where its part holds no key a row sees).  The ranks' (o, lse) are
+    all-gathered in one call (counted as "cp_merge") and this rank keeps
+    its ``heads`` query heads (piece ``index`` of ``size``; every head
+    where ``heads`` is None): o = sum_r exp(lse_r - m) o_r / sum_r
+    exp(lse_r - m), m the ranks' largest lse, summed in rank order in
+    fp32 (fp64 for fp64 ``o``) and cast once to o's dtype.  A part with
+    lse -inf drops out; a row that no part sees gives 0."""
+    ct = torch.promote_types(o.dtype, torch.float32)
+    D = o.shape[-1]
+    mine = torch.cat([o.transpose(1, 2).to(ct),
+                      lse.to(ct)[..., None]], dim=-1)     # (B, Hq, T, D + 1)
+    every = _all_gather(mine[None], 0, axis.group(), axis.size, "cp_merge")
+    if heads is not None:
+        every = every.narrow(2, axis.index * heads, heads)
+    parts, lses = every[..., :D], every[..., D]
+    m = lses.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lses - m)                                # 0 where -inf
+    num = torch.sum(w[..., None] * parts, dim=0)
+    den = torch.sum(w, dim=0)[..., None]
+    out = num / torch.where(den > 0, den, torch.ones_like(den))
+    return out.transpose(1, 2).to(o.dtype)
 
 
 @dataclass(frozen=True)

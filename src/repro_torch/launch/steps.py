@@ -266,14 +266,14 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     return train_step
 
 
-def _serving(rules, mesh):
+def _serving(model: Model, rules, mesh):
     """(rules, the "model" axis) of a serving step on ``mesh``: (None,
     ``sharding.ONE_RANK``) without one; raises for rules the port cannot
-    serve with (``sharding.model_axis``)."""
+    serve with (``Model.serving_axis``)."""
     if mesh is None:
         return None, sharding.ONE_RANK
     rules = rules or make_rules(mesh)
-    return rules, sharding.model_axis(mesh, rules)
+    return rules, model.serving_axis(rules, mesh)
 
 
 def make_prefill_step(model: Model, rules: AxisRules | None = None,
@@ -292,31 +292,39 @@ def make_prefill_step(model: Model, rules: AxisRules | None = None,
     slice.  Heads, KV heads, MLP, vocab and SSM heads go over "model",
     with the row-parallel sums written out (``models.layers``); the train
     step computes in the same layout.  Rules that put the KV cache's
-    sequence over "model" raise (``sharding.model_axis``)."""
-    rules, _ = _serving(rules, mesh)
+    sequence over "model" (``kv_seq``; with ``kv_heads`` None where the
+    KV heads would divide) split the caches by sequence, context-parallel
+    decode (``layers.split_cache_attention``): the step then takes
+    ``max_len``, the positions the caches were made for, since a
+    ``max_len`` that does not divide over "model" keeps them whole
+    (``sharding.model_axis``); without it such a step raises where it
+    meets a KV cache.  The encoder-decoder refuses such rules."""
+    rules, _ = _serving(model, rules, mesh)
 
     @torch.inference_mode()
-    def prefill_step(params, batch, caches, rows=None):
+    def prefill_step(params, batch, caches, rows=None, max_len=None):
         return model.prefill(params, batch, caches, rules=rules, mesh=mesh,
-                             rows=rows)
+                             rows=rows, max_len=max_len)
     return prefill_step
 
 
 def make_decode_step(model: Model, rules: AxisRules | None = None,
                      mesh=None) -> Callable:
-    """``decode_step(params, batch, caches, cache_index, rows=None) ->
-    (next_tok, logits, caches)``: ``next_tok`` holds the rank's rows, the
-    greedy token over the vocab slices of "model" (``sharding.greedy``:
-    the lowest index among equal maxima, as ``torch.argmax`` and
-    ``jnp.argmax``), and ``logits`` the rank's vocab slice
-    (``make_prefill_step``; without a mesh, all rows and the whole
-    vocab)."""
-    rules, tp = _serving(rules, mesh)
+    """``decode_step(params, batch, caches, cache_index, rows=None,
+    max_len=None) -> (next_tok, logits, caches)``: ``next_tok`` holds the
+    rank's rows, the greedy token over the vocab slices of "model"
+    (``sharding.greedy``: the lowest index among equal maxima, as
+    ``torch.argmax`` and ``jnp.argmax``), and ``logits`` the rank's vocab
+    slice (``make_prefill_step``, ``max_len`` too; without a mesh, all
+    rows and the whole vocab)."""
+    rules, tp = _serving(model, rules, mesh)
 
     @torch.inference_mode()
-    def decode_step(params, batch, caches, cache_index: int, rows=None):
+    def decode_step(params, batch, caches, cache_index: int, rows=None,
+                    max_len=None):
         logits, caches = model.decode(params, batch, caches, cache_index,
-                                      rules=rules, mesh=mesh, rows=rows)
+                                      rules=rules, mesh=mesh, rows=rows,
+                                      max_len=max_len)
         next_tok = sharding.greedy(logits[:, -1], tp, model.cfg.vocab)
         return next_tok, logits, caches
     return decode_step

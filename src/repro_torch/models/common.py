@@ -337,10 +337,23 @@ def tree_defs_to_specs(defs, rules: AxisRules):
     return tree_map_defs(lambda d: d.spec(rules), defs)
 
 
+def check_spec(spec: tuple) -> None:
+    """Raises ``ValueError`` where ``spec`` names one mesh axis on two
+    dims, as the JAX package's ``NamedSharding`` does (``kv_seq`` and
+    ``kv_heads`` both over "model", say)."""
+    seen = [a for e in spec for a in axes_of(e)]
+    twice = sorted({a for a in seen if seen.count(a) > 1})
+    if twice:
+        raise ValueError(f"spec {spec} names mesh axis {twice[0]!r} on two "
+                         "dims")
+
+
 def local_shape(shape: Sequence[int], spec: tuple, sizes: Mapping[str, int]
                 ) -> tuple[int, ...]:
     """The shape of one rank's slice of a ``shape`` leaf laid out by
-    ``spec`` on a mesh of axis ``sizes`` (``NamedSharding.shard_shape``)."""
+    ``spec`` on a mesh of axis ``sizes`` (``NamedSharding.shard_shape``;
+    a spec with one axis on two dims raises, ``check_spec``)."""
+    check_spec(spec)
     out = []
     for dim, entry in zip(shape, spec):
         axes = () if entry is None else (

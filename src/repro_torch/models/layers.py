@@ -268,7 +268,9 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     With ``tp`` and head slices of the weights (module docstring): the
     rank's query heads, its KV heads (its slice of the cache), or every
     KV head where they are whole (``rank_kv_heads`` picks the ones its
-    query heads read), and the row-parallel out projection.
+    query heads read), and the row-parallel out projection.  Where
+    ``tp.seq`` the cache is this rank's part of the sequence
+    (``split_cache_attention``).
     """
     split = is_split(tp, params["wq"].shape[1], cfg.n_heads)
     if split:
@@ -288,6 +290,10 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         out = mha(q, rank_kv_heads(k, cfg, tp, hq),
                   rank_kv_heads(v, cfg, tp, hq), causal=causal)
         return attention_out(params, out, cfg, tp if split else None), None
+    if tp is not None and tp.seq is not False:
+        out = split_cache_attention(q, k, v, cache, cache_index, q_offset,
+                                    cfg, tp, causal, split)
+        return attention_out(params, out, cfg, tp if split else None), cache
     T, t_max = x.shape[1], cache["k"].shape[1]
     if cache_index + T > t_max:
         raise ValueError(f"cache of {t_max} positions cannot take {T} tokens "
@@ -300,6 +306,64 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               rank_kv_heads(cache["v"], cfg, tp, hq).to(cfg.dtype),
               causal=causal, kv_len=cache_index + T, q_offset=q_offset)
     return attention_out(params, out, cfg, tp if split else None), cache
+
+
+def split_cache_attention(q, k, v, cache: dict, cache_index: int, q_offset,
+                          cfg: ModelConfig, tp, causal: bool,
+                          heads_split: bool) -> torch.Tensor:
+    """Attention over a KV cache split by sequence over "model" (context-
+    parallel decode): ``cache`` holds positions [r L, (r + 1) L) of every
+    KV head, r = ``tp.index``, L its length.  ``q``, ``k``, ``v``: the
+    step's projections (q this rank's heads where ``heads_split``, k and v
+    every KV head); returns this rank's heads' output (B, T, Hq_r, D).
+
+    A prefill (``cache_index`` 0) attends each of the rank's query heads
+    over the whole prompt, as without the split, and writes into the
+    cache only the prompt's positions in the rank's part; nothing goes
+    over "model".  A decode step (T 1) writes the new K/V on the rank
+    whose part holds ``cache_index``, gathers the step's query heads over
+    "model" (``sharding.gather_heads``), attends every head over this
+    rank's part with the row lse (its ``kv_len`` ``cache_index`` + 1 -
+    r L clamped to [0, L], its causal offset ``q_offset`` - r L, per row
+    under M-RoPE and negative where a row's position lies before the
+    part), then merges the ranks' partial rows (``sharding.merge_partials``).
+    Every rank takes part in both collectives, also one whose part holds
+    no key yet.  A prefill at ``cache_index`` > 0 raises."""
+    from repro_torch.launch.sharding import gather_heads, merge_partials
+    if tp.seq is None:
+        raise ValueError(
+            "the rules put the KV cache's sequence over \"model\": give the "
+            "step the caches' max_len (make_prefill_step / "
+            "make_decode_step's max_len), which says whether it splits")
+    T, L = q.shape[1], cache["k"].shape[1]
+    start = tp.index * L
+    if cache_index + T > L * tp.size:
+        raise ValueError(f"cache of {L * tp.size} positions cannot take {T} "
+                         f"tokens at index {cache_index}")
+    ck, cv = cache["k"], cache["v"]
+    hq = q.shape[2]
+    if cache_index == 0:
+        kc, vc = k.to(ck.dtype), v.to(cv.dtype)
+        lo, hi = start, min(start + L, T)
+        if hi > lo:
+            ck[:, :hi - lo] = kc[:, lo:hi]
+            cv[:, :hi - lo] = vc[:, lo:hi]
+        return mha(q, rank_kv_heads(kc.to(cfg.dtype), cfg, tp, hq),
+                   rank_kv_heads(vc.to(cfg.dtype), cfg, tp, hq),
+                   causal=causal, kv_len=T, q_offset=q_offset)
+    if T != 1:
+        raise NotImplementedError(
+            f"a prefill of {T} tokens at cache_index {cache_index} into a KV "
+            "cache split by sequence over \"model\"; the serving loop "
+            "prefills at 0 and decodes one token at a time")
+    if start <= cache_index < start + L:
+        ck[:, cache_index - start] = k[:, 0].to(ck.dtype)
+        cv[:, cache_index - start] = v[:, 0].to(cv.dtype)
+    qa = gather_heads(q, tp) if heads_split else q
+    o, lse = mha(qa, ck.to(cfg.dtype), cv.to(cfg.dtype), causal=causal,
+                 kv_len=min(max(cache_index + 1 - start, 0), L),
+                 q_offset=q_offset - start, return_lse=True)
+    return merge_partials(o, lse, tp, hq if heads_split else None)
 
 
 def cross_attention_def(cfg: ModelConfig) -> dict:

@@ -10,7 +10,9 @@ JAX package's ``rules`` argument) take a rank's serving copies of the
 weights (``serving_layouts``), its rows of the batch
 (``launch.sharding.serve_rows``) and its cache slices (``init_caches``
 with ``rules`` and ``mesh``), and return its rows' logits over its vocab
-slice.
+slice.  Rules with ``kv_seq`` over "model" split the KV caches by
+sequence (context-parallel decode, ``layers.split_cache_attention``);
+the calls then take the caches' ``max_len``.
 """
 from __future__ import annotations
 
@@ -189,14 +191,31 @@ class Model:
         return _tf.lm_loss(params, self.cfg, batch, count=count, rules=rules,
                            mesh=mesh, tp=tp)
 
-    def _serving(self, rules, mesh, rows) -> dict:
-        """The keywords of a serving rank's forward: its "model" axis and,
-        for the MoE layers, the rules with the dp axes its rows are split
-        over (``rows``, a ``launch.sharding.Rows``; default: the mesh's
-        dp axes) and the mesh."""
-        from repro_torch.launch.sharding import dp_axes, model_axis
+    def serving_axis(self, rules, mesh, max_len: int | None = None):
+        """A serving rank's "model" axis (``launch.sharding.model_axis``:
+        with ``seq``, whether caches of ``max_len`` positions are split by
+        sequence).  The encoder-decoder refuses rules that put the KV
+        cache's sequence over "model"."""
+        from repro_torch.launch.sharding import model_axis
+        tp = model_axis(mesh, rules, max_len)
+        if self.cfg.family == "encdec" and tp.seq is not False:
+            raise NotImplementedError(
+                f"{self.cfg.arch}: its self and cross caches under kv_seq "
+                "over \"model\" (ROADMAP.md, \"Configurations the port "
+                "does not yet run\": context-parallel decode of the "
+                "encoder-decoder); its KV heads divide over \"model\", so "
+                "serve it with the default kv_seq rule")
+        return tp
+
+    def _serving(self, rules, mesh, rows, max_len=None) -> dict:
+        """The keywords of a serving rank's forward: its "model" axis
+        (``serving_axis``) and, for the MoE layers, the rules with the dp
+        axes its rows are split over (``rows``, a
+        ``launch.sharding.Rows``; default: the mesh's dp axes) and the
+        mesh."""
+        from repro_torch.launch.sharding import dp_axes
         rules = rules or rules_for_mesh(mesh)
-        kw = {"tp": model_axis(mesh, rules)}
+        kw = {"tp": self.serving_axis(rules, mesh, max_len)}
         if self.cfg.moe is not None:
             axes = dp_axes(mesh, rules) if rows is None else rows.axes
             kw.update(rules=dataclasses.replace(rules, dp_axes=axes),
@@ -204,19 +223,23 @@ class Model:
         return kw
 
     def prefill(self, params, batch: dict, caches, rules=None, mesh=None,
-                rows=None):
+                rows=None, max_len=None):
         """Last-position logits and the filled caches.  With ``mesh``: a
         serving rank's (module docstring; ``rows`` the batch's
-        ``launch.sharding.Rows``)."""
-        kw = {} if mesh is None else self._serving(rules, mesh, rows)
+        ``launch.sharding.Rows``, ``max_len`` the positions the caches
+        were made for, which says whether rules with ``kv_seq`` over
+        "model" split them)."""
+        kw = {} if mesh is None else self._serving(rules, mesh, rows,
+                                                   max_len)
         if self.cfg.family == "encdec":
             return _encdec.encdec_prefill(params, self.cfg, batch, caches,
                                           tp=kw.get("tp"))
         return _tf.lm_prefill(params, self.cfg, batch, caches, **kw)
 
     def decode(self, params, batch: dict, caches, cache_index: int,
-               rules=None, mesh=None, rows=None):
-        kw = {} if mesh is None else self._serving(rules, mesh, rows)
+               rules=None, mesh=None, rows=None, max_len=None):
+        kw = {} if mesh is None else self._serving(rules, mesh, rows,
+                                                   max_len)
         if self.cfg.family == "encdec":
             return _encdec.encdec_decode(params, self.cfg, batch, caches,
                                          cache_index, tp=kw.get("tp"))

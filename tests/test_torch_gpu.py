@@ -154,6 +154,58 @@ def test_split_decode_in_a_cuda_graph():
     assert torch.equal(out, eager)
 
 
+#: (B, Hq, Hkv, Sk, kv_len, q_offset) of the decode path's row lse: one
+#: split, several merged, empty splits past a causal cut, kv_len 0, a
+#: negative offset, per-row offsets (one negative: a rank's part of a
+#: cache split by sequence that starts past the row's position)
+DECODE_LSE_CASES = [
+    (2, 8, 2, 100, 100, 99),
+    (2, 28, 4, 4096, 4096, 4095),
+    (1, 8, 1, 4096, 3000, 300),
+    (2, 8, 2, 64, 0, 0),
+    (2, 8, 2, 64, 40, -3),
+    (4, 8, 2, 4096, 4096, (4095, 100, -5, 2000)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128, 160])
+@pytest.mark.parametrize("B,Hq,Hkv,Sk,kv_len,q_offset", DECODE_LSE_CASES)
+def test_decode_lse_matches_plain_version(dtype, D, B, Hq, Hkv, Sk, kv_len,
+                                          q_offset):
+    """The decode path's row lse (one split: the block writes it; several:
+    the merge) against ``lse_ref`` and its output against
+    ``attention_ref``; a row that sees no key gives 0 and -inf, never
+    NaN; the output with the lse is the output without it, bit for
+    bit."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn(B, Hq, 1, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Hkv, Sk, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, Sk, D, generator=g, device="cuda").to(dtype)
+    if isinstance(q_offset, tuple):
+        q_offset = torch.tensor(q_offset, device="cuda")
+    kw = {"causal": True, "kv_len": kv_len, "q_offset": q_offset}
+    before = kernel.LAUNCHES
+    out, lse = kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    assert lse.shape == (B, Hq, 1) and lse.dtype == torch.float32
+    assert not bool(torch.isnan(lse).any() or torch.isnan(out.float()).any())
+    want = lse_ref(q, k, **kw)
+    empty = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), empty)
+    torch.testing.assert_close(lse[~empty], want[~empty], atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    ref = attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert not bool(out[empty].float().any())
+    assert torch.equal(out, kernel.flash_attention(q, k, v, **kw))
+
+
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take():
     _need_card()

@@ -266,19 +266,17 @@ def _mesh_of(dims):
 
 
 def test_serving_on_a_mesh_and_moe_over_dp_raise():
-    """Serving with the KV cache's sequence over "model" raises, naming
-    the ROADMAP item, and so does training a MoE config whose groups
-    (``moe_groups`` 0: one) do not split over the dp ranks; serving on
-    (2, 1), (1, 2) and (1, 1) meshes, MoE at ``moe_groups`` = dp and MoE
-    on a (1, k) mesh build."""
+    """Serving with the KV cache's sequence over "model" builds
+    (context-parallel decode); training a MoE config whose groups
+    (``moe_groups`` 0: one) do not split over the dp ranks raises;
+    serving on (2, 1), (1, 2) and (1, 1) meshes, MoE at ``moe_groups`` =
+    dp and MoE on a (1, k) mesh build."""
     cfg = smoke_config("qwen3-moe-30b-a3b")
     model = build_model(cfg)
     opt = AdamWConfig()
     for make in (make_prefill_step, make_decode_step):
         mesh = _mesh_of((1, 2))
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            make(model, make_rules(mesh, overrides={"kv_seq": "model"}),
-                 mesh)
+        make(model, make_rules(mesh, overrides={"kv_seq": "model"}), mesh)
         for dims in ((2, 1), (1, 2), (1, 1)):
             make(model, mesh=_mesh_of(dims))
     with pytest.raises(ValueError, match="a multiple of 2"):

@@ -46,8 +46,9 @@ qwen2-7b at B 3 serves rows replicated over "data" (3 does not split).
   a MoE decode whose groups fall back to one on dp > 1 raises.
 
 In this process: the (1, 1) mesh is bit for bit the path without a mesh,
-and rules with ``kv_seq`` over "model" raise.  The workers import no JAX
-(the children import this module).
+and the steps build with ``kv_seq`` over "model" (context-parallel
+decode, tests/test_torch_context_parallel.py).  The workers import no
+JAX (the children import this module).
 """
 import os
 import time
@@ -629,12 +630,17 @@ def test_serve_loop_on_the_one_process_mesh_is_bit_for_bit():
 
 
 def test_kv_seq_over_model_raises():
+    """Rules with ``kv_seq`` over "model" once raised here; the steps and
+    the loop now build with them (context-parallel decode, served in
+    tests/test_torch_context_parallel.py), and only ``kv_seq`` over
+    another axis raises."""
     model = build_model(smoke_config("qwen2-7b"))
     mesh = _mesh_one(dims=(1, 2))
     rules = make_rules(mesh, overrides={"kv_seq": "model"})
     for make in (make_prefill_step, make_decode_step):
-        with pytest.raises(NotImplementedError, match="context-parallel"):
-            make(model, rules, mesh)
-    with pytest.raises(NotImplementedError, match="context-parallel"):
-        ServeLoop(smoke_config("qwen2-7b"), device="cpu", rules=rules,
-                  mesh=mesh)
+        make(model, rules, mesh)
+    ServeLoop(smoke_config("qwen2-7b"), device="cpu", rules=rules,
+              mesh=mesh)
+    with pytest.raises(NotImplementedError, match="over \"model\" alone"):
+        make_decode_step(model, make_rules(mesh, overrides={
+            "kv_seq": "data"}), mesh)
