@@ -286,7 +286,13 @@ in order; any failure ends the run with a non-zero exit code:
    flash and SSD launches a step's, no parameter gathered for the dense
    configs and only the Mamba-2 in_proj and conv leaves ("all_gather_model")
    for mamba2; printed: step ms, peak, gathered bytes and tensor-parallel
-   collectives by kind, launches.
+   collectives by kind, launches.  Its census, after the spawn in this
+   process: the same three steps traced on ``meta`` tensors as rank 0 of
+   the (1, 2) mesh over a fake process group of two
+   (``launch.dryrun.fake_group``; ``p16f_census``), their calls and
+   payload bytes by kind equal to what both gloo ranks counted on the
+   card; printed: the census's ring-model wire bytes by op beside the
+   ranks' measured steps.
 17. serving on a ("data", "model") mesh (``make_prefill_step`` /
    ``make_decode_step`` and ``ServeLoop`` with ``rules`` and ``mesh``):
    17a the flash kernel at qwen2-7b's head counts on a rank of tp 2 (14
@@ -325,7 +331,13 @@ in order; any failure ends the run with a non-zero exit code:
    merged by log-sum-exp), teacher-forced, held to 17b at 3e-2 x max, a
    rank's K/V cache exactly half the whole at its length (the length
    rounded up to whole parts, ``sharding.cache_len``) and a decode step's
-   collectives 17c's plus one "cp_q" and one "cp_merge" a layer.
+   collectives 17c's plus one "cp_q" and one "cp_merge" a layer.  Their
+   census, after the spawn in this process: qwen2-7b's (1, 2) serves
+   without and with the rule traced on ``meta`` tensors as rank 0 over a
+   fake process group of two (``p17_census``: every batch's prefill,
+   greedy token and decode steps), the serve's and its last decode
+   step's calls and payload bytes by kind equal to what both gloo ranks
+   counted; printed: the wire bytes by op beside the ranks' decode step.
 
 Every top-level phase's seconds are printed as it ends, and their table
 before the last lines.
@@ -4477,6 +4489,75 @@ def print_tp_meshes(one, ranks, smi):
               f"16f {label}: the ranks report different losses")
 
 
+def census_counts(census) -> tuple[dict, dict]:
+    """({kind: calls}, {kind: payload bytes}) of a census
+    (``analysis.collectives.Census``)."""
+    return census.calls_by_kind(), census.payload_by_kind()
+
+
+def p16f_census(get_config):
+    """16f's steps traced on ``meta`` tensors as rank 0 of the (1, 2) mesh
+    over a fake process group of two (``launch.dryrun.fake_group``; no
+    card, no data): the same configs, batch, microbatch, dtypes, remat
+    and rules as the ranks' steps.  Returns {label: (census, seconds)}."""
+    from repro_torch.analysis import collectives
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import sharding
+    from repro_torch.launch.dryrun import fake_group, local_meta
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_defs_to_specs
+    from repro_torch.optim import state_defs
+    opt = p16_opt()
+    out = {}
+    with fake_group(2, 0):
+        mesh = make_mesh(P16F_MESH, ("data", "model"), device="meta")
+        rules = make_rules(mesh)
+        for arch, n in P16F:
+            t0 = time.perf_counter()
+            cfg = p16_config(get_config, arch, n)
+            model = build_model(cfg)
+            sdefs = state_defs(model.param_defs, opt)
+            params = local_meta(model.param_defs, sharding.tree_shardings(
+                model.param_specs(rules), mesh), mesh)
+            state = local_meta(sdefs, sharding.tree_shardings(
+                tree_defs_to_specs(sdefs, rules), mesh), mesh)
+            batch = SyntheticLMData(cfg, seq=P16_SEQ, global_batch=P16_BATCH,
+                                    seed=0, device="cpu").batch(0)
+            batch = sharding.local_batch({k: v.to("meta") for k, v in
+                                          batch.items()}, mesh, rules)
+            step = make_train_step(model, opt, rules=rules, mesh=mesh,
+                                   keep_grads=True)
+            with collectives.census() as c:
+                step(params, state, batch)
+            out[p16f_label(arch)] = (c, time.perf_counter() - t0)
+    return out
+
+
+def print_tp_census(census, ranks, smi):
+    """16f's census gate: each traced step's calls and payload bytes by
+    kind equal what both gloo ranks counted on the card; printed beside
+    the census's wire bytes by op and each rank's measured step."""
+    print("== phase 16f census: the same steps traced on meta tensors as "
+          f"rank 0 of the {P16F_MESH} mesh over a fake process group, "
+          "held to the two gloo ranks' counts on the card, kind by kind; "
+          f"{smi}", flush=True)
+    for label, (c, seconds) in census.items():
+        calls, moved = census_counts(c)
+        print(f"  {label}: census {c.total_bytes / 1e9:.3f} GB on the wire "
+              f"{ {k: f'{v / 1e9:.3f} GB' for k, v in c.bytes_by_op.items()} }"
+              f" in {dict(c.counts)}; traced in {seconds:.1f} s; the ranks' "
+              f"steps "
+              + ", ".join(f"{rank[label]['step_ms']:.1f} ms"
+                          for rank in ranks), flush=True)
+        for r, rank in enumerate(ranks):
+            got = rank[label]["collective"]
+            check(calls == got["calls"] and moved == got["bytes"],
+                  f"16f census {label} rank {r}: traced {calls} / {moved}, "
+                  f"the rank counted {got['calls']} / {got['bytes']}")
+
+
 def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     """Phase 16: 16a stablelm-1.6b's one-device step without rules and
     through the (1, 1) mesh, bit for bit; 16b the same step on a (2, 1)
@@ -4614,6 +4695,16 @@ def run_sharded_phase(torch, kernel, ssd_kernel, get_config, smi):
     print_fleet_mesh(out["fleet"], smi)
     print_moe_meshes(one, ranks, moe_cfg, smi)
     print_tp_meshes(one, ranks, smi)
+    t_census = time.perf_counter()
+    census = p16f_census(get_config)
+    print_tp_census(census, ranks, smi)
+    out["16f_census"] = {label: {"calls": dict(c.counts),
+                                 "wire_bytes_by_op": c.bytes_by_op,
+                                 "by_kind": c.by_kind, "seconds": sec}
+                         for label, (c, sec) in census.items()}
+    out["16f_census_seconds"] = time.perf_counter() - t_census
+    print(f"  phase 16f census: {out['16f_census_seconds']:.1f} s",
+          flush=True)
     out["16f_seconds"] = ref16f_s + max(
         sum(rank[r[0]]["seconds"] for r in tp_runs) for rank in ranks)
     print(f"  phase 16f: {out['16f_seconds']:.1f} s (its reference "
@@ -5027,6 +5118,92 @@ def print_serving_mesh(one, ranks, smi):
                   f"{x['loop_tokens']} tokens")
 
 
+#: the 17c/17d serves traced for the census: qwen2-7b on (1, 2), without
+#: and with its KV caches split by sequence
+P17_CENSUS = tuple(r for r in P17_RUNS
+                   if r[0] == "qwen2-7b" and tuple(r[3]) == (1, 2))
+
+
+def p17_census(torch, serve, get_config):
+    """The 17c/17d serves of P17_CENSUS traced on ``meta`` tensors as rank 0
+    of the (1, 2) mesh over a fake process group of two (no card, no
+    data): each batch's prefill, its greedy token and P17_NEW decode
+    steps at the ranks' shapes, rules, cache lengths and rows, as
+    ``p17_serve`` drives them.  Returns {label: (the serve's census, its
+    last decode step's, seconds)}."""
+    from repro_torch.analysis import collectives
+    from repro_torch.launch import sharding
+    from repro_torch.launch.dryrun import fake_group, local_meta
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    out = {}
+    with fake_group(2, 0):
+        mesh = make_mesh((1, 2), ("data", "model"), device="meta")
+        for arch, n_layers, dtype, shape, cp in P17_CENSUS:
+            t0 = time.perf_counter()
+            cfg = p17_config(get_config, arch, n_layers, dtype)
+            model = build_model(cfg)
+            rules = make_rules(mesh, overrides=P17_CP if cp else None)
+            tp = sharding.model_axis(mesh, rules)
+            params = local_meta(model.param_defs,
+                                model.serving_layouts(rules, mesh), mesh)
+            prefill = make_prefill_step(model, rules, mesh)
+            decode = make_decode_step(model, rules, mesh)
+            with collectives.census() as whole:
+                for toks in p17_batches(torch, serve, cfg):
+                    B, T = toks.shape
+                    rows = sharding.serve_rows(mesh, rules, B)
+                    max_len = sharding.cache_len(T + P17_NEW, rules, mesh)
+                    caches = model.init_caches(B, max_len, device="meta",
+                                               rules=rules, mesh=mesh)
+                    tokens = torch.zeros(rows.count, T, dtype=torch.long,
+                                         device="meta")
+                    logits, caches = prefill(params, {"tokens": tokens},
+                                             caches, rows, max_len)
+                    sharding.greedy(logits[:, -1], tp, cfg.vocab)
+                    for s in range(P17_NEW):
+                        with collectives.census() as last:
+                            _, _, caches = decode(
+                                params, {"tokens": tokens[:, :1]}, caches,
+                                T + s, rows, max_len)
+            out[p17_label(arch, n_layers, dtype, shape, cp)] = (
+                whole, last, time.perf_counter() - t0)
+    return out
+
+
+def print_serving_census(census, ranks, smi):
+    """17c/17d's census gate: the traced serve's calls and payload bytes by
+    kind, over all its batches and for its last decode step, equal what
+    both gloo ranks counted on the card; printed beside the census's wire
+    bytes by op and the ranks' measured decode steps."""
+    print("== phase 17c/17d census: the same serves traced on meta tensors "
+          "as rank 0 of the (1, 2) mesh over a fake process group, held to "
+          f"the two gloo ranks' counts on the card, kind by kind; {smi}",
+          flush=True)
+    for label, (whole, last, seconds) in census.items():
+        calls, moved = census_counts(whole)
+        step_calls, step_moved = census_counts(last)
+        print(f"  {label}: the serve {whole.total_bytes / 1e9:.4f} GB on "
+              f"the wire in {dict(whole.counts)}; a decode step "
+              f"{ {k: f'{v / 1e6:.3f} MB' for k, v in last.bytes_by_op.items()} }"
+              f" on the wire; traced in {seconds:.1f} s; the ranks' decode "
+              "steps "
+              + ", ".join(f"{rank[label]['step_ms']:.2f} ms (median)"
+                          for rank in ranks), flush=True)
+        for r, rank in enumerate(ranks):
+            x = rank[label]
+            check(calls == x["totals"]["calls"]
+                  and moved == x["totals"]["bytes"],
+                  f"17 census {label} rank {r}: traced {calls} / {moved}, "
+                  f"the rank counted {x['totals']}")
+            check(step_calls == x["step_calls"]
+                  and step_moved == x["step_bytes"],
+                  f"17 census {label} rank {r}: a traced step "
+                  f"{step_calls} / {step_moved}, the rank's "
+                  f"{x['step_calls']} / {x['step_bytes']}")
+
+
 def run_serving_mesh_phase(torch, kernel, ssd_kernel, mha, attention_ref,
                            ssd, ssd_chunked, launched_kernels, get_config,
                            smi):
@@ -5088,8 +5265,20 @@ def run_serving_mesh_phase(torch, kernel, ssd_kernel, mha, attention_ref,
              for r in range(2)]
     shutil.rmtree(work)
     print_serving_mesh(one, ranks, smi)
+    t_census = time.perf_counter()
+    census = p17_census(torch, serve, get_config)
+    print_serving_census(census, ranks, smi)
+    census_s = time.perf_counter() - t_census
+    print(f"  phase 17c/17d census: {census_s:.1f} s", flush=True)
     out = {"one_process": one, "ranks": ranks, "kernel_checks": checks,
            "ssd_checks": ssd_checks, "spawn_seconds": spawn_s,
+           "census": {label: {"calls": dict(w.counts),
+                              "wire_bytes_by_op": w.bytes_by_op,
+                              "by_kind": w.by_kind,
+                              "step_wire_bytes_by_op": l.bytes_by_op,
+                              "seconds": sec}
+                      for label, (w, l, sec) in census.items()},
+           "census_seconds": census_s,
            "seconds": time.perf_counter() - t0, "card": smi}
     print(f"  phase 17: {out['seconds']:.1f} s (the two ranks "
           f"{spawn_s:.1f} s)", flush=True)

@@ -25,8 +25,16 @@ dry run, where the kernels take their counting route,
   at once (storages freed are released through weakref finalizers);
   tensors that existed before (parameters, optimizer state, caches,
   the batch) are not counted.
-* ``collective_bytes``: 0 on one card.  The census of collectives in
-  the dry run is ROADMAP.md Queue A item 5.
+* the census of collectives (``analysis.collectives``): every collective
+  the port calls in the block, on any device (``meta`` over a fake
+  process group for the dry run on a mesh, the CPU, the card):
+  ``collective_counts`` its calls by op, ``collective_bytes_by_op`` its
+  ring-model wire bytes by op (``hlo_stats``' formula at each call's
+  group size), ``collective_bytes`` their sum, ``collectives_by_kind``
+  calls, payload and wire bytes by the port's kinds ("tp_sum",
+  "all_gather", ...), and ``collective_sites`` calls and wire bytes by
+  (op, payload shape, kind, call site), most first.  A step on one card
+  (or a mesh of one process) calls none.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from ..kernels._meta import kernel_call
+from . import collectives
 
 aten = torch.ops.aten
 
@@ -51,8 +60,12 @@ class StepStats:
     flops: float = 0.0                   # products, per device
     hbm_bytes_kernel_adj: float = 0.0    # each tensor written and read once
     peak_bytes: int = 0                  # made during the step, at once
-    collective_bytes: int = 0            # one card: none
+    collective_bytes: int = 0            # ring-model wire bytes, all ops
     flops_by_op: dict = field(default_factory=dict)
+    collective_counts: dict = field(default_factory=dict)       # by op
+    collective_bytes_by_op: dict = field(default_factory=dict)  # wire
+    collectives_by_kind: dict = field(default_factory=dict)
+    collective_sites: list = field(default_factory=list)
 
 
 def _convolution_backward(grad_out, x, w, *args, out_val=None,
@@ -154,5 +167,14 @@ def step_stats():
     """``with step_stats() as stats: step(...)``: ``stats`` (a
     ``StepStats``) counts what the block dispatches."""
     counter = _Counter()
-    with counter:
-        yield counter.stats
+    stats = counter.stats
+    with collectives.census() as c:
+        try:
+            with counter:
+                yield stats
+        finally:
+            stats.collective_counts = dict(c.counts)
+            stats.collective_bytes_by_op = c.bytes_by_op
+            stats.collective_bytes = c.total_bytes
+            stats.collectives_by_kind = c.by_kind
+            stats.collective_sites = c.top_sites()

@@ -39,10 +39,14 @@ The backend is the process group's (``mesh.init_process_group``): gloo
 on the CPU and for ranks that share a card, NCCL for one card a rank.
 gloo takes CUDA tensors in every collective used here (all-gather,
 reduce-scatter, all-reduce, barrier; probed on torch 2.11.0+cu128), so
-nothing is staged through host memory.  ``BYTES`` and ``CALLS`` count,
-for this process, the payload of each collective kind (the bytes of the
-whole tensor a rank gives to or takes from it) and its calls.  The
-serving kinds: "tp_sum" (a row-parallel product's sum over "model"),
+nothing is staged through host memory.  Each collective is called at
+one of five sites (``_all_gather``, ``_reduce_scatter``, ``all_reduce``,
+``sum_squares``, ``axis_sum``), and each hands every call to
+``analysis.collectives.record`` with its kind, its op, the size of its
+group and its payload (the whole tensor a rank gives to or takes from
+it): ``BYTES`` and ``CALLS`` count, for this process, the payload of
+each kind and its calls, and a ``step_stats`` block takes the census of
+its ops and ring-model wire bytes.  The serving kinds: "tp_sum" (a row-parallel product's sum over "model"),
 "embed_sum" (the vocab-parallel embedding's), "norm_sum" (the Mamba-2
 gated norm's sum of squares, both ways in training), "argmax" (the
 greedy token's (value, index) pairs), "rows" (a step's tokens over the
@@ -50,7 +54,9 @@ dp axes) and "tp_grad" (``CopyIn``'s backward); with the KV cache's
 sequence over "model" (context-parallel decode, ``model_axis``'s
 ``seq``), "cp_q" (a decode step's query heads gathered over "model",
 ``gather_heads``) and "cp_merge" (the ranks' partial attention rows and
-their log-sum-exps, ``merge_partials``); the training kinds: "kv_grad"
+their log-sum-exps, ``merge_partials``); "moe_tokens" (a MoE decode
+step's tokens gathered over the dp axes where they fall back to one
+group, ``models.moe``); the training kinds: "kv_grad"
 (the KV leaves' gradients where the KV heads are whole), "xent" (the
 cross-entropy's merge) and "all_gather_model".
 """
@@ -58,28 +64,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from collections import Counter
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.collectives import BYTES, CALLS, record
 from repro_torch.models.common import (axes_of, check_spec, local_shape,
                                        mesh_axis_sizes)
-
-#: payload bytes and calls of each collective kind in this process
-BYTES: Counter = Counter()
-CALLS: Counter = Counter()
-
 
 def reset_counts() -> None:
     BYTES.clear()
     CALLS.clear()
-
-
-def _count(kind: str, t: torch.Tensor) -> None:
-    BYTES[kind] += t.numel() * t.element_size()
-    CALLS[kind] += 1
 
 
 @dataclass(frozen=True, eq=False)
@@ -130,7 +126,7 @@ def _all_gather(x: torch.Tensor, dim: int, group, n: int,
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
     out = torch.cat(parts, dim=dim)
-    _count(kind, out)
+    record(kind, "all-gather", n, out)
     return out
 
 
@@ -199,7 +195,7 @@ def _reduce_scatter(g: torch.Tensor, dim: int, group, n: int, index: int
     chunks = [c.contiguous() for c in g.chunk(n, dim=dim)]
     out = torch.empty_like(chunks[index])
     dist.reduce_scatter(out, chunks, group=group)
-    _count("reduce_scatter", g)
+    record("reduce_scatter", "reduce-scatter", n, g)
     return out
 
 
@@ -209,7 +205,7 @@ def all_reduce(t: torch.Tensor, axes, mesh) -> torch.Tensor:
     for a in axes:
         if mesh.shape[a] > 1:
             dist.all_reduce(t, group=mesh.group(a))
-            _count("all_reduce", t)
+            record("all_reduce", "all-reduce", mesh.shape[a], t)
     return t
 
 
@@ -273,7 +269,7 @@ def sum_squares(tensors, shardings) -> torch.Tensor:
     total = torch.sum(torch.stack(sums))
     if shardings and shardings[0].mesh.size > 1:
         dist.all_reduce(total)       # the mesh's ranks are the world's
-        _count("all_reduce", total)
+        record("all_reduce", "all-reduce", dist.get_world_size(), total)
     return total
 
 
@@ -424,7 +420,7 @@ def axis_sum(t: torch.Tensor, axis: ModelAxis, kind: str) -> torch.Tensor:
     ``t`` as it is on an axis of one rank."""
     if axis.size > 1:
         dist.all_reduce(t, group=axis.group())
-        _count(kind, t)
+        record(kind, "all-reduce", axis.size, t)
     return t
 
 
@@ -569,12 +565,13 @@ def serve_rows(mesh, rules, B: int) -> Rows:
     return Rows(dp_index(mesh, axes) * n, n, axes)
 
 
-def gather_rows(t: torch.Tensor, rows: Rows, mesh) -> torch.Tensor:
+def gather_rows(t: torch.Tensor, rows: Rows, mesh, kind: str = "rows"
+                ) -> torch.Tensor:
     """The whole batch's ``t`` (dim 0) from each rank's rows, all-gathered
-    over ``rows.axes`` (the minor axis first; counted as "rows"); ``t``
-    itself where the rows are not split."""
+    over ``rows.axes`` (the minor axis first; counted under ``kind``);
+    ``t`` itself where the rows are not split."""
     for a in reversed(rows.axes):
-        t = _all_gather(t, 0, mesh.group(a), mesh.shape[a], "rows")
+        t = _all_gather(t, 0, mesh.group(a), mesh.shape[a], kind)
     return t
 
 

@@ -28,9 +28,12 @@ call) the reference's layout is written out, ``Shards`` holding it:
 * groups over dp: the G groups of a microbatch are split over the dp
   axes, a rank's rows of the microbatch being its G/dp groups, so a rank
   routes its own groups; S, C and the one-group fallback for degenerate
-  shapes are those of the whole microbatch (G must be a multiple of dp,
-  and a shape that falls back to one group while dp > 1 raises: its
-  groups would hold other ranks' tokens);
+  shapes are those of the whole microbatch (G must be a multiple of dp;
+  where a shape falls back to one group while dp > 1, its group holds
+  other ranks' tokens: with a gradient wanted that raises, and in
+  inference, a decode step of few rows, the rank all-gathers the dp
+  ranks' rows as GSPMD would and routes the one group whole,
+  ``_one_group_over_dp``);
 * the aux loss is a rank's share: the expert counts ``ce`` are summed
   over the dp axes, and the rank's ``me`` is the sum of its own router
   probabilities over the microbatch's G*S tokens, so the ranks' shares
@@ -57,7 +60,7 @@ whole product's bits (the CPU's does).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.nn.functional as F
@@ -204,15 +207,39 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig,
     """x: (B, T, d) -> (out, aux_loss).  With ``rules`` and ``mesh``: x
     is this rank's rows of the microbatch, the expert leaves of ``params``
     are its slices, and aux is its share (module docstring)."""
+    return _apply(params, x, cfg,
+                  None if mesh is None else shards_for(cfg, rules, mesh))
+
+
+def _one_group_over_dp(params, x, cfg, shards: Shards):
+    """Inference on a microbatch whose tokens fall back to one group while
+    its rows lie over the dp ranks (a decode step of few rows): the rank
+    all-gathers every dp rank's rows of ``x`` over the dp axes (counted
+    as "moe_tokens"), routes the one group whole as every dp rank does,
+    and keeps its own rows of the output: GSPMD's gather of a group that
+    spans ranks.  aux is the whole group's on every rank."""
+    from repro_torch.launch import sharding
+    B = x.shape[0]
+    rows = sharding.Rows(sharding.dp_index(shards.mesh, shards.dp_axes) * B,
+                         B, shards.dp_axes)
+    whole = sharding.gather_rows(x, rows, shards.mesh, kind="moe_tokens")
+    out, aux = _apply(params, whole, cfg,
+                      replace(shards, dp_axes=(), dp=1))
+    return rows.take(out), aux
+
+
+def _apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
+           shards: Shards | None):
     m = cfg.moe
     B, T, d = x.shape
-    shards = None if mesh is None else shards_for(cfg, rules, mesh)
     dp = 1 if shards is None else shards.dp
     n_tok = B * T * dp                      # the whole microbatch's tokens
     G = cfg.moe_groups or 1
     if n_tok % G or (n_tok // G) < m.n_experts // m.top_k:
         G = 1  # degenerate/smoke shapes: single group
     if G % dp:
+        if not torch.is_grad_enabled():
+            return _one_group_over_dp(params, x, cfg, shards)
         raise ValueError(
             f"{cfg.arch}: {n_tok} tokens a microbatch fall back to one MoE "
             f"group (fewer than E/K = {m.n_experts // m.top_k} tokens a "

@@ -39,6 +39,10 @@ spawns share the host with the suite's other workers.
 * ``ServeLoop`` on each mesh serves the tokens one process serves; the
   merge of partials over a split key range (with empty parts and rows
   that see no key) is the plain attention over the whole range.
+* The census of the prefill and of the last decode step under the rule,
+  traced on ``meta`` tensors as rank 0 of the same mesh over a fake
+  process group (``analysis.step_stats``, ``launch.dryrun.fake_group``):
+  calls and payload bytes by kind equal what every gloo rank counted.
 
 In this process: the cache specs of the ten configs equal the JAX
 package's under the dry run's override on a 16 x 16 mesh; a spec with one
@@ -52,9 +56,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import step_stats
 from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.kernels.flash_attention import attention_ref, lse_ref, mha
 from repro_torch.launch import sharding
+from repro_torch.launch.dryrun import fake_group, local_meta
 from repro_torch.launch.mesh import Mesh, make_mesh, make_rules, spawn
 from repro_torch.launch.serve import ServeLoop, make_requests, serve_queue
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -126,8 +132,9 @@ def _inputs(cfg, B, steps):
 def _serve(model, params, batch, decodes, B, max_len, dtype, rules=None,
            mesh=None):
     """A prefill and the decode steps on this rank (or one process):
-    the logits of each call, the caches, and the last step's
-    collectives."""
+    the logits of each call, the caches, the collectives of the prefill
+    and of the last step (calls and payload bytes by kind) and the
+    rows."""
     kw = {} if mesh is None else {"rules": rules, "mesh": mesh}
     rows = sharding.serve_rows(mesh, rules, B)
     extra = {} if mesh is None else {"rows": rows, "max_len": max_len}
@@ -135,8 +142,11 @@ def _serve(model, params, batch, decodes, B, max_len, dtype, rules=None,
                                **kw)
     prefill, decode = make_prefill_step(model, **kw), make_decode_step(
         model, **kw)
+    sharding.reset_counts()
     logits, caches = prefill(params, {k: rows.take(v) for k, v in
                                       batch.items()}, caches, **extra)
+    counts = {"prefill_calls": dict(sharding.CALLS),
+              "prefill_bytes": dict(sharding.BYTES)}
     out = [logits]
     for s, d in enumerate(decodes):
         sharding.reset_counts()
@@ -144,7 +154,8 @@ def _serve(model, params, batch, decodes, B, max_len, dtype, rules=None,
                                             d.items()}, caches, T + s,
                                    **extra)
         out.append(logits)
-    return out, caches, dict(sharding.CALLS), rows
+    counts.update(calls=dict(sharding.CALLS), bytes=dict(sharding.BYTES))
+    return out, caches, counts, rows
 
 
 def _kv_numel(caches) -> int:
@@ -166,13 +177,13 @@ def _case(mesh, device, arch, B, steps, params):
     local = sharding.serve_tree(params, model.serving_layouts(rules, mesh),
                                 mesh)
     batch, decodes = _inputs(cfg, B, steps)
-    logits, caches, calls, rows = _serve(model, local, batch, decodes, B,
+    logits, caches, counts, rows = _serve(model, local, batch, decodes, B,
                                          T + steps, torch.float32, rules,
                                          mesh)
     plain = make_rules(mesh)
     base = _serve(model, sharding.serve_tree(
         params, model.serving_layouts(plain, mesh), mesh), batch,
-        decodes[:1], B, T + steps, torch.float32, plain, mesh)[2]
+        decodes[:1], B, T + steps, torch.float32, plain, mesh)[2]["calls"]
     whole = _kv_numel(model.init_caches(rows.count, T + steps,
                                         cache_dtype=torch.float32,
                                         device="cpu"))
@@ -189,7 +200,7 @@ def _case(mesh, device, arch, B, steps, params):
             torch.float32, without, mesh)
         same = all(torch.equal(a, b) for a, b in zip(
             logits + _leaves(caches), w_logits + _leaves(w_caches)))
-    return {"logits": logits, "caches": caches, "calls": calls,
+    return {"logits": logits, "caches": caches, **counts,
             "base_calls": base, "kv_numel": _kv_numel(caches),
             "kv_whole": whole, "same_without_rule": same,
             "rows": (rows.start, rows.count, rows.axes),
@@ -515,6 +526,50 @@ def test_a_rank_holds_its_part_and_counts_its_collectives(shape, runs):
             if split and n_attn:
                 want.update(cp_q=n_attn, cp_merge=n_attn)
             assert out["calls"] == want, (case, out["calls"], want)
+
+
+def _traced_census(shape, arch, B, steps):
+    """The census of a case's prefill and of its last decode step under
+    the rule, traced as rank 0 of ``shape`` on ``meta`` tensors of the
+    rank's shapes over a fake process group: ({kind: calls}, {kind:
+    payload bytes}) of each."""
+    cfg = _cfg(arch)
+    model = build_model(cfg)
+    batch, decodes = _inputs(cfg, B, steps)
+    max_len = T + steps
+    with fake_group(shape[0] * shape[1], 0):
+        mesh = make_mesh(shape, ("data", "model"), device="meta")
+        rules = make_rules(mesh, overrides=cp_overrides(cfg, shape[1]))
+        params = local_meta(model.param_defs,
+                            model.serving_layouts(rules, mesh), mesh)
+        rows = sharding.serve_rows(mesh, rules, B)
+        caches = model.init_caches(B, max_len, cache_dtype=torch.float32,
+                                   device="meta", rules=rules, mesh=mesh)
+        kw = {"rows": rows, "max_len": max_len}
+        with step_stats() as pre:
+            make_prefill_step(model, rules, mesh)(
+                params, {k: rows.take(v.to("meta")) for k, v in
+                         batch.items()}, caches, **kw)
+        with step_stats() as dec:
+            make_decode_step(model, rules, mesh)(
+                params, {k: rows.take(v.to("meta")) for k, v in
+                         decodes[-1].items()}, caches, T + steps - 1, **kw)
+    return [({k: v["calls"] for k, v in s.collectives_by_kind.items()},
+             {k: v["payload_bytes"] for k, v in
+              s.collectives_by_kind.items()}) for s in (pre, dec)]
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_census_of_the_traced_steps_is_what_the_ranks_counted(case, shape,
+                                                              runs):
+    ranks, _, _ = runs
+    (pre_calls, pre_bytes), (calls, moved) = _traced_census(shape, *case)
+    for rank in ranks[shape]:
+        out = rank[(shape,) + case]
+        assert pre_calls == out["prefill_calls"]
+        assert pre_bytes == out["prefill_bytes"]
+        assert calls == out["calls"] and moved == out["bytes"]
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")

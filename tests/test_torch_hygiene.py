@@ -38,6 +38,7 @@ ENTRY_POINTS = [ROOT / "chip_smoke.py",
                 ROOT / "scripts" / "report_trace_torch.py",
                 ROOT / "scripts" / "dev_smoke_torch.py",
                 ROOT / "scripts" / "gen_roofline_md_torch.py",
+                ROOT / "scripts" / "probe_collectives_torch.py",
                 ROOT / "scripts" / "lint_repro_torch.py"]
 
 

@@ -43,7 +43,13 @@ qwen2-7b at B 3 serves rows replicated over "data" (3 does not split).
   the order of sums.
 * ``ServeLoop`` on (1, 2) and (2, 1) serves the tokens one process
   serves; ``CopyIn`` / ``SumOut`` give the whole function's gradients;
-  a MoE decode whose groups fall back to one on dp > 1 raises.
+  a MoE decode whose groups fall back to one on dp > 1 gathers the
+  group's tokens over dp ("moe_tokens", once a MoE layer) and serves the
+  rank's rows as one process does (at the models' bar).
+* The census of the prefill and of the last decode step, traced on
+  ``meta`` tensors as rank 0 of the same mesh over a fake process group
+  (``analysis.step_stats``, ``launch.dryrun.fake_group``): calls and
+  payload bytes by kind equal what every gloo rank counted.
 
 In this process: the (1, 1) mesh is bit for bit the path without a mesh,
 and the steps build with ``kv_seq`` over "model" (context-parallel
@@ -58,8 +64,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import step_stats
 from repro_torch.configs import smoke_config
 from repro_torch.launch import sharding
+from repro_torch.launch.dryrun import fake_group, local_meta
 from repro_torch.launch.mesh import Mesh, make_mesh, make_rules, spawn
 from repro_torch.launch.serve import ServeLoop, make_requests, serve_queue
 from repro_torch.launch.shapes import concrete_batch
@@ -119,11 +127,14 @@ def _serve_case(mesh, rules, device, arch, B, params, batch, forced):
     prefill = make_prefill_step(model, rules, mesh)
     decode = make_decode_step(model, rules, mesh)
     tp = sharding.model_axis(mesh, rules)
+    sharding.reset_counts()
     logits, caches = prefill(local, {k: rows.take(v) for k, v in
                                      batch.items()}, caches, rows=rows)
-    out = {"logits": [logits], "tokens": [
+    out = {"prefill_calls": dict(sharding.CALLS),
+           "prefill_bytes": dict(sharding.BYTES)}
+    out.update(logits=[logits], tokens=[
         sharding.greedy(logits[:, -1], tp, cfg.vocab)],
-           "rows": (rows.start, rows.count, rows.axes)}
+        rows=(rows.start, rows.count, rows.axes))
     for s in range(STEPS):
         sharding.reset_counts()
         tok, logits, caches = decode(local, {"tokens": rows.take(
@@ -131,6 +142,7 @@ def _serve_case(mesh, rules, device, arch, B, params, batch, forced):
         out["logits"].append(logits)
         out["tokens"].append(tok)
     out["calls"] = dict(sharding.CALLS)
+    out["bytes"] = dict(sharding.BYTES)
     out["caches"] = caches
     out["weight_bytes"] = sum(x.numel() * x.element_size()
                               for x in _leaves(local))
@@ -165,19 +177,28 @@ def _operators(mesh, device):
 
 def _moe_fallback_raises(mesh, rules, device, params):
     """A qwen3-moe decode of 4 rows on dp > 1: 4 tokens in 4 groups fall
-    back to one group, which the dp ranks cannot split."""
-    model = build_model(_cfg("qwen3-moe-30b-a3b"))
+    back to one group, which spans the dp ranks, so the rank gathers the
+    group's tokens.  Returns (the largest gap between the rank's logits
+    and the one-process decode's of its rows and vocab slice, over their
+    largest |logit|; the step's collective calls)."""
+    cfg = _cfg("qwen3-moe-30b-a3b")
+    model = build_model(cfg)
     local = sharding.serve_tree(params, model.serving_layouts(rules, mesh),
                                 mesh)
     rows = sharding.serve_rows(mesh, rules, 4)
-    caches = _caches(model, 4, device=device, rules=rules, mesh=mesh)
-    try:
-        make_decode_step(model, rules, mesh)(
-            local, {"tokens": torch.zeros(rows.count, 1, dtype=torch.long)},
-            caches, 0, rows=rows)
-    except ValueError as e:
-        return str(e)
-    return ""
+    toks = torch.tensor([[3], [1], [4], [1]])
+    sharding.reset_counts()
+    _, logits, _ = make_decode_step(model, rules, mesh)(
+        local, {"tokens": rows.take(toks)},
+        _caches(model, 4, device=device, rules=rules, mesh=mesh), 0,
+        rows=rows)
+    calls = dict(sharding.CALLS)
+    _, whole, _ = make_decode_step(model)(
+        params, {"tokens": toks}, _caches(model, 4, device=device), 0)
+    V = logits.shape[-1]
+    v0 = mesh.index("model") * V if V != cfg.vocab else 0
+    ref = rows.take(whole)[..., v0:v0 + V]
+    return float((logits - ref).abs().max() / ref.abs().max()), calls
 
 
 def _float64_gap(mesh, rules, device, arch):
@@ -571,11 +592,59 @@ def test_serve_loop_on_a_mesh_serves_the_one_process_tokens(arch, shape,
 
 
 def test_moe_decode_falling_back_to_one_group_on_dp_raises(runs):
+    """Once raised here; the step now gathers the one group's tokens over
+    "data" (once a MoE layer) and serves the rank's rows as one process
+    serves them."""
     ranks, _, _ = runs
+    n_moe = _cfg("qwen3-moe-30b-a3b").n_layers
     for shape in MESHES:
         if shape[0] > 1:
             for rank in ranks[shape]:
-                assert "one group" in rank[shape, "moe_fallback"], shape
+                gap, calls = rank[shape, "moe_fallback"]
+                assert gap <= TOL, (shape, gap)
+                assert calls["moe_tokens"] == n_moe, (shape, calls)
+
+
+def _traced_census(shape, arch, B, batch):
+    """The census of a case's prefill and of a decode step, traced as rank
+    0 of ``shape`` on ``meta`` tensors of the rank's shapes over a fake
+    process group: ({kind: calls}, {kind: payload bytes}) of each."""
+    cfg = _cfg(arch)
+    model = build_model(cfg)
+    with fake_group(shape[0] * shape[1], 0):
+        mesh = make_mesh(shape, ("data", "model"), device="meta")
+        rules = make_rules(mesh)
+        params = local_meta(model.param_defs,
+                            model.serving_layouts(rules, mesh), mesh)
+        rows = sharding.serve_rows(mesh, rules, B)
+        caches = _caches(model, B, device="meta", rules=rules, mesh=mesh)
+        with step_stats() as pre:
+            make_prefill_step(model, rules, mesh)(
+                params, {k: rows.take(v.to("meta")) for k, v in
+                         batch.items()}, caches, rows=rows)
+        with step_stats() as dec:
+            make_decode_step(model, rules, mesh)(
+                params, {"tokens": torch.zeros(rows.count, 1,
+                                               dtype=torch.long,
+                                               device="meta")},
+                caches, T + STEPS - 1, rows=rows)
+    return [({k: v["calls"] for k, v in s.collectives_by_kind.items()},
+             {k: v["payload_bytes"] for k, v in
+              s.collectives_by_kind.items()}) for s in (pre, dec)]
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_census_of_the_traced_steps_is_what_the_ranks_counted(case, shape,
+                                                              runs, inputs):
+    ranks, _, _ = runs
+    (pre_calls, pre_bytes), (calls, moved) = _traced_census(
+        shape, *case, inputs[2][case])
+    for rank in ranks[shape]:
+        out = rank[(shape,) + case]
+        assert pre_calls == out["prefill_calls"]
+        assert pre_bytes == out["prefill_bytes"]
+        assert calls == out["calls"] and moved == out["bytes"]
 
 
 def _mesh_one(coords=(0, 0), dims=(1, 1)):

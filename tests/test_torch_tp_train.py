@@ -40,6 +40,10 @@ padded).
   included, for stablelm-1.6b, qwen2-7b (KV heads whole at tp 4: their
   weights' gradients summed once, "kv_grad") and mamba2-1.3b (the gated
   norm's sum in both directions, "norm_sum").
+* The census of the same step traced on ``meta`` tensors as rank 0 of
+  the same mesh over a fake process group
+  (``analysis.step_stats``, ``launch.dryrun.fake_group``): calls and
+  payload bytes by kind equal what every gloo rank counted.
 
 In this process: the (1, 1) mesh's step is the step without a mesh bit
 for bit.  The workers import no JAX (the children import this module).
@@ -51,9 +55,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import step_stats
 from repro_torch.configs import smoke_config
 from repro_torch.data import SyntheticLMData
 from repro_torch.launch import sharding
+from repro_torch.launch.dryrun import fake_group, local_meta
 from repro_torch.launch.mesh import make_mesh, make_rules, spawn
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model, layers, mamba2, transformer
@@ -452,6 +458,41 @@ def test_tp_collectives_of_a_step_by_kind(arch, shape, runs):
         calls = rank[shape, arch]["calls"]
         got = {k: v for k, v in calls.items() if k in TP_KINDS}
         assert got == want, (got, want)
+
+
+def _traced_census(shape, arch, rank, batch):
+    """The census of ``_step``'s step traced as ``rank`` of ``shape`` on
+    ``meta`` tensors of the rank's shapes over a fake process group."""
+    cfg = _cfg(arch)
+    model = build_model(cfg)
+    with fake_group(math.prod(shape), rank):
+        mesh = make_mesh(shape, ("data", "model"), device="meta")
+        rules = make_rules(mesh)
+        sdefs = state_defs(model.param_defs, OPT)
+        params = local_meta(model.param_defs, sharding.tree_shardings(
+            model.param_specs(rules), mesh), mesh)
+        state = local_meta(sdefs, sharding.tree_shardings(
+            tree_defs_to_specs(sdefs, rules), mesh), mesh)
+        step = make_train_step(model, OPT, MICRO, rules=rules, mesh=mesh,
+                               keep_grads=True)
+        with step_stats() as stats:
+            step(params, state, sharding.local_batch(
+                {k: v.to("meta") for k, v in batch.items()}, mesh, rules,
+                MICRO))
+    return stats.collectives_by_kind
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=_mesh_id)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_census_of_the_traced_step_is_what_the_ranks_counted(arch, shape,
+                                                             runs, inputs):
+    ranks, _, _ = runs
+    census = _traced_census(shape, arch, 0, inputs[2][arch])
+    for rank in ranks[shape]:
+        out = rank[shape, arch]
+        assert {k: v["calls"] for k, v in census.items()} == out["calls"]
+        assert {k: v["payload_bytes"] for k, v in census.items()} == \
+            out["bytes"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
